@@ -1,0 +1,97 @@
+"""Engine configuration of the port's ``EmdIndex``.
+
+``EngineConfig`` keeps the JAX package's field names, so a configuration
+reads the same in both packages. The fields and values this package does
+not run yet raise ``ValueError`` naming the field and saying so; each of
+them accepts only the JAX default, which leaves its feature off.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.precision import POLICIES, UNPORTED_POLICIES
+from repro_torch.core.retrieval import METHODS
+
+#: ``reference`` runs plain PyTorch ops; ``cuda`` the hand-written kernels
+#: (the counterpart of the JAX package's ``pallas``).
+BACKENDS = ("reference", "cuda")
+
+#: JAX ``EngineConfig`` values this package does not run yet.
+_UNPORTED_VALUES = {
+    "method": ("rwmd_rev", "omr", "ict", "bow", "wcd"),
+    "backend": ("pallas", "distributed"),
+    "precision": UNPORTED_POLICIES,
+}
+
+#: JAX ``EngineConfig`` fields this package does not run yet: tile knobs
+#: of the Pallas kernels, the scan engine, symmetric scoring, the mesh,
+#: the cascade and the autotuner. Each keeps its JAX default.
+_UNPORTED_FIELDS = ("symmetric", "batch_engine", "block_v", "block_h",
+                    "block_n", "rev_block", "pad_multiple", "cascade",
+                    "autotune", "tune_cache")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Frozen description of how an :class:`~repro_torch.api.EmdIndex`
+    scores.
+
+    method:    ``act`` (LC-ACT-k) or ``rwmd`` (LC-RWMD, db -> query).
+    iters:     LC-ACT Phase-2 rounds (``k = iters + 1``; ignored by rwmd).
+    backend:   ``cuda`` (default; the CUDA kernels, or their plain versions
+               on an index built on the CPU) or ``reference`` (PyTorch ops).
+    top_l:     default neighbour count for ``EmdIndex.search``.
+    block_q:   queries gathered and poured per Phase-2 block.
+    precision: ``f32`` or ``bf16`` (bfloat16 handoff ladders, float32
+               matmul and accumulators).
+    """
+    method: str = "act"
+    iters: int = 1
+    backend: str = "cuda"
+    top_l: int = 16
+    block_q: int = 8
+    precision: str = "f32"
+    symmetric: bool = False
+    batch_engine: str = "batched"
+    block_v: int = 256
+    block_h: int = 256
+    block_n: int = 256
+    rev_block: int = 256
+    pad_multiple: int = 512
+    cascade: object = None
+    autotune: str = "off"
+    tune_cache: str | None = None
+
+    def __post_init__(self) -> None:
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            if (f.name in _UNPORTED_FIELDS and value != f.default) or \
+                    value in _UNPORTED_VALUES.get(f.name, ()):
+                raise ValueError(f"EngineConfig.{f.name}={value!r} is not "
+                                 "yet ported")
+        if self.method not in METHODS:
+            raise ValueError(f"unknown method {self.method!r}; one of "
+                             f"{METHODS}")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; one of "
+                             f"{BACKENDS}")
+        if self.precision not in POLICIES:
+            raise ValueError(f"unknown precision policy {self.precision!r}; "
+                             f"one of {sorted(POLICIES)}")
+        if self.iters < 0:
+            raise ValueError(f"iters must be >= 0, got {self.iters}")
+        if self.top_l < 1:
+            raise ValueError(f"top_l must be >= 1, got {self.top_l}")
+        if self.block_q < 1:
+            raise ValueError(f"block_q must be >= 1, got {self.block_q}")
+
+    @property
+    def effective_iters(self) -> int:
+        """Phase-2 rounds actually run (0 for rwmd)."""
+        return self.iters if self.method == "act" else 0
+
+    def score_kwargs(self) -> dict:
+        """Keyword arguments of ``retrieval.batch_scores``."""
+        return dict(method=self.method, iters=self.effective_iters,
+                    use_kernels=self.backend == "cuda",
+                    block_q=self.block_q, precision=self.precision)

@@ -1,0 +1,108 @@
+"""``EmdIndex``: build once over a corpus, then score and search query
+batches, on one device.
+
+    index = EmdIndex.build(corpus, EngineConfig(method="act", iters=7))
+    scores = index.scores(q_ids, q_w)          # (h,) -> (n,), (nq, h) -> (nq, n)
+    top, idx = index.search(q_ids, q_w)        # top-l neighbours
+
+The index lives on a CUDA device unless the caller asks for the CPU. A
+single query runs as a batch of one through the batched engine.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.api.config import EngineConfig
+from repro_torch.core import retrieval
+from repro_torch.core.lc import Corpus
+
+
+def corpus_from_numpy(ids, w, coords, device) -> Corpus:
+    """A :class:`Corpus` on ``device`` from numpy-convertible arrays: the
+    JAX package's ``Corpus`` fields (``np.asarray`` of each) carried across
+    unchanged. ids (n, hmax) int, w (n, hmax) float32, coords (v, m)."""
+    return Corpus(
+        ids=torch.tensor(np.asarray(ids, np.int32), device=device),
+        w=torch.tensor(np.asarray(w, np.float32), device=device),
+        coords=torch.tensor(np.asarray(coords, np.float32), device=device))
+
+
+def _to_tensor(x, dtype, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype or x.dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+@dataclasses.dataclass(frozen=True, repr=False)
+class EmdIndex:
+    """Immutable handle over a corpus placed on its device. Construct via
+    :meth:`build`."""
+    corpus: Corpus
+    config: EngineConfig
+
+    def __repr__(self) -> str:
+        c = self.corpus
+        return (f"EmdIndex(n={c.n}, hmax={c.hmax}, v={c.v}, m={c.m}, "
+                f"method={self.config.method!r}, "
+                f"backend={self.config.backend!r}, device={c.device})")
+
+    @classmethod
+    def build(cls, corpus: Corpus, config: EngineConfig | None = None,
+              device=None) -> "EmdIndex":
+        """Place ``corpus`` on ``device`` (default ``"cuda"``). Without a
+        CUDA device the caller must ask for ``device="cpu"``, which runs
+        the kernels' plain PyTorch versions."""
+        config = EngineConfig() if config is None else config
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("EmdIndex.build places the index on "
+                                   "'cuda' by default and no CUDA device is "
+                                   "available; pass device='cpu' to run on "
+                                   "the CPU")
+            device = "cuda"
+        return cls(corpus=corpus.to(device), config=config)
+
+    @property
+    def n(self) -> int:
+        """Number of database histograms."""
+        return self.corpus.n
+
+    def _check_queries(self, q_ids, q_w):
+        """Validate query input and bring it to a ``(nq, h)`` batch on the
+        index's device; returns (ids, w, was_single)."""
+        device = self.corpus.device
+        q_ids = _to_tensor(q_ids, None, device)
+        q_w = _to_tensor(q_w, torch.float32, device)
+        if q_ids.dim() not in (1, 2) or q_ids.shape != q_w.shape:
+            raise ValueError(f"expected matching (h,) or (nq, h) queries, got "
+                             f"ids {tuple(q_ids.shape)} / w "
+                             f"{tuple(q_w.shape)}")
+        if q_ids.dtype.is_floating_point or q_ids.dtype == torch.bool:
+            raise ValueError(f"query ids must be integers, got {q_ids.dtype}")
+        if q_ids.numel() and not (0 <= int(q_ids.min())
+                                  and int(q_ids.max()) < self.corpus.v):
+            raise ValueError(f"query ids must lie in [0, {self.corpus.v})")
+        single = q_ids.dim() == 1
+        if single:
+            q_ids, q_w = q_ids[None], q_w[None]
+        return q_ids.contiguous(), q_w.contiguous(), single
+
+    def scores(self, q_ids, q_w) -> torch.Tensor:
+        """Directional bound of every database row vs the query/queries:
+        ``(h,)`` -> ``(n,)``, ``(nq, h)`` -> ``(nq, n)``. Lower = more
+        similar."""
+        qi, qw, single = self._check_queries(q_ids, q_w)
+        s = retrieval.batch_scores(self.corpus, qi, qw,
+                                   **self.config.score_kwargs())
+        return s[0] if single else s
+
+    def search(self, q_ids, q_w, top_l: int | None = None):
+        """(scores, indices) of the top-l most similar database rows,
+        ascending, lowest index first among ties; ``(top_l,)`` each for a
+        single query, ``(nq, top_l)`` for a batch. ``top_l`` defaults to
+        ``config.top_l``."""
+        top_l = self.config.top_l if top_l is None else top_l
+        return retrieval.top_l_smallest(self.scores(q_ids, q_w), top_l)

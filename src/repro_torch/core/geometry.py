@@ -1,0 +1,30 @@
+"""Ground-distance utilities: Euclidean costs between embedding vectors.
+
+Cost matrices use the ``||a-b||^2 = ||a||^2 + ||b||^2 - 2 a.b`` expansion,
+so the heavy term is one matrix product. In float32 that product must run
+in full float32 (PyTorch's default, ``torch.get_float32_matmul_precision()
+== "highest"``): TF32 drops mantissa bits, and identical coordinates would
+then no longer snap to an exact zero.
+"""
+from __future__ import annotations
+
+import torch
+
+#: RELATIVE zero-snap: squared distances below ZERO_SNAP^2 x (|a|^2+|b|^2)
+#: collapse to exact 0. The expansion leaves ~eps_f32 x (|a|^2+|b|^2) of
+#: cancellation residue on IDENTICAL coordinates, which would defeat the
+#: paper's zero-cost overlap detection; exact zeros are load-bearing.
+ZERO_SNAP = 1e-3
+
+
+def pairwise_dist(a: torch.Tensor, b: torch.Tensor,
+                  snap: float = ZERO_SNAP) -> torch.Tensor:
+    """Euclidean distances between rows of ``a`` (na, m) and ``b`` (nb, m);
+    near-zero values collapse to exact 0 relative to the pair's magnitude
+    (see ZERO_SNAP)."""
+    a2 = torch.sum(a * a, dim=-1, keepdim=True)          # (na, 1)
+    b2 = torch.sum(b * b, dim=-1, keepdim=True).T        # (1, nb)
+    d2 = torch.clamp_min(a2 + b2 - 2.0 * (a @ b.T), 0.0)
+    if snap:
+        d2 = torch.where(d2 < snap * snap * (a2 + b2), 0.0, d2)
+    return torch.sqrt(d2)

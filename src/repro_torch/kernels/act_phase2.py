@@ -1,0 +1,74 @@
+"""Phase-2/3 kernel ``act_phase2``: the LC-ACT water-filling pour over
+pre-gathered (cost, capacity) ladders, for a query batch.
+
+Counterpart of the JAX package's
+``kernels/act_phase2.py::act_phase2_pallas``. The CUDA kernel is
+``csrc/act_phase2.cu``; :func:`act_phase2_plain` is the same function in
+plain PyTorch (the per-entry rounds of the JAX kernel's
+``pour_entry_costs``), which the CPU path runs and the card is checked
+against. x (n, hmax) float32 is shared by all queries; zg (nq, n, hmax,
+iters+1) and wg (nq, n, hmax, iters) are float32 or bfloat16 and are read
+into float32; t (nq, n) is float32.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: Kernel launches since the count was last set to 0.
+launches = 0
+
+
+def act_phase2_plain(x: torch.Tensor, zg: torch.Tensor,
+                     wg: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the exclusive-prefix pour,
+    r_l = clip(x - sum_{u<l} w_u, 0, w_l), round by round, plus the
+    remainder max(x - sum_l w_l, 0) at the last cost, summed over hmax in
+    float32 (see ``core.lc.pour`` for why the remainder is taken from the
+    capacities)."""
+    iters = wg.shape[-1]
+    acc = torch.zeros(zg.shape[:-1], dtype=torch.float32, device=x.device)
+    prefix = torch.zeros_like(acc)
+    for l in range(iters):
+        w_l = wg[..., l].float()
+        r = torch.minimum(torch.clamp_min(x - prefix, 0.0), w_l)
+        acc = acc + r * zg[..., l].float()
+        prefix = prefix + w_l
+    remainder = torch.clamp_min(x - prefix, 0.0)
+    return torch.sum(acc + remainder * zg[..., iters].float(), dim=-1)
+
+
+def act_phase2_cuda(x: torch.Tensor, zg: torch.Tensor,
+                    wg: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream. The caller
+    (``ops.act_phase2_batched``) has checked devices, dtypes, shapes and
+    contiguity."""
+    global launches
+    lib = _lib()
+    nq, n, hmax, iters = wg.shape
+    t = torch.empty((nq, n), dtype=torch.float32, device=x.device)
+    err = lib.act_phase2_launch(
+        x.data_ptr(), zg.data_ptr(), wg.data_ptr(), t.data_ptr(), nq, n,
+        hmax, iters, int(zg.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"act_phase2 kernel launch failed: "
+                           f"{lib.act_phase2_error(err).decode()}")
+    launches += 1
+    return t
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/act_phase2.cu``."""
+    lib = _build.load("act_phase2")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.act_phase2_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.act_phase2_launch.restype = i
+    lib.act_phase2_error.argtypes = [i]
+    lib.act_phase2_error.restype = ctypes.c_char_p
+    return lib

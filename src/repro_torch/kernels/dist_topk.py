@@ -1,0 +1,96 @@
+"""Phase-1 kernel ``dist_topk``: fused Euclidean distance + row-top-k over a
+query batch, without the (nq, v, h) distance tensor ever reaching memory.
+
+Counterpart of the JAX package's ``kernels/dist_topk.py::dist_topk_pallas``.
+The CUDA kernel is ``csrc/dist_topk.cu``; :func:`dist_topk_plain` is the
+same function in plain PyTorch, which the CPU path runs and the card is
+checked against. Contract (both versions):
+
+* d = sqrt(snap(max(|a|^2 + |b|^2 - 2 a.b, 0))) in float32, where snap
+  zeroes values below 1e-6 (|a|^2 + |b|^2);
+* invalid query bins (``qmask`` false) read ``pad_dist_for(out_dtype)``;
+* per vocabulary row the k smallest, ascending, ties to the lowest column,
+  selected in float32. On a row with fewer than k valid bins the slots past
+  them hold the sentinel and S = the lowest column that is invalid or
+  already taken (the JAX kernel's masked-min rule);
+* Z (nq, v, k) in ``out_dtype`` (cast on the store only), S (nq, v, k) int32.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.geometry import pairwise_dist
+from repro_torch.core.precision import pad_dist_for
+from repro_torch.kernels import _build
+
+#: Largest k the kernel takes (its selection registers are sized at build).
+MAX_K = 16
+
+#: Kernel launches since the count was last set to 0.
+launches = 0
+
+
+def dist_topk_plain(coords: torch.Tensor, qcs: torch.Tensor,
+                    qmask: torch.Tensor, k: int,
+                    out_dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of the kernel: materialize the (v, nq, h)
+    distances, then k rounds of masked min-extraction with the
+    ``out_dtype`` sentinel. coords (v, m), qcs (nq, h, m), qmask (nq, h)
+    bool -> Z (nq, v, k) ``out_dtype``, S (nq, v, k) int32."""
+    v, _ = coords.shape
+    nq, h, m = qcs.shape
+    big = pad_dist_for(out_dtype)
+    d = pairwise_dist(coords, qcs.reshape(nq * h, m)).reshape(v, nq, h)
+    work = torch.where(qmask[None], d, big)
+    col = torch.arange(h, dtype=torch.int32, device=coords.device)
+    zs, ss = [], []
+    for _ in range(k):
+        mv = work.amin(dim=-1, keepdim=True)
+        mi = torch.where(work == mv, col, 2**31 - 1).amin(dim=-1,
+                                                          keepdim=True)
+        work = torch.where(col == mi, big, work)
+        zs.append(mv)
+        ss.append(mi)
+    Z = torch.cat(zs, dim=-1).movedim(1, 0).to(out_dtype).contiguous()
+    S = torch.cat(ss, dim=-1).movedim(1, 0).to(torch.int32).contiguous()
+    return Z, S
+
+
+def dist_topk_cuda(coords: torch.Tensor, qcs: torch.Tensor,
+                   qmask: torch.Tensor, k: int,
+                   out_dtype: torch.dtype = torch.float32):
+    """Launch the CUDA kernel on the current stream. The caller
+    (``ops.dist_topk_batched``) has checked devices, dtypes, shapes and
+    contiguity."""
+    global launches
+    lib = _lib()
+    v, m = coords.shape
+    nq, h, _ = qcs.shape
+    z = torch.empty((nq, v, k), dtype=out_dtype, device=coords.device)
+    s = torch.empty((nq, v, k), dtype=torch.int32, device=coords.device)
+    err = lib.dist_topk_launch(
+        coords.data_ptr(), qcs.data_ptr(), qmask.data_ptr(), z.data_ptr(),
+        s.data_ptr(), nq, v, h, m, k, pad_dist_for(out_dtype),
+        int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(coords.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"dist_topk kernel launch failed: "
+                           f"{lib.dist_topk_error(err).decode()}")
+    launches += 1
+    return z, s
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/dist_topk.cu``."""
+    lib = _build.load("dist_topk")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dist_topk_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                     ctypes.c_float, i, p]
+    lib.dist_topk_launch.restype = i
+    lib.dist_topk_error.argtypes = [i]
+    lib.dist_topk_error.restype = ctypes.c_char_p
+    return lib

@@ -7,6 +7,8 @@ def pytest_configure(config):
         "markers", "slow: long-running distributed/subprocess tests")
     config.addinivalue_line(
         "markers", "chaos: deterministic fault-injection serving tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc; skips without them")
 
 
 @pytest.fixture
