@@ -20,7 +20,25 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
 4. times (CUDA events after warm-up): each kernel, its plain version, its
    bound and, for K1, one library call (``torch.cdist`` + ``torch.topk``)
    as a yardstick the port never calls; seconds per 16-query search; peak
-   device memory.
+   device memory;
+5. the candidate kernels against their plain versions on the card, on the
+   inputs the cascade gives them at that width, under float32 and bfloat16
+   handoffs: ``cand_pour`` (K3) mode ``omr`` at b=3766 candidates per
+   query and mode ``pour`` at iters 0 and 3 (b=941), ``cand_dist`` (K4)
+   modes ``ict`` and ``rev_min`` (b=941), ``act_phase2_cand`` (K5) on
+   pre-gathered ladders; one-slot probes show the gathers are bitwise;
+6. the cascade end to end: ``EmdIndex(backend="cuda").search(...,
+   cascade=p)`` for p in ``chain``, ``tight``, ``fast`` and a custom
+   ``rwmd -> rwmd_rev -> act-3`` ladder (K4's ``rev_min`` through the
+   engine), 16 queries, top-16, each against ``backend="reference"`` on the
+   card, with every launch count set to 0 before each search and read
+   after; for the admissible presets, every true top-16 row of full-corpus
+   rescoring that survives the pruning must be in the result (exactness
+   wherever the budgets keep the true neighbours), and the recall and the
+   number pruned by the budgets are printed;
+7. times: each candidate kernel, its plain version, its bound and, where
+   one PyTorch call computes the same function, that call; seconds per
+   16-query cascaded search and peak device memory for each ladder.
 
 Any failed check exits non-zero before the last line. The last lines are the
 card's name and power limit, a JSON line of the kernels and
@@ -40,10 +58,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.api import EmdIndex, EngineConfig  # noqa: E402
-from repro_torch.core import lc  # noqa: E402
+from repro_torch.cascade import (CascadeSpec, CascadeStage,  # noqa: E402
+                                 resolve_spec, topk_recall, topk_smallest)
+from repro_torch.cascade import search as cascade_search  # noqa: E402
+from repro_torch.core import lc, retrieval  # noqa: E402
 from repro_torch.core.precision import pad_dist_for  # noqa: E402
 from repro_torch.data.synth import make_clustered_text  # noqa: E402
-from repro_torch.kernels import _build, act_phase2, dist_topk, ops  # noqa: E402
+from repro_torch.kernels import (_build, act_phase2, cand_pour,  # noqa: E402
+                                 dist_topk, ops)
 
 # 20 Newsgroups width: the JAX package's configs/emd_20news.py.
 N_DOCS, VOCAB, DIM, HMAX, ITERS = 18_828, 69_682, 300, 500, 7
@@ -63,6 +85,29 @@ K1_TIE_TOL = 1e-5
 # K2 vs plain and end-to-end cuda vs reference scores: rtol plus an atol,
 # since a self-match scores ~1e-8 on one path and 0.0 on the other.
 RTOL, ATOL = 1e-5, 1e-6
+
+
+# Slice 2, the cascade. The presets' act-3 rescorer and stages; the
+# candidate budgets of the presets at n=18828: 20% = 3766, 5% = 941.
+ACT3 = 3
+B_WIDE, B_NARROW = 3766, 941
+#: A ladder with an rwmd_rev stage, so that K4's rev_min runs in a search.
+REV_SPEC = CascadeSpec(stages=(CascadeStage("rwmd", 0.2),
+                               CascadeStage("rwmd_rev", 0.05)),
+                       rescorer="act", rescorer_iters=ACT3)
+CASCADES = {"chain": "chain", "tight": "tight", "fast": "fast",
+            "rwmd_rev": REV_SPEC}
+#: The candidate kernels of the JSON line: name -> (source, TPU kernel).
+CAND_KERNELS = {
+    "cand_pour.pour": ("cand_pour", "src/repro/kernels/cand_pour.py:176"),
+    "cand_pour.pour_iters0": ("cand_pour",
+                              "src/repro/kernels/cand_pour.py:176"),
+    "cand_pour.omr": ("cand_pour", "src/repro/kernels/cand_pour.py:176"),
+    "cand_dist.ict": ("cand_dist", "src/repro/kernels/cand_pour.py:214"),
+    "cand_dist.rev_min": ("cand_dist",
+                          "src/repro/kernels/cand_pour.py:214"),
+    "act_phase2_cand": ("act_phase2", "src/repro/kernels/act_phase2.py:110"),
+}
 
 
 def check(cond, msg):
@@ -116,6 +161,252 @@ def check_dist_topk(coords, qcs, qmask, k, dtype):
           f"S differs at {len(q)} near-tie positions (max gap {gap:.3g})",
           flush=True)
     return err
+
+
+def zero_counts():
+    dist_topk.launches = act_phase2.launches = act_phase2.cand_launches = 0
+    for mode in cand_pour.launches:
+        cand_pour.launches[mode] = 0
+
+
+def read_counts():
+    """Launches since :func:`zero_counts`, by kernel and mode."""
+    c = cand_pour.launches
+    return {"dist_topk": dist_topk.launches,
+            "act_phase2": act_phase2.launches,
+            "cand_pour.pour": c["pour"], "cand_pour.pour_iters0": c["pour0"],
+            "cand_pour.omr": c["omr"],
+            "cand_dist.rev_min": c["rev_min"], "cand_dist.ict": c["ict"],
+            "act_phase2_cand": act_phase2.cand_launches}
+
+
+def firm_ranks(s_ref, next_ref):
+    """Ranks of the reference top-l separated from both neighbours by more
+    than twice the score tolerance (next_ref: the score after the last)."""
+    tol = 2 * (ATOL + RTOL * s_ref.abs())
+    gap_prev = torch.cat([torch.full_like(s_ref[:, :1], np.inf),
+                          s_ref[:, 1:] - s_ref[:, :-1]], dim=1)
+    gap_next = torch.cat([s_ref[:, 1:], next_ref[:, None]], dim=1) - s_ref
+    return (gap_prev > tol) & (gap_next > tol)
+
+
+def cand_cases(corpus, q_ids, q_w, wide, narrow, precision):
+    """The candidate kernels on the cascade's inputs: name -> (kernel call,
+    plain call, bytes, operations). ``wide``/``narrow``: (nq, b) candidate
+    row ids. Bytes count each input once: the weights of every slot, the
+    ids of the slots with x > 0 and the ladder or cost row of each distinct
+    (query, id) they name, plus the output; operations are those of the
+    entries with x > 0."""
+    nq, h = q_ids.shape
+    v = corpus.v
+    Z4, W4 = lc._phase1_batched_dispatch(corpus, q_ids, q_w, ACT3 + 1, True,
+                                         precision)
+    Z2, W2 = lc._phase1_batched_dispatch(corpus, q_ids, q_w, 2, True,
+                                         precision)
+    Z1, _ = lc._phase1_batched_dispatch(corpus, q_ids, q_w, 1, True,
+                                        precision)
+    Dq = lc._rev_handoff(lc.phase1_stacked_dist(corpus.coords, q_ids, q_w,
+                                                precision))
+    W0 = W2[..., 0].contiguous()
+    ids_w, x_w = corpus.ids[wide], corpus.w[wide]
+    ids_n, x_n = corpus.ids[narrow], corpus.w[narrow]
+    zg = cand_pour.gather_rows(Z4, ids_n).contiguous()
+    wg = cand_pour.gather_rows(W4[..., :ACT3], ids_n).contiguous()
+    esz = Z4.element_size()
+
+    def work(ids, x, row_values, ops_per_entry, extra=0):
+        live = x > 0
+        nnz = int(live.sum())
+        qid = (torch.arange(nq, device=ids.device)[:, None, None] * v
+               + ids.long())[live]
+        rows = int(torch.unique(qid).numel())
+        nbytes = 4 * x.numel() + 4 * nnz + rows * row_values * esz \
+            + 4 * x.shape[0] * x.shape[1] + extra
+        return nbytes, ops_per_entry * nnz
+
+    nb = x_n.shape[0] * x_n.shape[1]
+    return {
+        "cand_pour.pour": (
+            lambda: ops.cand_pour(ids_n, x_n, Z4, W4, ACT3),
+            lambda: cand_pour.cand_pour_plain(ids_n, x_n, Z4, W4, ACT3),
+            *work(ids_n, x_n, 2 * ACT3 + 1, 5 * (ACT3 + 1))),
+        "cand_pour.pour_iters0": (
+            lambda: ops.cand_pour(ids_n, x_n, Z1, None, 0),
+            lambda: cand_pour.cand_pour_plain(ids_n, x_n, Z1, None, 0),
+            *work(ids_n, x_n, 1, 2)),
+        "cand_pour.omr": (
+            lambda: ops.cand_omr(ids_w, x_w, Z2, W0),
+            lambda: cand_pour.cand_omr_plain(ids_w, x_w, Z2, W0),
+            *work(ids_w, x_w, 3, 4)),
+        "cand_dist.ict": (
+            lambda: ops.cand_ict(ids_n, x_n, Dq, q_w),
+            lambda: cand_pour.cand_ict_plain(ids_n, x_n, Dq, q_w),
+            # a max scan and one selection pass over the h costs
+            *work(ids_n, x_n, h, 2 * h, 4 * q_w.numel())),
+        "cand_dist.rev_min": (
+            lambda: ops.cand_rev_min(ids_n, x_n, Dq, q_w),
+            lambda: cand_pour.cand_rev_min_plain(ids_n, x_n, Dq, q_w),
+            # a min per cost, then h products and sums per row
+            *(lambda nbytes, flops: (nbytes, flops + 2 * h * nb))(
+                *work(ids_n, x_n, h, h, 4 * q_w.numel()))),
+        "act_phase2_cand": (
+            lambda: ops.act_phase2_cand(x_n, zg, wg),
+            lambda: act_phase2.act_phase2_cand_plain(x_n, zg, wg),
+            # pre-gathered ladders: each entry with x > 0 is its own input
+            4 * x_n.numel() + int((x_n > 0).sum()) * (2 * ACT3 + 1) * esz
+            + 4 * nb, 5 * (ACT3 + 1) * int((x_n > 0).sum())),
+    }, (Z1, Dq, ids_n)
+
+
+def check_cand_kernels(corpus, q_ids, q_w, wide, narrow):
+    """Phase 5: each candidate kernel against its plain version under both
+    handoff dtypes, and the bitwise gather probes. Returns the float32
+    cases (for the times) and their max |kernel - plain|."""
+    nq = q_ids.shape[0]
+    qrow = torch.arange(nq, device=q_ids.device)[:, None]
+    errs = {}
+    for precision in ("f32", "bf16"):
+        cases, (Z1, Dq, ids_n) = cand_cases(corpus, q_ids, q_w, wide, narrow,
+                                            precision)
+        for name, (kern, plain, _, _) in cases.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            # rtol/atol: the kernels sum a row's entries lane by lane and
+            # then across the warp, the plain versions in torch's order;
+            # a self-match scores ~1e-8 on one side and 0 on the other.
+            check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  f"{name} {precision}: max |d| {err} beyond rtol {RTOL} "
+                  f"atol {ATOL}")
+            check(bool(torch.isfinite(got).all()) and got.max().item() < 1e3,
+                  f"{name} {precision}: a score reached the sentinel scale")
+            if precision == "f32":
+                errs[name] = err
+            print(f"  {name:22s} {precision}: b={got.shape[1]} "
+                  f"max|d|={err:.3g}", flush=True)
+        # The gathers, bitwise: one slot per row with x = 1 and the rest 0.
+        # A pour at iters=0 then scores exactly Z1[q, id]; rev_min with a
+        # one-hot q_w at a valid bin c scores exactly Dq[q, id, c].
+        gen = torch.Generator(device=ids_n.device).manual_seed(SEED)
+        slot = torch.randint(0, HMAX, ids_n.shape[:2], device=ids_n.device,
+                             generator=gen)
+        xp = torch.zeros(ids_n.shape, device=ids_n.device)
+        xp.scatter_(2, slot[..., None], 1.0)
+        at = torch.gather(ids_n, 2, slot[..., None])[..., 0].long()
+        check(torch.equal(ops.cand_pour(ids_n, xp, Z1, None, 0),
+                          Z1[qrow, at, 0].float()),
+              f"cand_pour {precision}: the gather is not bitwise")
+        col = (q_w > 0).int().argmax(dim=1)
+        qw1 = torch.zeros_like(q_w)
+        qw1[torch.arange(nq), col] = 1.0
+        check(torch.equal(ops.cand_rev_min(ids_n, xp, Dq, qw1),
+                          Dq[qrow, at, col[:, None]].float()),
+              f"cand_dist {precision}: the gather is not bitwise")
+        print(f"  gathers {precision}: bitwise at {at.numel()} probes each",
+              flush=True)
+        if precision == "f32":
+            f32_cases = cases
+    return f32_cases, errs
+
+
+def admissible_recall(spec, corpus, q_ids, q_w, i_c, full):
+    """An admissible ladder returns the exact top-l of full-corpus
+    rescoring wherever its budgets keep the true neighbours: every row of
+    the full-corpus top-l of the rescorer (scores ``full``, cuda path) that
+    survives the pruning must be in the cascade's top-l ``i_c``; and, by
+    Theorem 2, every stage scores each row at most as the rescorer does.
+    Rows within the score tolerance of the top-l's edge are exempt from the
+    first check. Prints each stage's largest excess over the rescorer and
+    the stage ranks of the true neighbours the budgets pruned. Returns the
+    recall and the number pruned."""
+    spec = resolve_spec(spec)
+    s_top, full_top = topk_smallest(full, TOP_L + 1)
+    # A true neighbour within the score tolerance of the first row past the
+    # top-l may trade places with it between the rescore and full scoring.
+    edge = s_top[:, TOP_L:]
+    firm = edge - s_top[:, :TOP_L] > 2 * (ATOL + RTOL * edge.abs())
+    full_top = full_top[:, :TOP_L]
+    surv = cascade_search._prune(corpus, q_ids, q_w, spec,
+                                 spec.resolve_budgets(corpus.n, TOP_L),
+                                 n_valid=None, topk_blocks=1,
+                                 use_kernels=True, block_q=BLOCK_Q,
+                                 precision="f32")
+    kept = (full_top[..., None] == surv[:, None, :]).any(-1)
+    found = (full_top[..., None] == i_c[:, None, :]).any(-1)
+    check(bool((found | ~kept | ~firm).all()), f"cascade "
+          f"{spec.describe()}: a true top-{TOP_L} row survived the pruning "
+          "but is not in the result")
+    lost = full_top[~kept]
+    lost_q = torch.nonzero(~kept)[:, 0]
+    for stage in spec.stages:
+        st = retrieval.batch_scores(corpus, q_ids, q_w, method=stage.method,
+                                    iters=stage.iters, use_kernels=True)
+        excess = (st - full).max().item()
+        check(bool((st <= full + ATOL + RTOL * full.abs()).all()),
+              f"cascade {spec.describe()}: {stage.method} exceeds the "
+              f"{spec.rescorer} rescorer by {excess}")
+        rank = torch.argsort(torch.argsort(st, dim=1, stable=True), dim=1)
+        print(f"  {stage.method}-{stage.iters} vs {spec.rescorer}: largest "
+              f"excess {excess:.3g}; full-corpus {stage.method} ranks of the "
+              f"pruned true neighbours {rank[lost_q, lost].tolist()} "
+              f"(queries {lost_q.tolist()})", flush=True)
+    return topk_recall(i_c, full_top), int((~kept).sum())
+
+
+def check_cascade(name, spec, cuda_index, ref_index, q_ids, q_w, rows,
+                  full):
+    """Phase 6 for one ladder: the cuda search against the reference one
+    on the card. ``full``: full-corpus scores of the rescorer (cuda path)
+    for an admissible ladder, else None. Returns the launch counts, the
+    recall and the two top-l index sets."""
+    zero_counts()
+    s_c, i_c = cuda_index.search(q_ids, q_w, cascade=spec)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    s_r, i_r = ref_index.search(q_ids, q_w, top_l=TOP_L + 1, cascade=spec)
+    torch.cuda.synchronize()
+    next_r, s_r, i_r = s_r[:, TOP_L], s_r[:, :TOP_L], i_r[:, :TOP_L]
+    err = (s_c - s_r).abs().max().item()
+    check(s_c.shape == (NQ, TOP_L) and i_c.shape == (NQ, TOP_L),
+          f"cascade {name}: shapes {tuple(s_c.shape)}")
+    check(torch.allclose(s_c, s_r, rtol=RTOL, atol=ATOL),
+          f"cascade {name}: cuda vs reference scores max |d| {err}")
+    check(bool(torch.isfinite(s_c).all()) and s_c.max().item() < 1e3,
+          f"cascade {name}: a score reached the sentinel scale")
+    firm = firm_ranks(s_r, next_r)
+    check(bool((i_c == i_r)[firm].all()),
+          f"cascade {name}: top-{TOP_L} indices differ where the gap "
+          "exceeds the tolerance")
+    self_hit = (i_c[:, 0].cpu().numpy() == rows).mean()
+    check(self_hit == 1.0, f"cascade {name}: self at rank 0 for only "
+          f"{self_hit:.3f} of queries")
+    recall, pruned = (None, None) if full is None else \
+        admissible_recall(spec, cuda_index.corpus, q_ids, q_w, i_c, full)
+    print(f"phase 6: {name} ({resolve_spec(spec).describe()}): "
+          f"cuda vs reference max|d|={err:.3g}, top-{TOP_L} equal at "
+          f"{int(firm.sum())} separated ranks of {firm.numel()} "
+          f"({int((i_c == i_r).sum())} equal in all), self at rank 0 for "
+          f"all; recall@{TOP_L} vs full-corpus rescoring {recall} "
+          f"(true neighbours pruned by the budgets: {pruned}); launches "
+          f"{counts}", flush=True)
+    return counts, recall, i_c, i_r
+
+
+def search_seconds(search):
+    """Median host seconds of three searches after a warm-up each, and the
+    peak device memory above what was resident before them."""
+    secs, peak = [], []
+    for _ in range(3):
+        search()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        search()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peak.append(torch.cuda.max_memory_allocated() - base)
+    return statistics.median(secs), max(peak)
 
 
 def main():
@@ -285,6 +576,102 @@ def main():
               f"{max(peak[1::2]) / gib:.2f} GiB, of which "
               f"{base / gib:.2f} GiB resident before it", flush=True)
 
+    del zg, wg, results                     # 4.5 GB of PR-12 ladders
+
+    # Phase 5: the candidate kernels against their plain versions, on the
+    # cascade's inputs: the 20% and 5% survivors of the rwmd stage.
+    s1 = retrieval.batch_scores(corpus, q_ids, q_w, method="rwmd",
+                                use_kernels=True)
+    _, wide = topk_smallest(s1, B_WIDE)
+    narrow = wide[:, :B_NARROW].contiguous()
+    print(f"phase 5: candidates per query {B_WIDE} and {B_NARROW}",
+          flush=True)
+    cases, cand_errs = check_cand_kernels(corpus, q_ids, q_w, wide, narrow)
+
+    # Phase 6: the cascade end to end, cuda against reference.
+    cfg = dict(top_l=TOP_L, block_q=BLOCK_Q)
+    cuda_index = EmdIndex.build(host_corpus, EngineConfig(**cfg),
+                                device=dev)
+    ref_index = EmdIndex.build(host_corpus,
+                               EngineConfig(backend="reference", **cfg),
+                               device=dev)
+    all_rows = torch.arange(corpus.n, device=dev).expand(NQ, corpus.n)
+    full_act = retrieval.batch_scores(corpus, q_ids, q_w, method="act",
+                                      iters=ACT3, use_kernels=True)
+    full_ict = retrieval.cand_scores(corpus, q_ids, q_w, all_rows,
+                                     method="ict", use_kernels=True)
+    full = {"chain": full_act, "tight": full_ict}
+    cascade_counts, cascade_idx = {}, {}
+    for name, spec in CASCADES.items():
+        counts, recall, i_c, i_r = check_cascade(
+            name, spec, cuda_index, ref_index, q_ids, q_w, rows,
+            full.get(name))
+        cascade_counts[name] = counts
+        cascade_idx[name] = (i_c, i_r)
+    c = cascade_counts
+    for name in ("chain", "fast"):
+        check(c[name]["cand_pour.pour"] + c[name]["cand_pour.pour_iters0"]
+              + c[name]["cand_pour.omr"] > 0,
+              f"cascade {name} never launched cand_pour: {c[name]}")
+    check(c["tight"]["cand_pour.pour"] > 0 and c["tight"]["cand_dist.ict"]
+          > 0, f"cascade tight launched cand_pour/cand_dist {c['tight']}")
+    check(c["rwmd_rev"]["cand_dist.rev_min"] > 0,
+          f"the rwmd_rev ladder never launched cand_dist: {c['rwmd_rev']}")
+    # fast is not admissible: its recall against full act-3 is measured,
+    # and must be the same on both backends.
+    ref_act = retrieval.batch_scores(corpus, q_ids, q_w, method="act",
+                                     iters=ACT3)
+    fast_c = topk_recall(cascade_idx["fast"][0],
+                         topk_smallest(full_act, TOP_L)[1])
+    fast_r = topk_recall(cascade_idx["fast"][1],
+                         topk_smallest(ref_act, TOP_L)[1])
+    print(f"phase 6: fast recall@{TOP_L} against full-corpus act-{ACT3}: "
+          f"cuda {fast_c}, reference {fast_r}", flush=True)
+    check(fast_c == fast_r, f"fast recall differs: cuda {fast_c}, "
+          f"reference {fast_r}")
+    del full, full_act, full_ict, ref_act, all_rows
+
+    # Phase 7: times of the candidate kernels and of the cascaded searches.
+    # The library yardstick of the iters=0 pour: one embedding_bag over the
+    # (nq*v, 1) table with per-slot weights, the (q, id) rows flattened to
+    # q*v + id beforehand (outside the timed call).
+    ids_n, x_n = corpus.ids[narrow], corpus.w[narrow]
+    Z1, _ = lc._phase1_batched_dispatch(corpus, q_ids, q_w, 1, True)
+    flat = (ids_n.long() + torch.arange(NQ, device=dev)[:, None, None]
+            * corpus.v).reshape(-1, HMAX)
+    table, bag_w = Z1.reshape(-1, 1), x_n.reshape(-1, HMAX)
+
+    def library_pour0():
+        return torch.nn.functional.embedding_bag(
+            flat, table, per_sample_weights=bag_w, mode="sum")
+    lib = library_pour0().reshape(NQ, B_NARROW)
+    check(torch.allclose(lib, cases["cand_pour.pour_iters0"][0](),
+                         rtol=RTOL, atol=ATOL),
+          "the embedding_bag yardstick disagrees with cand_pour")
+    cand_times = {}
+    for name, (kern, plain, nbytes, flops) in cases.items():
+        k_ms = cuda_ms(kern)
+        p_ms = cuda_ms(plain, reps=3, warmup=1)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        l_ms = (cuda_ms(library_pour0) if name == "cand_pour.pour_iters0"
+                else None)
+        cand_times[name] = (k_ms, p_ms, b_ms, b_by, l_ms)
+        print(f"phase 7: {name:22s} {k_ms:.4f} ms (plain {p_ms:.3f}, "
+              f"bound {b_ms:.4f} by {b_by}: {nbytes / 1e9:.3f} GB, "
+              f"{flops / 1e9:.3f} GFLOP; library "
+              f"{'none' if l_ms is None else f'{l_ms:.4f}'})", flush=True)
+    gib = 2**30
+    for name, spec in CASCADES.items():
+        t_c, m_c = search_seconds(
+            lambda: cuda_index.search(q_ids, q_w, cascade=spec))
+        t_r, m_r = search_seconds(
+            lambda: ref_index.search(q_ids, q_w, cascade=spec))
+        print(f"phase 7: cascade {name} search of {NQ} queries: cuda "
+              f"{t_c:.4f} s, reference {t_r:.4f} s (median of 3 each); "
+              f"peak device memory above the resident: cuda "
+              f"{m_c / gib:.2f} GiB, reference {m_r / gib:.2f} GiB",
+              flush=True)
+
     kernels = [
         {"name": "dist_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/dist_topk.cu",
@@ -299,6 +686,16 @@ def main():
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
     ]
+    for name, (k_ms, p_ms, b_ms, b_by, l_ms) in cand_times.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{CAND_KERNELS[name][0]}.cu",
+            "replaces": CAND_KERNELS[name][1],
+            "launches": sum(c[name] for c in cascade_counts.values()),
+            "launches_by_search": {p: c[name]
+                                   for p, c in cascade_counts.items()},
+            "max_abs_err": cand_errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

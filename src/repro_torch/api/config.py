@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.cascade.spec import CascadeSpec, resolve_spec
 from repro_torch.core.precision import POLICIES, UNPORTED_POLICIES
 from repro_torch.core.retrieval import METHODS
 
@@ -18,17 +19,16 @@ BACKENDS = ("reference", "cuda")
 
 #: JAX ``EngineConfig`` values this package does not run yet.
 _UNPORTED_VALUES = {
-    "method": ("rwmd_rev", "omr", "ict", "bow", "wcd"),
     "backend": ("pallas", "distributed"),
     "precision": UNPORTED_POLICIES,
 }
 
 #: JAX ``EngineConfig`` fields this package does not run yet: tile knobs
-#: of the Pallas kernels, the scan engine, symmetric scoring, the mesh,
-#: the cascade and the autotuner. Each keeps its JAX default.
+#: of the Pallas kernels, the scan engine, symmetric scoring, the mesh and
+#: the autotuner. Each keeps its JAX default.
 _UNPORTED_FIELDS = ("symmetric", "batch_engine", "block_v", "block_h",
-                    "block_n", "rev_block", "pad_multiple", "cascade",
-                    "autotune", "tune_cache")
+                    "block_n", "rev_block", "pad_multiple", "autotune",
+                    "tune_cache")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,14 +36,20 @@ class EngineConfig:
     """Frozen description of how an :class:`~repro_torch.api.EmdIndex`
     scores.
 
-    method:    ``act`` (LC-ACT-k) or ``rwmd`` (LC-RWMD, db -> query).
-    iters:     LC-ACT Phase-2 rounds (``k = iters + 1``; ignored by rwmd).
+    method:    a ``retrieval.METHODS`` key: ``act`` (LC-ACT-k), ``rwmd``
+               (LC-RWMD, db -> query), ``rwmd_rev``, ``omr``, ``ict``,
+               ``bow`` or ``wcd``.
+    iters:     LC-ACT Phase-2 rounds (``k = iters + 1``; ignored by the
+               other methods).
     backend:   ``cuda`` (default; the CUDA kernels, or their plain versions
                on an index built on the CPU) or ``reference`` (PyTorch ops).
     top_l:     default neighbour count for ``EmdIndex.search``.
     block_q:   queries gathered and poured per Phase-2 block.
     precision: ``f32`` or ``bf16`` (bfloat16 handoff ladders, float32
                matmul and accumulators).
+    cascade:   ``None`` (full-corpus search), a ``CascadeSpec`` or a preset
+               name of ``repro_torch.cascade.CASCADES``: ``search`` then
+               runs the prune-and-rescore ladder.
     """
     method: str = "act"
     iters: int = 1
@@ -58,11 +64,15 @@ class EngineConfig:
     block_n: int = 256
     rev_block: int = 256
     pad_multiple: int = 512
-    cascade: object = None
+    cascade: CascadeSpec | str | None = None
     autotune: str = "off"
     tune_cache: str | None = None
 
     def __post_init__(self) -> None:
+        if self.cascade is not None and self.symmetric:
+            raise ValueError("cascade search scores directionally; "
+                             "symmetric=True is not supported with a "
+                             "cascade")
         for f in dataclasses.fields(self):
             value = getattr(self, f.name)
             if (f.name in _UNPORTED_FIELDS and value != f.default) or \
@@ -71,7 +81,7 @@ class EngineConfig:
                                  "yet ported")
         if self.method not in METHODS:
             raise ValueError(f"unknown method {self.method!r}; one of "
-                             f"{METHODS}")
+                             f"{sorted(METHODS)}")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of "
                              f"{BACKENDS}")
@@ -84,14 +94,41 @@ class EngineConfig:
             raise ValueError(f"top_l must be >= 1, got {self.top_l}")
         if self.block_q < 1:
             raise ValueError(f"block_q must be >= 1, got {self.block_q}")
+        if self.cascade is not None:
+            resolve_spec(self.cascade)           # raises on unknown preset
+
+    @property
+    def spec(self):
+        """The typed :class:`~repro_torch.core.retrieval.MethodSpec`."""
+        return METHODS[self.method]
+
+    @property
+    def cascade_spec(self) -> CascadeSpec | None:
+        """The resolved :class:`~repro_torch.cascade.CascadeSpec` (preset
+        names looked up in ``CASCADES``), or ``None``."""
+        return None if self.cascade is None else resolve_spec(self.cascade)
 
     @property
     def effective_iters(self) -> int:
-        """Phase-2 rounds actually run (0 for rwmd)."""
-        return self.iters if self.method == "act" else 0
+        """Phase-2 rounds actually run (0 for methods other than act)."""
+        return self.iters if self.spec.uses_iters else 0
 
     def score_kwargs(self) -> dict:
         """Keyword arguments of ``retrieval.batch_scores``."""
         return dict(method=self.method, iters=self.effective_iters,
-                    use_kernels=self.backend == "cuda",
+                    use_kernels=(self.backend == "cuda"
+                                 and self.spec.supports_kernels),
                     block_q=self.block_q, precision=self.precision)
+
+    def cascade_knobs(self) -> dict:
+        """Keyword arguments of ``cascade.cascade_search``: those of
+        ``score_kwargs`` without the method (the cascade spec carries its
+        own stage methods and iters). ``use_kernels`` follows the backend
+        alone: on ``cuda`` it reaches every layer of the ladder, the
+        Phase-1/2 kernels of stage 1 and the candidate kernels of the
+        compacted stages and device rescorers; methods without kernels
+        ignore it."""
+        kw = self.score_kwargs()
+        del kw["method"], kw["iters"]
+        kw["use_kernels"] = self.backend == "cuda"
+        return kw

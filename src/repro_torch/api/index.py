@@ -4,6 +4,7 @@ batches, on one device.
     index = EmdIndex.build(corpus, EngineConfig(method="act", iters=7))
     scores = index.scores(q_ids, q_w)          # (h,) -> (n,), (nq, h) -> (nq, n)
     top, idx = index.search(q_ids, q_w)        # top-l neighbours
+    top, idx = index.search(q_ids, q_w, cascade="chain")   # prune + rescore
 
 The index lives on a CUDA device unless the caller asks for the CPU. A
 single query runs as a batch of one through the batched engine.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.config import EngineConfig
+from repro_torch.cascade import cascade_search
 from repro_torch.core import retrieval
 from repro_torch.core.lc import Corpus
 
@@ -99,10 +101,25 @@ class EmdIndex:
                                    **self.config.score_kwargs())
         return s[0] if single else s
 
-    def search(self, q_ids, q_w, top_l: int | None = None):
+    def search(self, q_ids, q_w, top_l: int | None = None, *,
+               cascade=None):
         """(scores, indices) of the top-l most similar database rows,
         ascending, lowest index first among ties; ``(top_l,)`` each for a
         single query, ``(nq, top_l)`` for a batch. ``top_l`` defaults to
-        ``config.top_l``."""
+        ``config.top_l``.
+
+        ``cascade`` (a ``CascadeSpec`` or preset name, defaulting to
+        ``config.cascade``) routes the search through the prune-and-rescore
+        ladder instead of full-corpus scoring: the scores come from the
+        cascade's rescorer, the candidates only from rows that survived
+        every pruning stage."""
         top_l = self.config.top_l if top_l is None else top_l
-        return retrieval.top_l_smallest(self.scores(q_ids, q_w), top_l)
+        cascade = self.config.cascade if cascade is None else cascade
+        if cascade is None:
+            return retrieval.top_l_smallest(self.scores(q_ids, q_w), top_l)
+        qi, qw, single = self._check_queries(q_ids, q_w)
+        res = cascade_search(self.corpus, qi, qw, cascade, top_l,
+                             **self.config.cascade_knobs())
+        if single:
+            return res.scores[0], res.indices[0]
+        return res.scores, res.indices

@@ -1,4 +1,6 @@
-"""Batched LC-ACT and LC-RWMD engines (paper Section 5), in PyTorch.
+"""LC-EMD engines (paper Section 5), in PyTorch: batched LC-ACT, LC-RWMD
+(both directions), LC-OMR and LC-ICT, and their candidate-compacted forms
+for the cascade.
 
 A query batch (nq, h) is scored against ``n`` database histograms over a
 shared vocabulary of ``v`` coordinates in R^m:
@@ -9,14 +11,37 @@ shared vocabulary of ``v`` coordinates in R^m:
   Phase 2:  k-1 rounds of the water-filling pour over each database entry
   Phase 3:  dump the remainder at the k-th cost
 
-This is the batched pipeline of the JAX package's ``core/lc.py``, with the
-same handoff arrays, sentinels and tie-breaks. Two pieces of the JAX code
-have no counterpart here: the XLA bitcast fence of ``_map_query_blocks``
-(query blocks are a plain Python loop) and the mesh sharding pins. JAX's
+LC-RWMD query -> db (``rwmd_rev``) and LC-ICT read the whole distance
+tensor instead, query-major as Dq (nq, v, h).
+
+This is the pipeline of the JAX package's ``core/lc.py``, with the same
+handoff arrays, sentinels and tie-breaks. Two pieces of the JAX code have
+no counterpart here: the XLA bitcast fence of ``_map_query_blocks`` (query
+blocks are a plain Python loop) and the mesh sharding pins. JAX's
 ``_pad_const`` (the sentinel as a 0-d array) is ``pad_dist_for`` itself:
 ``torch.where`` takes the Python float.
+
 ``use_kernels=True`` sends Phase 1 to the ``dist_topk`` kernel and Phase
-2/3 to the ``act_phase2`` kernel (``kernels/ops.py``).
+2/3 to the ``act_phase2`` kernel (``kernels/ops.py``); in the candidate
+engines it sends Phase 2/3 to the ``cand_pour`` and ``cand_dist`` kernels.
+
+The candidate engines depart from the JAX package in one place. There,
+Phase 1 of a candidate engine is the jnp pipeline on both paths, behind an
+optimization barrier (``_pin_handoff``), so that XLA compiles the same
+handoff into the kernel and the reference programs. Here the ranked Phase 1
+(act, rwmd, omr) goes through ``_phase1_batched_dispatch`` under
+``use_kernels``, that is through the ``dist_topk`` kernel, as the
+full-corpus engines do: PyTorch runs eagerly, so there is no re-fusion to
+pin, and the plain Phase 1 would cost every cascade stage on the card some
+85 ms. The kernel and plain candidate paths then start from handoffs that
+agree within K1's tolerance, not bitwise.
+
+The reductions over the distance handoff (``rwmd_rev``, ``ict``) gather a
+(rows, hmax, h) cost block per query block. The JAX package gathers all
+rows of a query block at once; at 20 Newsgroups width that is 7.5 GB per 8
+candidate queries and far more per 8 full-corpus queries, so here the rows
+are cut into chunks of at most ``GATHER_ELEMS`` gathered costs. Per
+(query, row) the arithmetic is unchanged.
 """
 from __future__ import annotations
 
@@ -340,3 +365,346 @@ def lc_rwmd_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
     return lc_act_scores_batched(corpus, Q_ids, Q_w, iters=0,
                                  use_kernels=use_kernels, block_q=block_q,
                                  precision=precision)
+
+
+# ---------------------------------------------- distance-handoff engines
+
+
+#: Most gathered costs (float32) one (bq, rows, hmax, h) block of a
+#: distance-handoff reduction may hold: 2^26, 256 MiB.
+GATHER_ELEMS = 1 << 26
+
+
+def _rev_handoff(D: torch.Tensor) -> torch.Tensor:
+    """(nq, v, h) query-major distance handoff from the stacked (v, nq, h)
+    Phase-1 tensor, contiguous."""
+    return D.movedim(1, 0).contiguous()
+
+
+def gather_per_query(A: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-query gather: A (bq, v, ...) indexed on axis 1 by each query's
+    own idx (bq, b, hmax) -> (bq, b, hmax, ...)."""
+    q = torch.arange(A.shape[0], device=A.device)[:, None, None]
+    return A[q, idx]
+
+
+def reduce_dist_rows(reduce, Dq: torch.Tensor, Q_w: torch.Tensor,
+                 idsg: torch.Tensor, xg: torch.Tensor, block_q: int,
+                 rows: int | None = None) -> torch.Tensor:
+    """Run ``reduce(C, x, qw) -> (bq, r)`` over the (bq, r, hmax, h)
+    float32 cost blocks gathered from Dq (nq, v, h) at each query's own
+    entry ids idsg (nq, b, hmax) (x: the matching weights), in blocks of
+    ``block_q`` queries and ``rows`` rows (default: as many as
+    ``GATHER_ELEMS`` allows). Returns (nq, b)."""
+    nq, b, hmax = idsg.shape
+    bq = min(block_q, nq)
+    if rows is None:
+        rows = max(1, GATHER_ELEMS // (bq * hmax * Dq.shape[-1]))
+    out = []
+    for s in range(0, nq, block_q):
+        Db, Wb = Dq[s:s + block_q], Q_w[s:s + block_q]
+        out.append(torch.cat([
+            reduce(_accum(gather_per_query(Db, idsg[s:s + block_q,
+                                                    r:r + rows])),
+                   xg[s:s + block_q, r:r + rows], Wb)
+            for r in range(0, b, rows)], dim=1))
+    return torch.cat(out)
+
+
+def _shared_rows(corpus: Corpus, nq: int):
+    """The corpus rows as every query's own rows: (nq, n, hmax) views."""
+    shape = (nq,) + tuple(corpus.ids.shape)
+    return corpus.ids.expand(shape), corpus.w.expand(shape)
+
+
+def rev_min_dot(C, x, qw):
+    """Masked (min,+) contracted with einsum, as JAX ``rev_min_blocked``."""
+    cmin = torch.where((x > 0.0)[..., None], C,
+                       pad_dist_for(C.dtype)).amin(dim=2)   # (bq, r, h)
+    return torch.einsum("qbh,qh->qb", cmin, qw)
+
+
+def rev_min_sum(C, x, qw):
+    """Masked (min,+) by multiply then sum over h: unlike a dot, its
+    accumulation does not depend on the row count of the block."""
+    cmin = torch.where((x > 0.0)[..., None], C,
+                       pad_dist_for(C.dtype)).amin(dim=2)   # (bq, r, h)
+    return torch.sum(cmin * qw[:, None, :], dim=-1)
+
+
+def rev_min_blocked(corpus: Corpus, Dq: torch.Tensor, Q_w: torch.Tensor,
+                    block: int, block_q: int) -> torch.Tensor:
+    """Reverse-direction masked (min,+) reduction on the query-major
+    distance handoff Dq (nq, v, h): for db row u and query bin j,
+    c[u, j] = min over valid slots s of Dq[:, ids[u, s], j], then
+    sum_j c[u, j] q_w[j], in (row-block, query-block) tiles of ``block``
+    rows. Invalid slots mask to the float32 sentinel (finite, so an
+    all-padding row scores huge instead of NaN)."""
+    idsg, xg = _shared_rows(corpus, Dq.shape[0])
+    return reduce_dist_rows(rev_min_dot, Dq, Q_w, idsg, xg, block_q,
+                        rows=block)
+
+
+def ict_pour(x: torch.Tensor, cap: torch.Tensor,
+             C: torch.Tensor) -> torch.Tensor:
+    """Full-ladder greedy pour (Algorithm 2) over padded entries.
+
+    x:   (..., hmax) residual database weights.
+    cap: (..., hmax, h) per-edge capacities (query weights; 0 at padded
+         query bins).
+    C:   (..., hmax, h) transport costs (the sentinel at padded query
+         bins, so they sort last and their zero capacity absorbs nothing).
+    Returns (...,) transport-cost bounds.
+
+    The sort is stable: equal costs keep the lower query bin first. Any
+    remainder is dumped at the max FINITE cost of the entry's row, never at
+    the sentinel, where a ~1e-7 cumsum residue would explode to ~1e23.
+    """
+    order = torch.argsort(C, dim=-1, stable=True)
+    cost_sorted = torch.take_along_dim(C, order, dim=-1)
+    cap_sorted = torch.take_along_dim(cap, order, dim=-1)
+    prefix = torch.cumsum(cap_sorted, dim=-1) - cap_sorted
+    r = torch.minimum(torch.clamp_min(x[..., None] - prefix, 0.0),
+                      cap_sorted)
+    poured = torch.sum(r * cost_sorted, dim=-1)
+    remainder = torch.clamp_min(x - torch.sum(r, dim=-1), 0.0)
+    # Strict < : sentinel entries, upcast from any storage dtype, compare
+    # >= the float32 pad value and are excluded.
+    dump = torch.where(C < pad_dist_for(C.dtype), C, 0.0).amax(dim=-1)
+    return torch.sum(poured + remainder * dump, dim=-1)
+
+
+def ict_reduce(C, x, qw):
+    """:func:`ict_pour` of (bq, r, hmax, h) costs with the query weights
+    qw (bq, h) as every edge's capacity."""
+    return ict_pour(x, qw[:, None, None, :].expand(C.shape), C)
+
+
+def ict_reduce_blocked(corpus: Corpus, Dq: torch.Tensor, Q_w: torch.Tensor,
+                       block_q: int) -> torch.Tensor:
+    """Query-blocked Algorithm-2 reduction on the query-major distance
+    handoff Dq (nq, v, h) -> (nq, n) LC-ICT bounds: gather each row's
+    (hmax, h) costs and pour through the full sorted ladder."""
+    idsg, xg = _shared_rows(corpus, Dq.shape[0])
+    return reduce_dist_rows(ict_reduce, Dq, Q_w, idsg, xg, block_q)
+
+
+def omr_reduce_blocked(corpus: Corpus, Z: torch.Tensor, W0: torch.Tensor,
+                       block_q: int) -> torch.Tensor:
+    """Query-blocked Algorithm-1 reduction on the top-2 handoff:
+    Z (nq, v, 2), W0 (nq, v) -> (nq, n) LC-OMR bounds."""
+    x = corpus.w
+
+    def blk(Zb, W0b):                                    # (bq, v, 2), (bq, v)
+        Zg = Zb[:, corpus.ids]                           # (bq, n, hmax, 2)
+        W0g = W0b[:, corpus.ids]                         # (bq, n, hmax)
+        return omr_entries(x, Zg, W0g)
+    return _map_query_blocks(blk, (Z, W0), block_q)
+
+
+def omr_entries(x, Zg, W0g):
+    """Algorithm 1 per entry: an entry whose nearest query bin is at cost 0
+    (overlap) moves what that bin cannot take to the second-nearest; any
+    other entry moves all of x to the nearest. Summed over hmax."""
+    overlap = Zg[..., 0] == 0.0
+    rest = x - torch.minimum(x, W0g)
+    return torch.sum(torch.where(overlap, rest * Zg[..., 1],
+                                 x * Zg[..., 0]), dim=-1)
+
+
+def lc_rwmd_scores_rev_batched(corpus: Corpus, Q_ids: torch.Tensor,
+                               Q_w: torch.Tensor, block: int = 256,
+                               block_q: int = 8,
+                               precision: str = "f32") -> torch.Tensor:
+    """Batched LC-RWMD query -> db: one stacked distance tensor for the
+    whole batch, through the (row-block, query-block) masked (min,+)
+    reduction."""
+    Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
+                                          precision=precision))
+    return rev_min_blocked(corpus, Dq, Q_w, block, block_q)
+
+
+def lc_omr_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
+                          Q_w: torch.Tensor, *, use_kernels: bool = False,
+                          block_q: int = 8,
+                          precision: str = "f32") -> torch.Tensor:
+    """Batched LC-OMR: batched Phase 1 with k=2 (the ``dist_topk`` kernel
+    when ``use_kernels``), query-blocked Algorithm-1 reduction."""
+    Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, 2, use_kernels,
+                                    precision=precision)
+    return omr_reduce_blocked(corpus, Z, W[..., 0], block_q)
+
+
+def lc_ict_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
+                          Q_w: torch.Tensor, *, block_q: int = 8,
+                          precision: str = "f32") -> torch.Tensor:
+    """Batched LC-ICT: one stacked Phase-1 distance tensor for the whole
+    query batch, query-blocked full-ladder pour."""
+    Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
+                                          precision=precision))
+    return ict_reduce_blocked(corpus, Dq, Q_w, block_q)
+
+
+# --------------------------------------------------------------------------
+# Candidate-compacted Phase 2/3: the cascade's gather-compaction layer.
+#
+# A cascade scores stage s+1 only on the (nq, b) candidate rows that
+# survived stage s. Phase 1 never depends on which database rows are
+# scored, so compaction is a Phase-2/3 matter: the same consumers as above,
+# gathering each query's own (b, hmax) sub-corpus (``corpus.ids[cand]``)
+# instead of all n rows. ``use_kernels`` fuses the per-query ladder gather
+# and the reduction into one ``cand_pour`` / ``cand_dist`` launch per query
+# block, so the (nq, b, hmax, k) gather never reaches memory.
+# --------------------------------------------------------------------------
+
+
+def pour_min_cand_blocked(corpus: Corpus, Z0: torch.Tensor,
+                          cand: torch.Tensor, block_q: int, *,
+                          use_kernels: bool = False) -> torch.Tensor:
+    """Candidate-compacted zero-round pour: Z0 (nq, v), cand (nq, b)
+    -> (nq, b) scores at the candidate rows."""
+    if use_kernels:
+        def blk_k(Zb, cb):                               # (bq, v), (bq, b)
+            return kops.cand_pour(corpus.ids[cb], corpus.w[cb],
+                                  Zb[..., None], None, 0)
+        return _map_query_blocks(blk_k, (Z0, cand), block_q)
+
+    def blk(Zb, cb):
+        Zg = gather_per_query(Zb, corpus.ids[cb])       # (bq, b, hmax)
+        return torch.sum(corpus.w[cb] * Zg, dim=-1)
+    return _map_query_blocks(blk, (Z0, cand), block_q)
+
+
+def pour_cand_blocked(corpus: Corpus, Z: torch.Tensor, W: torch.Tensor,
+                      cand: torch.Tensor, iters: int, block_q: int, *,
+                      use_kernels: bool = False) -> torch.Tensor:
+    """Candidate-compacted Phase 2/3 pour: (nq, v, k) handoff ladders +
+    (nq, b) candidate rows -> (nq, b) lower bounds."""
+    if iters == 0:
+        return pour_min_cand_blocked(corpus, Z[..., 0], cand, block_q,
+                                     use_kernels=use_kernels)
+    if use_kernels:
+        # The kernel reads the first iters capacity columns itself.
+        def blk_k(Zb, Wb, cb):
+            return kops.cand_pour(corpus.ids[cb], corpus.w[cb], Zb, Wb,
+                                  iters)
+        return _map_query_blocks(blk_k, (Z, W, cand), block_q)
+
+    W = W[..., :iters]
+
+    def blk(Zb, Wb, cb):
+        ids_g = corpus.ids[cb]                           # (bq, b, hmax)
+        # Gather in the storage dtype, pour in the float32 accumulator.
+        Zg = _accum(gather_per_query(Zb, ids_g))        # (bq, b, hmax, k)
+        Wg = _accum(gather_per_query(Wb, ids_g))        # (bq, b, hmax, iters)
+        return pour(corpus.w[cb], Zg, Wg, iters)
+    return _map_query_blocks(blk, (Z, W, cand), block_q)
+
+
+def omr_reduce_cand_blocked(corpus: Corpus, Z: torch.Tensor,
+                            W0: torch.Tensor, cand: torch.Tensor,
+                            block_q: int, *,
+                            use_kernels: bool = False) -> torch.Tensor:
+    """Candidate-compacted Algorithm-1 reduction: Z (nq, v, 2), W0 (nq, v),
+    cand (nq, b) -> (nq, b) LC-OMR bounds."""
+    if use_kernels:
+        W0 = W0.contiguous()
+
+        def blk_k(Zb, W0b, cb):
+            return kops.cand_omr(corpus.ids[cb], corpus.w[cb], Zb, W0b)
+        return _map_query_blocks(blk_k, (Z, W0, cand), block_q)
+
+    def blk(Zb, W0b, cb):
+        ids_g = corpus.ids[cb]
+        return omr_entries(corpus.w[cb], gather_per_query(Zb, ids_g),
+                            gather_per_query(W0b, ids_g))
+    return _map_query_blocks(blk, (Z, W0, cand), block_q)
+
+
+def rev_min_cand_blocked(corpus: Corpus, Dq: torch.Tensor,
+                         Q_w: torch.Tensor, cand: torch.Tensor,
+                         block_q: int, *,
+                         use_kernels: bool = False) -> torch.Tensor:
+    """Candidate-compacted reverse masked (min,+) reduction: Dq (nq, v, h),
+    cand (nq, b) -> (nq, b) reverse-RWMD bounds. Masking and reduction run
+    in float32, the sentinel written in float32 (never a reduced storage
+    dtype); the contraction is a multiply then a sum over h."""
+    idsg, xg = corpus.ids[cand], corpus.w[cand]
+    if use_kernels:
+        return _map_query_blocks(kops.cand_rev_min, (idsg, xg, Dq, Q_w),
+                                 block_q)
+    return reduce_dist_rows(rev_min_sum, Dq, Q_w, idsg, xg, block_q)
+
+
+def ict_reduce_cand_blocked(corpus: Corpus, Dq: torch.Tensor,
+                            Q_w: torch.Tensor, cand: torch.Tensor,
+                            block_q: int, *,
+                            use_kernels: bool = False) -> torch.Tensor:
+    """Candidate-compacted Algorithm-2 reduction: Dq (nq, v, h),
+    cand (nq, b) -> (nq, b) LC-ICT bounds, the remainder dumped at the max
+    finite cost (see :func:`ict_pour`)."""
+    idsg, xg = corpus.ids[cand], corpus.w[cand]
+    if use_kernels:
+        return _map_query_blocks(kops.cand_ict, (idsg, xg, Dq, Q_w),
+                                 block_q)
+    return reduce_dist_rows(ict_reduce, Dq, Q_w, idsg, xg, block_q)
+
+
+def lc_act_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
+                       Q_w: torch.Tensor, cand: torch.Tensor,
+                       iters: int = 1, *, use_kernels: bool = False,
+                       block_q: int = 8,
+                       precision: str = "f32") -> torch.Tensor:
+    """Candidate-compacted batched LC-ACT: (nq, h) queries scored against
+    each query's own (b,) candidate rows -> (nq, b)."""
+    if iters == 0 and not use_kernels:
+        Z0 = phase1_min_batched(corpus.coords, Q_ids, Q_w,
+                                precision=precision)
+        return pour_min_cand_blocked(corpus, Z0, cand, block_q)
+    Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, iters + 1,
+                                    use_kernels, precision=precision)
+    return pour_cand_blocked(corpus, Z, W, cand, iters, block_q,
+                             use_kernels=use_kernels)
+
+
+def lc_rwmd_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
+                        Q_w: torch.Tensor, cand: torch.Tensor, *,
+                        use_kernels: bool = False, block_q: int = 8,
+                        precision: str = "f32") -> torch.Tensor:
+    """Candidate-compacted batched LC-RWMD db -> query."""
+    return lc_act_scores_cand(corpus, Q_ids, Q_w, cand, iters=0,
+                              use_kernels=use_kernels, block_q=block_q,
+                              precision=precision)
+
+
+def lc_rwmd_scores_rev_cand(corpus: Corpus, Q_ids: torch.Tensor,
+                            Q_w: torch.Tensor, cand: torch.Tensor, *,
+                            use_kernels: bool = False, block_q: int = 8,
+                            precision: str = "f32") -> torch.Tensor:
+    """Candidate-compacted batched LC-RWMD query -> db."""
+    Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
+                                          precision=precision))
+    return rev_min_cand_blocked(corpus, Dq, Q_w, cand, block_q,
+                                use_kernels=use_kernels)
+
+
+def lc_omr_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
+                       Q_w: torch.Tensor, cand: torch.Tensor, *,
+                       use_kernels: bool = False, block_q: int = 8,
+                       precision: str = "f32") -> torch.Tensor:
+    """Candidate-compacted batched LC-OMR."""
+    Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, 2, use_kernels,
+                                    precision=precision)
+    return omr_reduce_cand_blocked(corpus, Z, W[..., 0], cand, block_q,
+                                   use_kernels=use_kernels)
+
+
+def lc_ict_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
+                       Q_w: torch.Tensor, cand: torch.Tensor, *,
+                       use_kernels: bool = False, block_q: int = 8,
+                       precision: str = "f32") -> torch.Tensor:
+    """Candidate-compacted batched LC-ICT (the cascade's tight rescorer)."""
+    Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
+                                          precision=precision))
+    return ict_reduce_cand_blocked(corpus, Dq, Q_w, cand, block_q,
+                                   use_kernels=use_kernels)

@@ -5,6 +5,12 @@
 // (body _act_phase2_kernel, per-entry pour pour_entry_costs). The plain
 // PyTorch version is repro_torch/kernels/act_phase2.py::act_phase2_plain.
 //
+// The same kernel is K5, act_phase2_cand: it replaces
+// src/repro/kernels/act_phase2.py::act_phase2_cand_pallas, whose x is per
+// query (xg (nq, b, hmax), one candidate sub-corpus per query); its plain
+// version is act_phase2_cand_plain. The only difference is the row of x a
+// warp reads: x[u] for K2, xg[q, u] for K5.
+//
 // For query q and database row u:
 //   t[q, u] = sum_j  sum_{l<iters} r_l * zg[q,u,j,l]
 //                    + max(x[u,j] - sum_l wg[q,u,j,l], 0) * zg[q,u,j,iters]
@@ -40,12 +46,12 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 act_phase2_kernel(const float* __restrict__ x, const T* __restrict__ zg,
                   const T* __restrict__ wg, float* __restrict__ t, int nq,
-                  int n, int hmax, int iters) {
+                  int n, int hmax, int iters, int x_per_query) {
   const long long warp = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= (long long)nq * n) return;   // uniform across the warp
   const int u = (int)(warp % n);
-  const float* xr = x + (size_t)u * hmax;
+  const float* xr = x + (size_t)(x_per_query ? warp : u) * hmax;
   const T* zr = zg + (size_t)warp * hmax * (iters + 1);
   const T* wr = wg + (size_t)warp * hmax * iters;
 
@@ -73,12 +79,13 @@ act_phase2_kernel(const float* __restrict__ x, const T* __restrict__ zg,
 
 template <typename T>
 cudaError_t launch(const float* x, const void* zg, const void* wg, float* t,
-                   int nq, int n, int hmax, int iters, cudaStream_t stream) {
+                   int nq, int n, int hmax, int iters, int x_per_query,
+                   cudaStream_t stream) {
   const long long warps = (long long)nq * n;
   const unsigned blocks = (unsigned)((warps + WARPS - 1) / WARPS);
   act_phase2_kernel<T><<<blocks, THREADS, 0, stream>>>(
       x, static_cast<const T*>(zg), static_cast<const T*>(wg), t, nq, n, hmax,
-      iters);
+      iters, x_per_query);
   return cudaGetLastError();
 }
 
@@ -94,8 +101,23 @@ extern "C" int act_phase2_launch(const void* x, const void* zg, const void* wg,
   float* tf = static_cast<float*>(t);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(xf, zg, wg, tf, nq, n, hmax, iters, st);
-  return launch<float>(xf, zg, wg, tf, nq, n, hmax, iters, st);
+    return launch<__nv_bfloat16>(xf, zg, wg, tf, nq, n, hmax, iters, 0, st);
+  return launch<float>(xf, zg, wg, tf, nq, n, hmax, iters, 0, st);
+}
+
+// K5: xg (nq, b, hmax) f32; zg (nq, b, hmax, iters+1) and wg (nq, b, hmax,
+// iters), both f32 or both bf16; all contiguous. Writes t (nq, b) f32.
+// iters >= 1. Returns the cudaError_t of the launch (0 on success).
+extern "C" int act_phase2_cand_launch(const void* xg, const void* zg,
+                                      const void* wg, void* t, int nq, int b,
+                                      int hmax, int iters, int bf16,
+                                      void* stream) {
+  const float* xf = static_cast<const float*>(xg);
+  float* tf = static_cast<float*>(t);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16>(xf, zg, wg, tf, nq, b, hmax, iters, 1, st);
+  return launch<float>(xf, zg, wg, tf, nq, b, hmax, iters, 1, st);
 }
 
 extern "C" const char* act_phase2_error(int code) {

@@ -9,6 +9,13 @@ plain PyTorch (the per-entry rounds of the JAX kernel's
 against. x (n, hmax) float32 is shared by all queries; zg (nq, n, hmax,
 iters+1) and wg (nq, n, hmax, iters) are float32 or bfloat16 and are read
 into float32; t (nq, n) is float32.
+
+``act_phase2_cand`` (K5) is the same pour with a per-query x: the
+counterpart of ``act_phase2_cand_pallas``, the unfused candidate pour over
+pre-gathered ladders xg (nq, b, hmax), zg (nq, b, hmax, iters+1),
+wg (nq, b, hmax, iters) -> t (nq, b). No engine calls it, in the JAX
+package or here: the candidate engines use the fused ``cand_pour`` kernel.
+It is the same CUDA kernel with x indexed per (query, row).
 """
 from __future__ import annotations
 
@@ -19,8 +26,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: Kernel launches since the count was last set to 0.
+#: K2 launches since the count was last set to 0.
 launches = 0
+
+#: K5 (``act_phase2_cand``) launches since the count was last set to 0.
+cand_launches = 0
 
 
 def act_phase2_plain(x: torch.Tensor, zg: torch.Tensor,
@@ -62,6 +72,33 @@ def act_phase2_cuda(x: torch.Tensor, zg: torch.Tensor,
     return t
 
 
+def act_phase2_cand_plain(xg: torch.Tensor, zg: torch.Tensor,
+                          wg: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5: the rounds of :func:`act_phase2_plain`
+    with a per-query xg (nq, b, hmax), which they broadcast over."""
+    return act_phase2_plain(xg, zg, wg)
+
+
+def act_phase2_cand_cuda(xg: torch.Tensor, zg: torch.Tensor,
+                         wg: torch.Tensor) -> torch.Tensor:
+    """Launch K5 on the current stream. The caller
+    (``ops.act_phase2_cand``) has checked devices, dtypes, shapes and
+    contiguity."""
+    global cand_launches
+    lib = _lib()
+    nq, b, hmax, iters = wg.shape
+    t = torch.empty((nq, b), dtype=torch.float32, device=xg.device)
+    err = lib.act_phase2_cand_launch(
+        xg.data_ptr(), zg.data_ptr(), wg.data_ptr(), t.data_ptr(), nq, b,
+        hmax, iters, int(zg.dtype == torch.bfloat16),
+        torch.cuda.current_stream(xg.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"act_phase2_cand kernel launch failed: "
+                           f"{lib.act_phase2_error(err).decode()}")
+    cand_launches += 1
+    return t
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/act_phase2.cu``."""
@@ -69,6 +106,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.act_phase2_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.act_phase2_launch.restype = i
+    lib.act_phase2_cand_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.act_phase2_cand_launch.restype = i
     lib.act_phase2_error.argtypes = [i]
     lib.act_phase2_error.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,153 @@
+"""Candidate kernels of the cascade: a per-query gather at each candidate
+row's entry ids fused with its Phase-2/3 reduction, for a query batch.
+
+Counterparts of the JAX package's ``kernels/cand_pour.py``:
+
+* ``cand_pour`` (K3, ``cand_pour_pallas``; CUDA ``csrc/cand_pour.cu``)
+  gathers rows of the per-query Phase-1 ladders Z (nq, v, >=k) and
+  W (nq, v, >=iters), two tensors with their own row widths, and runs
+  mode ``pour`` (``lc.pour``; at iters=0 the nearest-cost dump
+  sum x * Z0) or mode ``omr`` (the Algorithm-1 top-2 reduction).
+* ``cand_dist`` (K4, ``cand_dist_pallas``; CUDA ``csrc/cand_dist.cu``)
+  gathers (hmax, h) cost rows of the query-major distance handoff
+  Dq (nq, v, h) and runs mode ``rev_min`` (masked min over hmax, then a
+  multiply by q_w and a sum over h) or mode ``ict`` (``lc.ict_pour``: the
+  full sorted ladder, ties to the lower query bin, the remainder dumped
+  at the max finite cost).
+
+idsg (nq, b, hmax) int32 and xg (nq, b, hmax) float32 are the candidates'
+sub-corpus (``corpus.ids[cand]``, ``corpus.w[cand]``); padding slots carry
+weight 0 and contribute exactly 0. Ladders and handoffs are float32 or
+bfloat16 and are read into float32; the output (nq, b) is float32.
+
+The ``*_plain`` functions are the same functions in plain PyTorch, built
+from the engines' own reductions in ``core.lc`` as the JAX kernels are;
+the CPU path runs them and the card is checked against them. The gather
+here is a plain index: the TPU kernels' one-hot matmul gather is a TPU
+idiom that the CUDA kernels replace with direct loads.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core import lc
+from repro_torch.core.precision import pad_dist_for
+from repro_torch.kernels import _build
+
+#: Kernel launches by mode since the counts were last set to 0: ``pour``
+#: (iters >= 1), ``pour0`` (mode pour at iters=0, the LC-RWMD dump) and
+#: ``omr`` launch K3, ``rev_min`` and ``ict`` launch K4.
+launches = {"pour": 0, "pour0": 0, "omr": 0, "rev_min": 0, "ict": 0}
+
+#: Largest query width h that K4 takes: each lane of a warp holds h/32
+#: costs of an entry in registers, at most 32.
+MAX_H = 1024
+
+_MODES = {"pour": 0, "omr": 1, "rev_min": 0, "ict": 1}
+
+
+def gather_rows(A: torch.Tensor, idsg: torch.Tensor) -> torch.Tensor:
+    """A (nq, v, ...) at each query's own ids idsg (nq, b, hmax)
+    -> (nq, b, hmax, ...), bitwise (a plain index)."""
+    return lc.gather_per_query(A, idsg)
+
+
+def cand_pour_plain(idsg: torch.Tensor, xg: torch.Tensor, Z: torch.Tensor,
+                    W: torch.Tensor | None, iters: int) -> torch.Tensor:
+    """Plain PyTorch version of K3, mode ``pour``: ``lc.pour`` on the
+    float32 upcast of the gathered ladders (at iters=0, sum x * Z0)."""
+    zg = gather_rows(Z, idsg)[..., :iters + 1].float()
+    if iters == 0:
+        return torch.sum(xg * zg[..., 0], dim=-1)
+    wg = gather_rows(W, idsg)[..., :iters].float()
+    return lc.pour(xg, zg, wg, iters)
+
+
+def cand_omr_plain(idsg: torch.Tensor, xg: torch.Tensor, Z: torch.Tensor,
+                   W0: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3, mode ``omr``."""
+    zg = gather_rows(Z, idsg)[..., :2].float()
+    return lc.omr_entries(xg, zg, gather_rows(W0, idsg).float())
+
+
+def cand_rev_min_plain(idsg: torch.Tensor, xg: torch.Tensor,
+                       dq: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4, mode ``rev_min``, one query at a time
+    and in row chunks of at most ``lc.GATHER_ELEMS`` gathered costs."""
+    return lc.reduce_dist_rows(lc.rev_min_sum, dq, qw, idsg, xg, 1)
+
+
+def cand_ict_plain(idsg: torch.Tensor, xg: torch.Tensor, dq: torch.Tensor,
+                   qw: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4, mode ``ict``, one query at a time and
+    in row chunks of at most ``lc.GATHER_ELEMS`` gathered costs (the sort
+    of a whole 20 Newsgroups-width block does not fit the card)."""
+    return lc.reduce_dist_rows(lc.ict_reduce, dq, qw, idsg, xg, 1)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def cand_pour_cuda(idsg: torch.Tensor, xg: torch.Tensor, Z: torch.Tensor,
+                   W: torch.Tensor | None, iters: int,
+                   mode: str = "pour") -> torch.Tensor:
+    """Launch K3 on the current stream. ``mode="omr"`` takes W = W0
+    (nq, v). The caller (``ops.cand_pour`` / ``ops.cand_omr``) has checked
+    devices, dtypes, shapes and contiguity."""
+    lib = _lib("cand_pour")
+    nq, b, hmax = idsg.shape
+    v, kz = Z.shape[1], Z.shape[2]
+    kw = 0 if W is None else (1 if W.dim() == 2 else W.shape[2])
+    t = torch.empty((nq, b), dtype=torch.float32, device=xg.device)
+    err = lib.cand_pour_launch(
+        idsg.data_ptr(), xg.data_ptr(), Z.data_ptr(),
+        0 if W is None else W.data_ptr(), t.data_ptr(), nq, b, hmax, v, kz,
+        kw, iters, _MODES[mode], int(Z.dtype == torch.bfloat16), _stream(xg))
+    if err:
+        raise RuntimeError(f"cand_pour kernel launch failed: "
+                           f"{lib.cand_pour_error(err).decode()}")
+    launches["pour0" if mode == "pour" and iters == 0 else mode] += 1
+    return t
+
+
+def cand_dist_cuda(idsg: torch.Tensor, xg: torch.Tensor, dq: torch.Tensor,
+                   qw: torch.Tensor, mode: str) -> torch.Tensor:
+    """Launch K4 on the current stream. The caller (``ops.cand_rev_min`` /
+    ``ops.cand_ict``) has checked devices, dtypes, shapes and
+    contiguity."""
+    lib = _lib("cand_dist")
+    nq, b, hmax = idsg.shape
+    v, h = dq.shape[1], dq.shape[2]
+    t = torch.empty((nq, b), dtype=torch.float32, device=xg.device)
+    err = lib.cand_dist_launch(
+        idsg.data_ptr(), xg.data_ptr(), dq.data_ptr(), qw.data_ptr(),
+        t.data_ptr(), nq, b, hmax, v, h, pad_dist_for(torch.float32),
+        _MODES[mode], int(dq.dtype == torch.bfloat16), _stream(xg))
+    if err:
+        raise RuntimeError(f"cand_dist kernel launch failed: "
+                           f"{lib.cand_dist_error(err).decode()}")
+    launches[mode] += 1
+    return t
+
+
+@functools.cache
+def _lib(name: str) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<name>.cu``."""
+    lib = _build.load(name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    launch, error = getattr(lib, f"{name}_launch"), getattr(lib,
+                                                            f"{name}_error")
+    if name == "cand_pour":
+        launch.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
+    else:
+        launch.argtypes = [p, p, p, p, p] + [i] * 5 + [ctypes.c_float, i, i,
+                                                       p]
+    launch.restype = i
+    error.argtypes = [i]
+    error.restype = ctypes.c_char_p
+    return lib
+

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import act_phase2, dist_topk
+from repro_torch.kernels import cand_pour as cand_k
 
 _LADDER_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -90,3 +91,142 @@ def act_phase2_batched(x: torch.Tensor, zg: torch.Tensor,
     fn = (act_phase2.act_phase2_plain if _on_cpu(x, zg, wg)
           else act_phase2.act_phase2_cuda)
     return fn(x, zg, wg)
+
+
+def act_phase2_cand(xg: torch.Tensor, zg: torch.Tensor,
+                    wg: torch.Tensor) -> torch.Tensor:
+    """Candidate-grid Phase-2/3 pour (K5): K2's pour with per-query
+    residual weights, on pre-gathered ladders.
+
+    xg (nq, b, hmax) float32; zg (nq, b, hmax, iters+1) and
+    wg (nq, b, hmax, iters), both float32 or both bfloat16, ``iters >= 1``
+    -> t (nq, b) float32.
+    """
+    _require(xg.dim() == 3 and xg.dtype == torch.float32,
+             f"xg must be (nq, b, hmax) float32, got {tuple(xg.shape)} "
+             f"{xg.dtype}")
+    _require(wg.dim() == 4 and wg.shape[:3] == xg.shape and wg.shape[3] >= 1,
+             f"wg must be {tuple(xg.shape) + ('iters>=1',)}, got "
+             f"{tuple(wg.shape)}")
+    _require(zg.shape == wg.shape[:3] + (wg.shape[3] + 1,),
+             f"zg must be {tuple(wg.shape[:3]) + (wg.shape[3] + 1,)}, got "
+             f"{tuple(zg.shape)}")
+    _require(zg.dtype == wg.dtype and zg.dtype in _LADDER_DTYPES,
+             f"zg and wg must both be float32 or both bfloat16, got "
+             f"{zg.dtype} / {wg.dtype}")
+    _require(all(t.is_contiguous() for t in (xg, zg, wg)),
+             "xg, zg and wg must be contiguous")
+    fn = (act_phase2.act_phase2_cand_plain if _on_cpu(xg, zg, wg)
+          else act_phase2.act_phase2_cand_cuda)
+    return fn(xg, zg, wg)
+
+
+# ------------------------------------------------------ candidate kernels
+#
+# idsg (nq, b, hmax) int32 and xg (nq, b, hmax) float32 are each query's
+# candidate sub-corpus (``corpus.ids[cand]`` / ``corpus.w[cand]``). The ids
+# must lie in [0, v): the kernels load at them unchecked, as torch indexing
+# would assert.
+
+
+def _check_cand(idsg: torch.Tensor, xg: torch.Tensor) -> None:
+    _require(idsg.dim() == 3 and idsg.dtype == torch.int32,
+             f"idsg must be (nq, b, hmax) int32, got {tuple(idsg.shape)} "
+             f"{idsg.dtype}")
+    _require(xg.shape == idsg.shape and xg.dtype == torch.float32,
+             f"xg must be {tuple(idsg.shape)} float32, got "
+             f"{tuple(xg.shape)} {xg.dtype}")
+    _require(min(idsg.shape) >= 1, "idsg must be non-empty")
+
+
+def _check_table(name: str, table: torch.Tensor, idsg: torch.Tensor,
+                 ndim: int, width: int = 1) -> None:
+    nq = idsg.shape[0]
+    want = f"({nq}, v)" if ndim == 2 else f"({nq}, v, >={width})"
+    _require(table.dim() == ndim and table.shape[0] == nq
+             and table.shape[1] >= 1 and (ndim == 2 or
+                                          table.shape[2] >= width),
+             f"{name} must be {want}, got {tuple(table.shape)}")
+    _require(table.dtype in _LADDER_DTYPES,
+             f"{name} must be float32 or bfloat16, got {table.dtype}")
+
+
+def cand_pour(idsg: torch.Tensor, xg: torch.Tensor, Z: torch.Tensor,
+              W: torch.Tensor | None, iters: int) -> torch.Tensor:
+    """Fused candidate gather + pour (K3, mode ``pour``): LC-ACT
+    (``iters >= 1``) and the LC-RWMD nearest-cost dump (``iters == 0``) in
+    one launch.
+
+    Z (nq, v, >= iters+1) cost ladder; W (nq, v, >= iters) capacity ladder
+    of Z's dtype (``None`` when iters == 0), both float32 or bfloat16
+    -> (nq, b) float32 scores at the candidate rows.
+    """
+    _check_cand(idsg, xg)
+    _require(iters >= 0, f"iters must be >= 0, got {iters}")
+    _check_table("Z", Z, idsg, 3, iters + 1)
+    _require((W is None) == (iters == 0),
+             "W must be None exactly when iters == 0")
+    tensors = (idsg, xg, Z)
+    if W is not None:
+        _check_table("W", W, idsg, 3, iters)
+        _require(W.shape[1] == Z.shape[1] and W.dtype == Z.dtype,
+                 f"W must match Z's vocabulary and dtype, got "
+                 f"{tuple(W.shape)} {W.dtype} vs {tuple(Z.shape)} {Z.dtype}")
+        tensors += (W,)
+    _require(all(t.is_contiguous() for t in tensors),
+             "idsg, xg, Z and W must be contiguous")
+    if _on_cpu(*tensors):
+        return cand_k.cand_pour_plain(idsg, xg, Z, W, iters)
+    return cand_k.cand_pour_cuda(idsg, xg, Z, W, iters)
+
+
+def cand_omr(idsg: torch.Tensor, xg: torch.Tensor, Z: torch.Tensor,
+             W0: torch.Tensor) -> torch.Tensor:
+    """Fused candidate gather + LC-OMR Algorithm-1 reduction (K3, mode
+    ``omr``). Z (nq, v, >= 2) top-2 costs; W0 (nq, v) first capacities of
+    Z's dtype -> (nq, b) float32."""
+    _check_cand(idsg, xg)
+    _check_table("Z", Z, idsg, 3, 2)
+    _check_table("W0", W0, idsg, 2)
+    _require(W0.shape[1] == Z.shape[1] and W0.dtype == Z.dtype,
+             f"W0 must be (nq, {Z.shape[1]}) {Z.dtype}, got "
+             f"{tuple(W0.shape)} {W0.dtype}")
+    _require(all(t.is_contiguous() for t in (idsg, xg, Z, W0)),
+             "idsg, xg, Z and W0 must be contiguous")
+    if _on_cpu(idsg, xg, Z, W0):
+        return cand_k.cand_omr_plain(idsg, xg, Z, W0)
+    return cand_k.cand_pour_cuda(idsg, xg, Z, W0, 1, mode="omr")
+
+
+def _cand_dist(idsg, xg, Dq, qw, mode, plain):
+    _check_cand(idsg, xg)
+    _check_table("Dq", Dq, idsg, 3)
+    h = Dq.shape[2]
+    _require(1 <= h <= cand_k.MAX_H,
+             f"Dq's query width must be in [1, {cand_k.MAX_H}], got {h}")
+    _require(qw.shape == (idsg.shape[0], h) and qw.dtype == torch.float32,
+             f"qw must be ({idsg.shape[0]}, {h}) float32, got "
+             f"{tuple(qw.shape)} {qw.dtype}")
+    _require(all(t.is_contiguous() for t in (idsg, xg, Dq, qw)),
+             "idsg, xg, Dq and qw must be contiguous")
+    if _on_cpu(idsg, xg, Dq, qw):
+        return plain(idsg, xg, Dq, qw)
+    return cand_k.cand_dist_cuda(idsg, xg, Dq, qw, mode)
+
+
+def cand_rev_min(idsg: torch.Tensor, xg: torch.Tensor, Dq: torch.Tensor,
+                 qw: torch.Tensor) -> torch.Tensor:
+    """Fused candidate gather + reverse-RWMD masked (min,+) reduction (K4,
+    mode ``rev_min``). Dq (nq, v, h) distance handoff, float32 or
+    bfloat16; qw (nq, h) float32 query weights -> (nq, b) float32; slots
+    with x = 0 mask to the float32 sentinel."""
+    return _cand_dist(idsg, xg, Dq, qw, "rev_min",
+                      cand_k.cand_rev_min_plain)
+
+
+def cand_ict(idsg: torch.Tensor, xg: torch.Tensor, Dq: torch.Tensor,
+             qw: torch.Tensor) -> torch.Tensor:
+    """Fused candidate gather + LC-ICT full-ladder pour (K4, mode
+    ``ict``). Dq (nq, v, h), qw (nq, h) as for :func:`cand_rev_min`
+    -> (nq, b) float32; the remainder goes to the max finite cost."""
+    return _cand_dist(idsg, xg, Dq, qw, "ict", cand_k.cand_ict_plain)
