@@ -10,8 +10,13 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
    source, all at once), with the compiler's register report;
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and on its inputs: ``dist_topk`` (K1) at nq=16, v=69682,
-   h=500, m=300 for k in {8, 2, 1} x {float32, bfloat16}, ``act_phase2``
-   (K2) at 8 queries x 18828 rows x hmax 500, iters=7;
+   h=500, m=300 for k in {8, 2, 1} x {float32, bfloat16} on three masks
+   (the batch's, all 8000 slots valid, and the batch with query 0 emptied
+   and query 1 filled); ``act_phase2`` (K2) at 8 queries x 18828 rows x
+   hmax 500, iters=7, on the gathered ladders, and its fused-gather entry
+   ``act_phase2_gather`` on the Phase-1 ladders of all 16 queries (one
+   launch, as the engine makes it), bitwise against K2 on the first 8 and
+   within tolerance of the plain version, under float32 and bfloat16;
 3. the main path end to end: a 20 Newsgroups-shaped corpus (n=18828,
    v=69682, m=300, hmax=500, seed 0), ``EmdIndex(backend="cuda").search``
    for 16 corpus rows with LC-ACT (iters=7, top_l=16) and with LC-RWMD,
@@ -19,8 +24,9 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
    kernels' launch counts set to 0 before each and read after;
 4. times (CUDA events after warm-up): each kernel, its plain version, its
    bound and, for K1, one library call (``torch.cdist`` + ``torch.topk``)
-   as a yardstick the port never calls; seconds per 16-query search; peak
-   device memory;
+   as a yardstick the port never calls, on the valid work and at full
+   width; K1 again with all slots valid; seconds per 16-query search; peak
+   device memory above the resident index;
 5. the candidate kernels against their plain versions on the card, on the
    inputs the cascade gives them at that width, under float32 and bfloat16
    handoffs: ``cand_pour`` (K3) mode ``omr`` at b=3766 candidates per
@@ -165,6 +171,7 @@ def check_dist_topk(coords, qcs, qmask, k, dtype):
 
 def zero_counts():
     dist_topk.launches = act_phase2.launches = act_phase2.cand_launches = 0
+    act_phase2.gather_launches = 0
     for mode in cand_pour.launches:
         cand_pour.launches[mode] = 0
 
@@ -174,6 +181,7 @@ def read_counts():
     c = cand_pour.launches
     return {"dist_topk": dist_topk.launches,
             "act_phase2": act_phase2.launches,
+            "act_phase2_gather": act_phase2.gather_launches,
             "cand_pour.pour": c["pour"], "cand_pour.pour_iters0": c["pour0"],
             "cand_pour.omr": c["omr"],
             "cand_dist.rev_min": c["rev_min"], "cand_dist.ict": c["ict"],
@@ -453,19 +461,24 @@ def main():
     # Phase 2: each kernel against its plain version, on the main path's
     # inputs. (These launches are not the main path's; counts reset below.)
     coords, qcs, qmask = corpus.coords, corpus.coords[q_ids], q_w > 0
+    edge = qmask.clone()
+    edge[0], edge[1] = False, True        # a query with none, one with all
+    masks = {"batch": qmask, "all-valid": torch.ones_like(qmask),
+             "edge": edge}
     k1_err = None
-    for k in (ITERS + 1, 2, 1):
-        for dtype in (torch.float32, torch.bfloat16):
-            err = check_dist_topk(coords, qcs, qmask, k, dtype)
-            if k == ITERS + 1 and dtype == torch.float32:
-                k1_err = err
-    # The same bins all marked valid: every row sees all h = 500 columns.
-    for dtype in (torch.float32, torch.bfloat16):
-        check_dist_topk(coords, qcs, torch.ones_like(qmask), ITERS + 1, dtype)
+    for mask_name, mask in masks.items():
+        print(f"  K1 mask {mask_name}: valid bins per query "
+              f"{mask.sum(dim=1).tolist()}", flush=True)
+        for k in (ITERS + 1, 2, 1):
+            for dtype in (torch.float32, torch.bfloat16):
+                err = check_dist_topk(coords, qcs, mask, k, dtype)
+                if (mask_name == "batch" and k == ITERS + 1
+                        and dtype == torch.float32):
+                    k1_err = err
     Z, W = lc._phase1_batched_dispatch(corpus, q_ids, q_w, ITERS + 1, True)
-    x = corpus.w
-    zg = Z[:BLOCK_Q][:, corpus.ids]
-    wg = W[:BLOCK_Q, :, :ITERS][:, corpus.ids]
+    x, ids = corpus.w, corpus.ids
+    zg = Z[:BLOCK_Q][:, ids]
+    wg = W[:BLOCK_Q][:, ids, :ITERS]
     tk = ops.act_phase2_batched(x, zg, wg)
     tp = act_phase2.act_phase2_plain(x, zg, wg)
     torch.cuda.synchronize()
@@ -476,6 +489,32 @@ def main():
           "act_phase2: a score reached the sentinel scale")
     print(f"phase 2: K2 bq={BLOCK_Q} n={corpus.n} hmax={HMAX} iters={ITERS} "
           f"max|dt|={k2_err:.3g}", flush=True)
+    # The fused gather over the whole batch, as the engine launches it:
+    # bitwise K2 on the first block's gathered ladders, under both handoff
+    # dtypes (the bf16 ladders are the f32 ones rounded).
+    for dtype in (torch.float32, torch.bfloat16):
+        Zd, Wd = Z.to(dtype), W.to(dtype)
+        tf = ops.act_phase2_gather(x, ids, Zd, Wd)
+        tu = tk if dtype == torch.float32 else ops.act_phase2_batched(
+            x, Zd[:BLOCK_Q][:, ids], Wd[:BLOCK_Q][:, ids, :ITERS])
+        tpd = act_phase2.act_phase2_gather_plain(x, ids, Zd, Wd)
+        torch.cuda.synchronize()
+        err = (tf - tpd).abs().max().item()
+        check(torch.equal(tf[:BLOCK_Q], tu),
+              f"act_phase2_gather {dtype}: not bitwise K2 on the gathered "
+              f"ladders (max |d| {(tf[:BLOCK_Q] - tu).abs().max().item()})")
+        check(torch.allclose(tf, tpd, rtol=RTOL, atol=ATOL),
+              f"act_phase2_gather {dtype}: max |dt| {err} beyond rtol "
+              f"{RTOL} atol {ATOL}")
+        check(bool(torch.isfinite(tf).all()) and tf.max().item() < 1e3,
+              f"act_phase2_gather {dtype}: a score reached the sentinel "
+              "scale")
+        if dtype == torch.float32:
+            kg_err = err
+        print(f"phase 2: K2 fused gather {dtype}, nq={NQ}: bitwise equal to "
+              f"K2 on the first {BLOCK_Q} queries' gathered ladders, max|dt| "
+              f"vs plain={err:.3g}", flush=True)
+        del Zd, Wd, tf, tu, tpd
 
     # Phase 3: the main path end to end, cuda against reference.
     launches = {}
@@ -487,10 +526,10 @@ def main():
         ref_index = EmdIndex.build(host_corpus,
                                    EngineConfig(backend="reference", **cfg),
                                    device=dev)
-        dist_topk.launches = act_phase2.launches = 0
+        zero_counts()
         s_c, i_c = cuda_index.search(q_ids, q_w)
         torch.cuda.synchronize()
-        launches[method] = (dist_topk.launches, act_phase2.launches)
+        launches[method] = read_counts()
         s_r, i_r = ref_index.search(q_ids, q_w)
         torch.cuda.synchronize()
         full_c = cuda_index.scores(q_ids, q_w)
@@ -519,42 +558,76 @@ def main():
               f"top-{TOP_L} equal at {int(firm.sum())} separated ranks of "
               f"{firm.numel()} ({int((i_c == i_r).sum())} equal in all), "
               f"self at rank 0 for {self_hit:.3f} of queries; launches "
-              f"K1={launches[method][0]} K2={launches[method][1]}",
-              flush=True)
+              f"K1={launches[method]['dist_topk']} K2 fused gather="
+              f"{launches[method]['act_phase2_gather']} K2 unfused="
+              f"{launches[method]['act_phase2']}", flush=True)
         results[method] = (cuda_index, ref_index)
-    check(launches["act"][0] > 0 and launches["act"][1] > 0,
-          f"act main path launched K1/K2 {launches['act']} times")
-    check(launches["rwmd"][0] > 0, "rwmd main path never launched K1")
+    check(launches["act"]["dist_topk"] > 0
+          and launches["act"]["act_phase2_gather"] > 0,
+          f"act main path launched {launches['act']}")
+    check(launches["rwmd"]["dist_topk"] > 0,
+          "rwmd main path never launched K1")
 
     # Phase 4: times.
     k = ITERS + 1
     k1_ms = cuda_ms(lambda: ops.dist_topk_batched(coords, qcs, qmask, k))
+    all_valid = masks["all-valid"]
+    k1_all_ms = cuda_ms(lambda: ops.dist_topk_batched(coords, qcs, all_valid,
+                                                      k))
     k1_plain = cuda_ms(lambda: dist_topk.dist_topk_plain(coords, qcs, qmask,
                                                          k), reps=3)
     big = 1e30
 
-    def library_k1():
-        d = torch.cdist(coords.expand(NQ, -1, -1), qcs)   # (nq, v, h)
-        return d.masked_fill_(~qmask[:, None, :], big).topk(k, dim=-1,
-                                                            largest=False)
-    k1_lib = cuda_ms(library_k1, reps=3)
+    def library_k1(qc, mask):
+        d = torch.cdist(coords.expand(NQ, -1, -1), qc)   # (nq, v, h)
+        return d.masked_fill_(~mask[:, None, :], big).topk(k, dim=-1,
+                                                           largest=False)
+    # The library on the valid work: each query's valid bins first, padded
+    # to the widest query (outside the timed call).
+    nv_max = int(n_valid.max())
+    order = torch.argsort((~qmask).int(), dim=1, stable=True)[:, :nv_max]
+    qcs_v = torch.gather(qcs, 1, order[..., None].expand(-1, -1, DIM))
+    mask_v = torch.gather(qmask, 1, order)
+    k1_lib = cuda_ms(lambda: library_k1(qcs_v, mask_v), reps=5)
+    k1_lib_full = cuda_ms(lambda: library_k1(qcs, qmask), reps=3)
     nv = int(n_valid.sum())
     k1_bytes = 4 * (coords.numel() + qcs.numel()) + qmask.numel() \
         + 8 * NQ * corpus.v * k                       # Z f32 + S int32 out
     k1_bound, k1_by = bound_ms(k1_bytes, 2.0 * corpus.v * DIM * nv)
+    k1_all_bound, _ = bound_ms(k1_bytes, 2.0 * corpus.v * DIM * NQ * HMAX)
     k2_ms = cuda_ms(lambda: ops.act_phase2_batched(x, zg, wg))
     k2_plain = cuda_ms(lambda: act_phase2.act_phase2_plain(x, zg, wg), reps=3)
     # K2 must read x once and the ladders of the entries with x > 0 (an
     # entry with x == 0 contributes exactly 0); it writes t.
-    nnz = int((x > 0).sum())
+    live = x > 0
+    nnz = int(live.sum())
     k2_bytes = 4 * x.numel() + 4 * BLOCK_Q * nnz * (2 * ITERS + 1) \
         + 4 * BLOCK_Q * corpus.n
-    k2_bound, k2_by = bound_ms(k2_bytes, 5.0 * BLOCK_Q * nnz * (ITERS + 1))
-    print(f"phase 4: K1 {k1_ms:.3f} ms (plain {k1_plain:.3f}, library "
-          f"{k1_lib:.3f}, bound {k1_bound:.4f} by {k1_by}: {nv} valid bins "
-          f"of {NQ * HMAX}); K2 {k2_ms:.3f} ms (plain {k2_plain:.3f}, bound "
-          f"{k2_bound:.4f} by {k2_by}: {nnz} of {x.numel()} entries)",
-          flush=True)
+    k2_flops = 5.0 * BLOCK_Q * nnz * (ITERS + 1)
+    k2_bound, k2_by = bound_ms(k2_bytes, k2_flops)
+    # The fused gather, on the whole batch as the engine launches it, reads
+    # x once, the ids of the entries with x > 0 and the ladder rows
+    # (iters+1 costs, iters capacities) of each distinct (query, id) they
+    # name, once; it writes t.
+    n_ids = int(torch.unique(ids[live]).numel())
+    kg_bytes = 4 * x.numel() + 4 * nnz \
+        + NQ * n_ids * (2 * ITERS + 1) * Z.element_size() + 4 * NQ * corpus.n
+    kg_bound, kg_by = bound_ms(kg_bytes, 5.0 * NQ * nnz * (ITERS + 1))
+    kg_ms = cuda_ms(lambda: ops.act_phase2_gather(x, ids, Z, W), reps=20)
+    kg_plain = cuda_ms(lambda: act_phase2.act_phase2_gather_plain(x, ids, Z,
+                                                                  W), reps=3)
+    print(f"phase 4: K1 {k1_ms:.4f} ms on the batch ({nv} valid bins of "
+          f"{NQ * HMAX}, the only ones it computes; bound {k1_bound:.4f} by "
+          f"{k1_by}), {k1_all_ms:.4f} ms with all {NQ * HMAX} valid (bound "
+          f"{k1_all_bound:.4f}); plain {k1_plain:.3f}; library (cdist + "
+          f"topk) {k1_lib:.3f} on the valid work ({nv_max} wide), "
+          f"{k1_lib_full:.3f} at full width", flush=True)
+    print(f"phase 4: K2 {k2_ms:.4f} ms on gathered ladders (plain "
+          f"{k2_plain:.3f}, bound {k2_bound:.4f} by {k2_by}: {nnz} of "
+          f"{x.numel()} entries, {BLOCK_Q} queries); fused gather over all "
+          f"{NQ} queries {kg_ms:.4f} ms (plain, gather + pour, "
+          f"{kg_plain:.3f}, bound {kg_bound:.4f} by {kg_by}: "
+          f"{kg_bytes / 1e6:.1f} MB, {n_ids} distinct ids)", flush=True)
     for method, (cuda_index, ref_index) in results.items():
         secs, peak = [], []
         for index in (cuda_index, ref_index) * 3:
@@ -574,9 +647,12 @@ def main():
               f"torch.cuda.max_memory_allocated during a search: cuda "
               f"{max(peak[0::2]) / gib:.2f} GiB, reference "
               f"{max(peak[1::2]) / gib:.2f} GiB, of which "
-              f"{base / gib:.2f} GiB resident before it", flush=True)
+              f"{base / gib:.2f} GiB resident before it; above the "
+              f"resident: cuda {(max(peak[0::2]) - base) / gib:.3f} GiB, "
+              f"reference {(max(peak[1::2]) - base) / gib:.3f} GiB",
+              flush=True)
 
-    del zg, wg, results                     # 4.5 GB of PR-12 ladders
+    del zg, wg, results                     # 4.5 GB of gathered ladders
 
     # Phase 5: the candidate kernels against their plain versions, on the
     # cascade's inputs: the 20% and 5% survivors of the rwmd stage.
@@ -676,15 +752,23 @@ def main():
         {"name": "dist_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/dist_topk.cu",
          "replaces": "src/repro/kernels/dist_topk.py:121",
-         "launches": launches["act"][0], "max_abs_err": k1_err,
+         "launches": launches["act"]["dist_topk"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib},
+         "bound_by": k1_by, "library_ms": k1_lib,
+         "ms_all_valid": k1_all_ms, "bound_ms_all_valid": k1_all_bound,
+         "library_full_width_ms": k1_lib_full},
         {"name": "act_phase2", "route": "cuda",
          "source": "src/repro_torch/csrc/act_phase2.cu",
          "replaces": "src/repro/kernels/act_phase2.py:73",
-         "launches": launches["act"][1], "max_abs_err": k2_err,
+         "launches": launches["act"]["act_phase2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "act_phase2_gather", "route": "cuda",
+         "source": "src/repro_torch/csrc/act_phase2.cu",
+         "replaces": "src/repro/kernels/act_phase2.py:73",
+         "launches": launches["act"]["act_phase2_gather"],
+         "max_abs_err": kg_err, "ms": kg_ms, "plain_ms": kg_plain,
+         "bound_ms": kg_bound, "bound_by": kg_by, "library_ms": None},
     ]
     for name, (k_ms, p_ms, b_ms, b_by, l_ms) in cand_times.items():
         kernels.append({

@@ -22,7 +22,8 @@ blocks are a plain Python loop) and the mesh sharding pins. JAX's
 ``torch.where`` takes the Python float.
 
 ``use_kernels=True`` sends Phase 1 to the ``dist_topk`` kernel and Phase
-2/3 to the ``act_phase2`` kernel (``kernels/ops.py``); in the candidate
+2/3 to the ``act_phase2`` kernel's fused-gather entry (``kernels/ops.py``),
+which reads the ladders at the corpus ids itself; in the candidate
 engines it sends Phase 2/3 to the ``cand_pour`` and ``cand_dist`` kernels.
 
 The candidate engines depart from the JAX package in one place. There,
@@ -318,21 +319,21 @@ def pour_min_blocked(corpus: Corpus, Z0: torch.Tensor,
 def pour_blocked(corpus: Corpus, Z: torch.Tensor, W: torch.Tensor,
                  iters: int, block_q: int, *,
                  use_kernels: bool = False) -> torch.Tensor:
-    """Query-blocked Phase 2/3: (nq, v, k) ladders -> (nq, n) bounds. Each
-    block of ``block_q`` queries gathers its (bq, n, hmax, k) ladders once
-    and pours them (the ``act_phase2`` kernel when ``use_kernels``);
-    ``iters=0`` is the nearest-cost dump of Phase 3 and has no kernel."""
+    """Query-blocked Phase 2/3: (nq, v, iters+1) ladders -> (nq, n)
+    bounds. Each block of ``block_q`` queries gathers its (bq, n, hmax, k)
+    ladders once and pours them; under ``use_kernels`` the whole batch goes
+    to the fused-gather ``act_phase2`` kernel in one launch instead, which
+    reads the ladders at the corpus ids itself and so holds nothing per
+    block. ``iters=0`` is the nearest-cost dump of Phase 3 and has no
+    kernel."""
     x = corpus.w
     if iters == 0:
         def blk0(Zb):                                    # (bq, v, k)
             return torch.sum(x * Zb[..., 0][:, corpus.ids], dim=-1)
         return _map_query_blocks(blk0, (Z,), block_q)
-    W = W[..., :iters]
     if use_kernels:
-        def blk_k(Zb, Wb):
-            return kops.act_phase2_batched(x, Zb[:, corpus.ids],
-                                           Wb[:, corpus.ids])
-        return _map_query_blocks(blk_k, (Z, W), block_q)
+        return kops.act_phase2_gather(x, corpus.ids, Z, W)
+    W = W[..., :iters]
 
     def blk(Zb, Wb):
         # Gather in the storage dtype, pour in the float32 accumulator.

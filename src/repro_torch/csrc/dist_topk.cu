@@ -6,31 +6,44 @@
 // version is repro_torch/kernels/dist_topk.py::dist_topk_plain.
 //
 // Bound on an H100: float32 operations. The work is v*m multiply-adds
-// (2*v*m operations) per valid query bin -- 334 GFLOP if all 16 x 500 bins
-// of a 20 Newsgroups-width batch were valid -- against 67 TFLOP/s of
-// float32 outside the tensor cores. TF32 is ruled out: it drops mantissa
-// bits, and identical coordinates must still snap to an exact zero. Bytes
-// are small (coords once, Z/S once). This kernel computes every bin, valid
-// or not; skipping the invalid ones is left to a later change.
+// (2*v*m operations) per VALID query bin -- 23.6 GFLOP for the 564 valid
+// bins of a 16-query 20 Newsgroups batch, 334 GFLOP if all 16 x 500 were
+// valid -- against 67 TFLOP/s of float32 outside the tensor cores. TF32 is
+// ruled out: it drops mantissa bits, and identical coordinates must still
+// snap to an exact zero. Bytes are small (coords once, Z/S once).
 //
-// Design. One block per (tile of BV vocabulary rows, query). The query's h
-// bins stream through in tiles of BH; for each tile a plain shared-memory
-// SGEMM stages the embedding dimension m in chunks of BK and every thread
-// accumulates a TM x TN micro-tile in float32 FMA. The squared norms are
-// summed from the same staged tiles, so identical coordinates produce
-// bitwise-equal |a|^2, |b|^2 and a.b and their distance is exactly 0. The
-// tile's distances go to shared memory, and thread r (r < BV) then scans
-// row r's columns in ascending order, inserting into KMAX running
-// (value, column) registers with a strict '<', so the lowest column wins
-// ties. The TPU kernel's sequential grid axis over h blocks is the loop
-// over h tiles inside the block. Selection is float32; Z is cast to the
-// storage type only on the store.
+// Design. Two launches on one stream, no host sync.
 //
-// Degenerate rows (fewer than k valid bins): slots past the valid bins get
-// the sentinel `big` (passed in from pad_dist_for(out_dtype)) and the
-// column min(lowest invalid column, lowest taken column) -- what the TPU
-// kernel's masked-min rounds produce, since they mask both invalid and
-// taken columns to the same sentinel.
+// 1. compact_kernel (one block) lists the flat indices p = q*h + c of the
+//    valid bins, ascending, their count C and their squared norms.
+// 2. dist_topk_kernel: one block per tile of BV vocabulary rows, over ALL
+//    queries. It walks the packed list in tiles of BH valid bins, so the
+//    bins of short queries share a tile with those of the next query and
+//    no invalid bin is computed (only the last tile is padded, with zero
+//    columns it never selects). Each tile is a register-tiled SGEMM: the
+//    embedding dimension streams through shared memory in chunks of BK, by
+//    cp.async STAGES - 1 chunks ahead of the arithmetic and on across tile
+//    boundaries (the next tile's copies overlap this tile's selection),
+//    and every thread accumulates an 8 x 8 micro-tile in float32 FMA, in
+//    ascending order of the dimension. The squared norms (|a|^2 once per
+//    block, |b|^2 once per launch) are summed by the same fmaf chain in the
+//    same order, so identical coordinates produce bitwise-equal |a|^2,
+//    |b|^2 and a.b and their distance is exactly 0. The tile's distances
+//    go to shared memory; thread r then scans row r's columns in packed
+//    order, inserting into KMAX running (value, column) registers with a
+//    strict '<' -- the packed order is ascending within a query, so the
+//    lowest column wins ties -- and, where the query changes, writes the
+//    finished query's k slots and starts the next one. The TPU kernel's
+//    sequential grid axis over h blocks is this loop over tiles. Selection
+//    is float32; Z is cast to the storage type only on the store.
+//
+// Degenerate rows (fewer than k valid bins, among them a query with none):
+// slots past the valid bins get the sentinel `big` (passed in from
+// pad_dist_for(out_dtype)) and the column min(lowest invalid column,
+// lowest taken column) -- what the TPU kernel's masked-min rounds produce,
+// since they mask both invalid and taken columns to the same sentinel. The
+// lowest invalid column is at most the number of valid bins, so the block
+// finds it by reading at most k + 1 entries of the query's mask.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -39,15 +52,93 @@
 namespace {
 
 constexpr int BV = 128;            // vocabulary rows per block
-constexpr int BH = 64;             // query bins per tile
-constexpr int BK = 16;             // embedding dims staged per step
-constexpr int THREADS = 256;
-constexpr int TM = BV / 16;        // rows per thread (stride 16)
-constexpr int TN = BH / 16;        // columns per thread (stride 16)
+constexpr int BH = 64;             // packed valid bins per tile
+constexpr int BK = 8;              // embedding dims staged per chunk
+constexpr int STAGES = 4;          // chunks in flight (cp.async ring)
+constexpr int THREADS = 128;       // 16 x 8 threads, an 8 x 8 micro-tile each
+constexpr int AP = BV + 4;         // padded strides: conflict-free stores,
+constexpr int BP = BH + 4;         // 16-byte aligned float4 loads
+constexpr int DP = BH + 1;
+constexpr int RS = THREADS / BK;        // rows (columns) staged per pass
+constexpr int LA = BV / RS;             // coords elements a thread stages
+constexpr int LB = BH / RS;             // bin elements a thread stages
+constexpr int COMPACT_THREADS = 1024;
+
+static_assert(THREADS == BV, "thread r selects for row r");
+static_assert(THREADS % BK == 0 && BV % RS == 0 && BH % RS == 0, "");
+
+struct Smem {
+  float a[STAGES][BK][AP];         // coords chunks, dims-major
+  float b[STAGES][BK][BP];         // packed-bin chunks, dims-major
+  float d[BV][DP];                 // the tile's distances
+  float sa2[BV];                   // |row|^2
+  float sb2[BH];                   // |bin|^2
+  int tq[BH];                      // each tile column's query
+  int tc[BH];                      // and its column within the query
+};
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+
+// 4-byte asynchronous copy global -> shared; zero-fills when !pred.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The flat indices p = q*h + c of the true entries of qmask (total
+// entries), ascending, into packed; their number into *count; and each
+// listed bin's squared norm, summed with fmaf in ascending order of the
+// dimension as the distance tiles sum a.b, into bnorm. One block.
+__global__ void __launch_bounds__(COMPACT_THREADS)
+compact_kernel(const bool* __restrict__ qmask, const float* __restrict__ qc,
+               int total, int m, int* __restrict__ packed,
+               int* __restrict__ count, float* __restrict__ bnorm) {
+  __shared__ int warp_base[COMPACT_THREADS / 32];
+  __shared__ int chunk_total;
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
+  int base = 0;
+  for (int start = 0; start < total; start += COMPACT_THREADS) {
+    const int i = start + tid;
+    const bool f = i < total && qmask[i];
+    const unsigned bal = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) warp_base[w] = __popc(bal);
+    __syncthreads();
+    if (w == 0) {
+      const int n = warp_base[lane];
+      int incl = n;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      warp_base[lane] = incl - n;
+      if (lane == 31) chunk_total = incl;
+    }
+    __syncthreads();
+    if (f)
+      packed[base + warp_base[w] + __popc(bal & ((1u << lane) - 1u))] = i;
+    base += chunk_total;
+    __syncthreads();               // warp_base and chunk_total reused
+  }
+  if (tid == 0) *count = base;
+  for (int j = tid; j < base; j += COMPACT_THREADS) {
+    const float* b = qc + (size_t)packed[j] * m;
+    float nrm = 0.f;
+    for (int kk = 0; kk < m; ++kk) nrm = fmaf(b[kk], b[kk], nrm);
+    bnorm[j] = nrm;
+  }
 }
 
 // Insert (d, c) into the ascending register list; strict '<' keeps an
@@ -68,122 +159,29 @@ __device__ __forceinline__ void insert(float (&z)[KMAX], int (&s)[KMAX],
   }
 }
 
+// Write query q's k slots of row `row` (row < v) from the selection state,
+// then reset it. `taken` valid bins were inserted; the degenerate-row rule
+// fills the slots past them. Uniform across the block.
 template <int KMAX, typename OutT>
-__global__ void __launch_bounds__(THREADS)
-dist_topk_kernel(const float* __restrict__ coords,
-                 const float* __restrict__ qc,
-                 const bool* __restrict__ qmask, OutT* __restrict__ z,
-                 int* __restrict__ s, int v, int h, int m, int k, float big) {
-  __shared__ float As[BK][BV + 1];   // coords tile, dims-major (+1: banks)
-  __shared__ float Bs[BK][BH + 1];   // query-bin tile, dims-major
-  __shared__ float Ds[BV][BH + 1];   // the tile's distances
-  __shared__ float sa2[BV];
-  __shared__ float sb2[BH];
-  __shared__ bool svalid[BH];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q = blockIdx.y;
-  const int row0 = blockIdx.x * BV;
-  const float* qcq = qc + (size_t)q * h * m;
-  const bool* mq = qmask + (size_t)q * h;
-
-  // Selection state of row row0 + tid (threads tid < BV).
-  float zr[KMAX];
-  int sr[KMAX];
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) { zr[i] = CUDART_INF_F; sr[i] = INT_MAX; }
-  int nvalid = 0;
-  int first_invalid = INT_MAX;
-
-  for (int h0 = 0; h0 < h; h0 += BH) {
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    float nrm = 0.f;   // |row|^2 (tid < BV) or |bin|^2 (BV <= tid < BV+BH)
-
-    for (int k0 = 0; k0 < m; k0 += BK) {
-      for (int e = tid; e < BV * BK; e += THREADS) {
-        const int r = e / BK, kk = e % BK;
-        const int gr = row0 + r, gk = k0 + kk;
-        As[kk][r] = (gr < v && gk < m) ? coords[(size_t)gr * m + gk] : 0.f;
-      }
-      for (int e = tid; e < BH * BK; e += THREADS) {
-        const int c = e / BK, kk = e % BK;
-        const int gc = h0 + c, gk = k0 + kk;
-        Bs[kk][c] = (gc < h && gk < m) ? qcq[(size_t)gc * m + gk] : 0.f;
-      }
-      __syncthreads();
-      if (tid < BV) {
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk)
-          nrm = fmaf(As[kk][tid], As[kk][tid], nrm);
-      } else if (tid < BV + BH) {
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk)
-          nrm = fmaf(Bs[kk][tid - BV], Bs[kk][tid - BV], nrm);
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+__device__ __forceinline__ void flush(float (&zr)[KMAX], int (&sr)[KMAX],
+                                      int taken, int q, int row,
+                                      const bool* __restrict__ qmask,
+                                      OutT* __restrict__ z,
+                                      int* __restrict__ s, int v, int h,
+                                      int k, float big) {
+  int fill = INT_MAX;
+  if (taken < k) {
+    // The lowest invalid column: among the first taken + 1 (or it is none).
+    const bool* mq = qmask + (size_t)q * h;
+    for (int c = 0; c <= taken && c < h; ++c) {
+      if (!mq[c]) { fill = c; break; }
     }
-
-    if (tid < BV) {
-      sa2[tid] = nrm;
-    } else if (tid < BV + BH) {
-      const int c = tid - BV;
-      sb2[c] = nrm;
-      svalid[c] = (h0 + c < h) && mq[h0 + c];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float n2 = __fadd_rn(sa2[r], sb2[c]);
-        float d = __fsub_rn(n2, __fmul_rn(2.f, acc[i][j]));
-        d = fmaxf(d, 0.f);
-        if (d < __fmul_rn(1e-6f, n2)) d = 0.f;   // relative ZERO_SNAP
-        Ds[r][c] = sqrtf(d);
-      }
-    }
-    __syncthreads();
-
-    if (tid < BV) {
-      const int ncol = min(BH, h - h0);
-      for (int c = 0; c < ncol; ++c) {
-        if (svalid[c]) {
-          ++nvalid;
-          insert<KMAX>(zr, sr, Ds[tid][c], h0 + c);
-        } else {
-          first_invalid = min(first_invalid, h0 + c);
-        }
-      }
-    }
-    __syncthreads();
   }
-
-  const int row = row0 + tid;
-  if (tid < BV && row < v) {
-    const int taken = min(nvalid, k);
-    int fill = first_invalid;
+  taken = min(taken, k);
 #pragma unroll
-    for (int i = 0; i < KMAX; ++i)
-      if (i < taken) fill = min(fill, sr[i]);
+  for (int i = 0; i < KMAX; ++i)
+    if (i < taken) fill = min(fill, sr[i]);
+  if (row < v) {
     const size_t base = ((size_t)q * v + row) * k;
 #pragma unroll
     for (int i = 0; i < KMAX; ++i) {
@@ -193,43 +191,231 @@ dist_topk_kernel(const float* __restrict__ coords,
       }
     }
   }
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) { zr[i] = CUDART_INF_F; sr[i] = INT_MAX; }
+}
+
+// Three blocks on an SM: 170 registers a thread at most.
+template <int KMAX, typename OutT>
+__global__ void __launch_bounds__(THREADS, 3)
+dist_topk_kernel(const float* __restrict__ coords,
+                 const float* __restrict__ qc,
+                 const bool* __restrict__ qmask,
+                 const int* __restrict__ packed,
+                 const int* __restrict__ count,
+                 const float* __restrict__ bnorm, OutT* __restrict__ z,
+                 int* __restrict__ s, int nq, int v, int h, int m, int k,
+                 float big) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 8, ty = tid / 8;
+  const int row0 = blockIdx.x * BV;
+  const int nvalid = *count;
+  const int nchunks = (m + BK - 1) / BK;
+  const int ntiles = (nvalid + BH - 1) / BH;
+
+  // The block's work is one stream of chunks, tile after tile; the copies
+  // run STAGES - 1 chunks ahead of the arithmetic, across tile boundaries.
+  // Thread tid copies dim tid % BK of rows tid/BK + RS i and of tile
+  // columns tid/BK + RS i.
+  const int skk = tid % BK, sr0 = tid / BK;
+  int it = 0, ic = 0, ib = 0;      // the next chunk to copy: tile, chunk, slot
+  int ptile = -1;                  // the tile whose packed ids are in pk
+  int pk[LB];
+  auto copy_next = [&]() {
+    if (it < ntiles) {
+      const int gk = ic * BK + skk;
+      if (it != ptile) {
+        ptile = it;
+#pragma unroll
+        for (int i = 0; i < LB; ++i) {
+          const int j = it * BH + sr0 + RS * i;
+          pk[i] = j < nvalid ? packed[j] : -1;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < LA; ++i) {
+        const int gr = row0 + sr0 + RS * i;
+        const bool ok = gr < v && gk < m;
+        cp_async4(&sm.a[ib][skk][sr0 + RS * i],
+                  ok ? coords + (size_t)gr * m + gk : coords, ok);
+      }
+#pragma unroll
+      for (int i = 0; i < LB; ++i) {
+        const bool ok = pk[i] >= 0 && gk < m;
+        cp_async4(&sm.b[ib][skk][sr0 + RS * i],
+                  ok ? qc + (size_t)pk[i] * m + gk : qc, ok);
+      }
+      if (++ic == nchunks) { ic = 0; ++it; }
+      ib = ib + 1 == STAGES ? 0 : ib + 1;
+    }
+    cp_async_commit();             // a group per chunk, empty or not
+  };
+
+  // Selection state of row row0 + tid, for query cur_q.
+  float zr[KMAX];
+  int sr[KMAX];
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) { zr[i] = CUDART_INF_F; sr[i] = INT_MAX; }
+  int cur_q = 0, taken = 0;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) copy_next();
+  {
+    // |row|^2 of row row0 + tid, in the order of the tiles' a.b sums.
+    const int row = row0 + tid;
+    float na = 0.f;
+    if (row < v) {
+      const float* a = coords + (size_t)row * m;
+      for (int kk = 0; kk < m; ++kk) na = fmaf(a[kk], a[kk], na);
+    }
+    sm.sa2[tid] = na;              // read after the loop's first barrier
+  }
+  int buf = 0;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    for (int ch = 0; ch < nchunks; ++ch) {
+      cp_async_wait<STAGES - 2>();   // this thread's copies of this chunk
+      __syncthreads();               // everyone's; the last chunk's slot free
+      copy_next();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[8], b[8];
+        const float4 a0 =
+            *reinterpret_cast<const float4*>(&sm.a[buf][kk][ty * 4]);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(&sm.a[buf][kk][64 + ty * 4]);
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(&sm.b[buf][kk][tx * 4]);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(&sm.b[buf][kk][32 + tx * 4]);
+        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+        b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+        b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      buf = buf + 1 == STAGES ? 0 : buf + 1;
+    }
+
+    // The tile is complete (the next tile's chunks are in flight).
+    const int t0 = tile * BH;
+    if (tid < BH) {
+      const int j = t0 + tid;
+      const int p = j < nvalid ? packed[j] : 0;
+      sm.sb2[tid] = j < nvalid ? bnorm[j] : 0.f;
+      sm.tq[tid] = p / h;
+      sm.tc[tid] = p - (p / h) * h;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = (i < 4 ? 0 : 64) + ty * 4 + (i % 4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = (j < 4 ? 0 : 32) + tx * 4 + (j % 4);
+        const float n2 = __fadd_rn(sm.sa2[r], sm.sb2[c]);
+        float d = __fsub_rn(n2, __fmul_rn(2.f, acc[i][j]));
+        d = fmaxf(d, 0.f);
+        if (d < __fmul_rn(1e-6f, n2)) d = 0.f;   // relative ZERO_SNAP
+        sm.d[r][c] = sqrtf(d);
+        acc[i][j] = 0.f;
+      }
+    }
+    __syncthreads();
+
+    // Selection of row row0 + tid over the tile's columns, in packed order.
+    // (sm.d, sb2, tq, tc are next written after a later barrier.)
+    const int ncol = min(BH, nvalid - t0);
+    const int row = row0 + tid;
+    for (int c = 0; c < ncol; ++c) {
+      const int q = sm.tq[c];
+      while (cur_q < q) {          // the query changes: write it out
+        flush<KMAX>(zr, sr, taken, cur_q, row, qmask, z, s, v, h, k, big);
+        ++cur_q;
+        taken = 0;
+      }
+      insert<KMAX>(zr, sr, sm.d[tid][c], sm.tc[c]);
+      ++taken;
+    }
+  }
+  cp_async_wait<0>();
+  // The last query with valid bins, and every query after it.
+  for (; cur_q < nq; ++cur_q, taken = 0)
+    flush<KMAX>(zr, sr, taken, cur_q, row0 + tid, qmask, z, s, v, h, k, big);
+}
+
+template <int KMAX, typename OutT>
+cudaError_t launch_main(const float* coords, const float* qc,
+                        const bool* qmask, const int* packed,
+                        const int* count, const float* bnorm, OutT* z,
+                        int* s, int nq, int v, int h, int m, int k, float big,
+                        cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      dist_topk_kernel<KMAX, OutT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((v + BV - 1) / BV);
+  dist_topk_kernel<KMAX, OutT><<<grid, THREADS, sizeof(Smem), stream>>>(
+      coords, qc, qmask, packed, count, bnorm, z, s, nq, v, h, m, k, big);
+  return cudaGetLastError();
 }
 
 template <int KMAX>
 cudaError_t launch(const float* coords, const float* qc, const bool* qmask,
-                   void* z, int* s, int nq, int v, int h, int m, int k,
-                   float big, int out_bf16, cudaStream_t stream) {
-  const dim3 grid((v + BV - 1) / BV, nq);
-  if (out_bf16) {
-    dist_topk_kernel<KMAX, __nv_bfloat16><<<grid, THREADS, 0, stream>>>(
-        coords, qc, qmask, static_cast<__nv_bfloat16*>(z), s, v, h, m, k, big);
-  } else {
-    dist_topk_kernel<KMAX, float><<<grid, THREADS, 0, stream>>>(
-        coords, qc, qmask, static_cast<float*>(z), s, v, h, m, k, big);
-  }
-  return cudaGetLastError();
+                   int* packed, int* count, float* bnorm, void* z, int* s,
+                   int nq, int v, int h, int m, int k, float big,
+                   int out_bf16, cudaStream_t stream) {
+  compact_kernel<<<1, COMPACT_THREADS, 0, stream>>>(qmask, qc, nq * h, m,
+                                                    packed, count, bnorm);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (out_bf16)
+    return launch_main<KMAX>(coords, qc, qmask, packed, count, bnorm,
+                             static_cast<__nv_bfloat16*>(z), s, nq, v, h, m,
+                             k, big, stream);
+  return launch_main<KMAX>(coords, qc, qmask, packed, count, bnorm,
+                           static_cast<float*>(z), s, nq, v, h, m, k, big,
+                           stream);
 }
 
 }  // namespace
 
 // coords (v, m) f32, qc (nq, h, m) f32, qmask (nq, h) bool, all contiguous;
-// writes z (nq, v, k) f32 or bf16 and s (nq, v, k) int32. 1 <= k <= 16.
-// Returns the cudaError_t of the launch (0 on success).
+// scratch packed (nq*h) int32, count (1) int32 and bnorm (nq*h) f32;
+// writes z (nq, v, k) f32 or bf16 and s (nq, v, k) int32. 1 <= k <= 16,
+// nq*h < 2^31. Returns the cudaError_t of the launches (0 on success).
 extern "C" int dist_topk_launch(const void* coords, const void* qc,
-                                const void* qmask, void* z, void* s, int nq,
-                                int v, int h, int m, int k, float big,
-                                int out_bf16, void* stream) {
+                                const void* qmask, void* packed, void* count,
+                                void* bnorm, void* z, void* s, int nq, int v,
+                                int h, int m, int k, float big, int out_bf16,
+                                void* stream) {
   const float* c = static_cast<const float*>(coords);
   const float* q = static_cast<const float*>(qc);
   const bool* mk = static_cast<const bool*>(qmask);
+  int* pk = static_cast<int*>(packed);
+  int* cn = static_cast<int*>(count);
+  float* bn = static_cast<float*>(bnorm);
   int* si = static_cast<int*>(s);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bf = out_bf16;
-  if (k <= 1) return launch<1>(c, q, mk, z, si, nq, v, h, m, k, big, bf, st);
-  if (k <= 2) return launch<2>(c, q, mk, z, si, nq, v, h, m, k, big, bf, st);
-  if (k <= 4) return launch<4>(c, q, mk, z, si, nq, v, h, m, k, big, bf, st);
-  if (k <= 8) return launch<8>(c, q, mk, z, si, nq, v, h, m, k, big, bf, st);
-  return launch<16>(c, q, mk, z, si, nq, v, h, m, k, big, bf, st);
+#define DIST_TOPK_LAUNCH(KM) \
+  launch<KM>(c, q, mk, pk, cn, bn, z, si, nq, v, h, m, k, big, bf, st)
+  if (k <= 1) return DIST_TOPK_LAUNCH(1);
+  if (k <= 2) return DIST_TOPK_LAUNCH(2);
+  if (k <= 4) return DIST_TOPK_LAUNCH(4);
+  if (k <= 8) return DIST_TOPK_LAUNCH(8);
+  return DIST_TOPK_LAUNCH(16);
+#undef DIST_TOPK_LAUNCH
 }
 
 extern "C" const char* dist_topk_error(int code) {

@@ -16,6 +16,14 @@ pre-gathered ladders xg (nq, b, hmax), zg (nq, b, hmax, iters+1),
 wg (nq, b, hmax, iters) -> t (nq, b). No engine calls it, in the JAX
 package or here: the candidate engines use the fused ``cand_pour`` kernel.
 It is the same CUDA kernel with x indexed per (query, row).
+
+``act_phase2_gather`` is K2 with the gather fused in, the entry the engine
+calls: x (n, hmax), ids (n, hmax) int32 and the Phase-1 ladders
+Z (nq, v, iters+1), W (nq, v, >= iters) -> t (nq, n), the value of K2 on
+``Z[:, ids]`` and ``W[:, ids, :iters]``. The kernel reads the ladder rows at
+the ids itself, so the (nq, n, hmax, k) tensors that the JAX engine
+materializes for its TPU kernel never exist; :func:`act_phase2_gather_plain`
+is that gather followed by :func:`act_phase2_plain`.
 """
 from __future__ import annotations
 
@@ -31,6 +39,15 @@ launches = 0
 
 #: K5 (``act_phase2_cand``) launches since the count was last set to 0.
 cand_launches = 0
+
+#: Fused-gather K2 (``act_phase2_gather``) launches since the count was
+#: last set to 0.
+gather_launches = 0
+
+#: Queries whose ladders the plain fused-gather version gathers at once:
+#: it bounds the (bq, n, hmax, 2*iters+1) copies as the engines' block_q
+#: does.
+PLAIN_BLOCK_Q = 8
 
 
 def act_phase2_plain(x: torch.Tensor, zg: torch.Tensor,
@@ -99,6 +116,40 @@ def act_phase2_cand_cuda(xg: torch.Tensor, zg: torch.Tensor,
     return t
 
 
+def act_phase2_gather_plain(x: torch.Tensor, ids: torch.Tensor,
+                            Z: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the fused entry: gather the ladders at the
+    ids, then :func:`act_phase2_plain`, ``PLAIN_BLOCK_Q`` queries at a
+    time (each query's pour is independent, so the blocks change no
+    value)."""
+    iters = Z.shape[-1] - 1
+    return torch.cat([act_phase2_plain(x, Zb[:, ids], Wb[:, ids, :iters])
+                      for Zb, Wb in zip(Z.split(PLAIN_BLOCK_Q),
+                                        W.split(PLAIN_BLOCK_Q))])
+
+
+def act_phase2_gather_cuda(x: torch.Tensor, ids: torch.Tensor,
+                           Z: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Launch the fused-gather kernel on the current stream. The caller
+    (``ops.act_phase2_gather``) has checked devices, dtypes, shapes, the
+    range of the ids and contiguity."""
+    global gather_launches
+    lib = _lib()
+    n, hmax = x.shape
+    nq, v, k = Z.shape
+    t = torch.empty((nq, n), dtype=torch.float32, device=x.device)
+    err = lib.act_phase2_gather_launch(
+        x.data_ptr(), ids.data_ptr(), Z.data_ptr(), W.data_ptr(),
+        t.data_ptr(), nq, n, v, hmax, k - 1, W.shape[2],
+        int(Z.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"act_phase2_gather kernel launch failed: "
+                           f"{lib.act_phase2_error(err).decode()}")
+    gather_launches += 1
+    return t
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/act_phase2.cu``."""
@@ -108,6 +159,9 @@ def _lib() -> ctypes.CDLL:
     lib.act_phase2_launch.restype = i
     lib.act_phase2_cand_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.act_phase2_cand_launch.restype = i
+    lib.act_phase2_gather_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                             i, p]
+    lib.act_phase2_gather_launch.restype = i
     lib.act_phase2_error.argtypes = [i]
     lib.act_phase2_error.restype = ctypes.c_char_p
     return lib

@@ -14,6 +14,10 @@ checked against. Contract (both versions):
   them hold the sentinel and S = the lowest column that is invalid or
   already taken (the JAX kernel's masked-min rule);
 * Z (nq, v, k) in ``out_dtype`` (cast on the store only), S (nq, v, k) int32.
+
+The CUDA kernel computes the distances of the valid bins only (it packs
+them across the batch first); the plain version computes every slot and
+masks the invalid ones.
 """
 from __future__ import annotations
 
@@ -62,17 +66,26 @@ def dist_topk_plain(coords: torch.Tensor, qcs: torch.Tensor,
 def dist_topk_cuda(coords: torch.Tensor, qcs: torch.Tensor,
                    qmask: torch.Tensor, k: int,
                    out_dtype: torch.dtype = torch.float32):
-    """Launch the CUDA kernel on the current stream. The caller
-    (``ops.dist_topk_batched``) has checked devices, dtypes, shapes and
-    contiguity."""
+    """Launch the CUDA kernel on the current stream: a compaction of the
+    valid bins, then the distances and selection over those bins only. The
+    caller (``ops.dist_topk_batched``) has checked devices, dtypes, shapes
+    and contiguity."""
     global launches
-    lib = _lib()
     v, m = coords.shape
     nq, h, _ = qcs.shape
+    if nq * h >= 2**31:
+        raise ValueError(f"nq * h must be below 2^31, got {nq} * {h}")
+    lib = _lib()
     z = torch.empty((nq, v, k), dtype=out_dtype, device=coords.device)
     s = torch.empty((nq, v, k), dtype=torch.int32, device=coords.device)
+    # Scratch: the flat indices q*h + c of the valid bins, their count and
+    # their squared norms.
+    packed = torch.empty(nq * h, dtype=torch.int32, device=coords.device)
+    count = torch.empty(1, dtype=torch.int32, device=coords.device)
+    bnorm = torch.empty(nq * h, dtype=torch.float32, device=coords.device)
     err = lib.dist_topk_launch(
-        coords.data_ptr(), qcs.data_ptr(), qmask.data_ptr(), z.data_ptr(),
+        coords.data_ptr(), qcs.data_ptr(), qmask.data_ptr(),
+        packed.data_ptr(), count.data_ptr(), bnorm.data_ptr(), z.data_ptr(),
         s.data_ptr(), nq, v, h, m, k, pad_dist_for(out_dtype),
         int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(coords.device).cuda_stream)
@@ -88,7 +101,7 @@ def _lib() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/dist_topk.cu``."""
     lib = _build.load("dist_topk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dist_topk_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
+    lib.dist_topk_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                      ctypes.c_float, i, p]
     lib.dist_topk_launch.restype = i
     lib.dist_topk_error.argtypes = [i]

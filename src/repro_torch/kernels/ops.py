@@ -93,6 +93,43 @@ def act_phase2_batched(x: torch.Tensor, zg: torch.Tensor,
     return fn(x, zg, wg)
 
 
+def act_phase2_gather(x: torch.Tensor, ids: torch.Tensor, Z: torch.Tensor,
+                      W: torch.Tensor) -> torch.Tensor:
+    """K2 with the gather fused in: the pour of :func:`act_phase2_batched`
+    on ``Z[:, ids]`` and ``W[:, ids, :iters]``, without either tensor.
+
+    x (n, hmax) float32 shared residual weights; ids (n, hmax) int32 in
+    [0, v); Z (nq, v, iters+1) and W (nq, v, >= iters) Phase-1 ladders,
+    both float32 or both bfloat16, ``iters >= 1`` -> t (nq, n) float32.
+    """
+    _require(x.dim() == 2 and x.dtype == torch.float32,
+             f"x must be (n, hmax) float32, got {tuple(x.shape)} {x.dtype}")
+    _require(ids.shape == x.shape and ids.dtype == torch.int32,
+             f"ids must be {tuple(x.shape)} int32, got {tuple(ids.shape)} "
+             f"{ids.dtype}")
+    _require(Z.dim() == 3 and Z.shape[2] >= 2,
+             f"Z must be (nq, v, iters+1) with iters >= 1, got "
+             f"{tuple(Z.shape)}")
+    _require(W.dim() == 3 and W.shape[:2] == Z.shape[:2]
+             and W.shape[2] >= Z.shape[2] - 1,
+             f"W must be ({Z.shape[0]}, {Z.shape[1]}, >={Z.shape[2] - 1}), "
+             f"got {tuple(W.shape)}")
+    _require(Z.dtype == W.dtype and Z.dtype in _LADDER_DTYPES,
+             f"Z and W must both be float32 or both bfloat16, got "
+             f"{Z.dtype} / {W.dtype}")
+    _require(min(x.shape) >= 1 and min(Z.shape[:2]) >= 1,
+             "x, ids, Z and W must be non-empty")
+    _require(all(t.is_contiguous() for t in (x, ids, Z, W)),
+             "x, ids, Z and W must be contiguous")
+    on_cpu = _on_cpu(x, ids, Z, W)
+    lo, hi = (int(e) for e in torch.aminmax(ids))    # a pass and a sync
+    _require(0 <= lo and hi < Z.shape[1],
+             f"ids must lie in [0, {Z.shape[1]}), got [{lo}, {hi}]")
+    fn = (act_phase2.act_phase2_gather_plain if on_cpu
+          else act_phase2.act_phase2_gather_cuda)
+    return fn(x, ids, Z, W)
+
+
 def act_phase2_cand(xg: torch.Tensor, zg: torch.Tensor,
                     wg: torch.Tensor) -> torch.Tensor:
     """Candidate-grid Phase-2/3 pour (K5): K2's pour with per-query
