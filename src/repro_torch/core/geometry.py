@@ -21,10 +21,16 @@ def pairwise_dist(a: torch.Tensor, b: torch.Tensor,
                   snap: float = ZERO_SNAP) -> torch.Tensor:
     """Euclidean distances between rows of ``a`` (na, m) and ``b`` (nb, m);
     near-zero values collapse to exact 0 relative to the pair's magnitude
-    (see ZERO_SNAP)."""
+    (see ZERO_SNAP).
+
+    The (na, nb) passes run in place on the product, so two such tensors
+    and a mask are live at once. Each value is that of
+    ``sqrt(clamp(a2 + b2 - 2 a.b, 0))``: -2 a.b is exact and a float sum
+    does not depend on the order of its two terms."""
     a2 = torch.sum(a * a, dim=-1, keepdim=True)          # (na, 1)
     b2 = torch.sum(b * b, dim=-1, keepdim=True).T        # (1, nb)
-    d2 = torch.clamp_min(a2 + b2 - 2.0 * (a @ b.T), 0.0)
+    n2 = a2 + b2
+    d2 = (a @ b.T).mul_(-2.0).add_(n2).clamp_min_(0.0)
     if snap:
-        d2 = torch.where(d2 < snap * snap * (a2 + b2), 0.0, d2)
-    return torch.sqrt(d2)
+        d2.masked_fill_(d2 < n2.mul_(snap * snap), 0.0)
+    return d2.sqrt_()

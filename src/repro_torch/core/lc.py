@@ -24,7 +24,10 @@ blocks are a plain Python loop) and the mesh sharding pins. JAX's
 ``use_kernels=True`` sends Phase 1 to the ``dist_topk`` kernel and Phase
 2/3 to the ``act_phase2`` kernel's fused-gather entry (``kernels/ops.py``),
 which reads the ladders at the corpus ids itself; in the candidate
-engines it sends Phase 2/3 to the ``cand_pour`` and ``cand_dist`` kernels.
+engines it sends Phase 2/3 to the ``cand_pour`` kernel and, for
+``rwmd_rev`` and ``ict``, Phase 1 to the valid-bin distance handoff
+(:func:`phase1_valid_dist`) and Phase 2/3 to the ``cand_dist`` kernel's
+valid-bin entry, so the stacked (v, nq*h) tensor is never built there.
 
 The candidate engines depart from the JAX package in one place. There,
 Phase 1 of a candidate engine is the jnp pipeline on both paths, behind an
@@ -224,6 +227,38 @@ def phase1_stacked_dist(coords: torch.Tensor, Q_ids: torch.Tensor,
     D = D.reshape(coords.shape[0], nq, h)
     D = torch.where(Q_w[None] > 0.0, D, pad_dist_for(policy.storage))
     return D.to(policy.storage_dtype)
+
+
+def phase1_valid_dist(coords: torch.Tensor, Q_ids: torch.Tensor,
+                      Q_w: torch.Tensor, precision: str = "f32"):
+    """Valid-bin Phase-1 distance handoff of the whole query batch: the
+    distances of every vocabulary row to the batch's P valid query bins
+    (weight > 0) only, in one (v, P) matmul.
+
+    The valid bins keep their flat order q*h + c, so each query's bins
+    stay in their order and contiguous. Returns (Dv, qoff, qwv): Dv (v, P)
+    in the policy's storage dtype, its rows at a stride padded to a
+    multiple of 4 (the kernel's aligned vector loads); qoff (nq+1,) int32,
+    query q owning columns [qoff[q], qoff[q+1]); qwv (P,) float32 their
+    query weights. The dedup rule of :func:`stack_query_bins` applies to
+    the P columns. Sizing P is one host sync. On the valid columns Dv holds
+    the values of :func:`phase1_stacked_dist`, which fills the other
+    nq*h - P columns with the sentinel.
+    """
+    policy = resolve_precision(precision)
+    valid = Q_w > 0.0
+    cols = torch.nonzero(valid.reshape(-1))[:, 0]        # sizes P: a sync
+    P = cols.numel()
+    counts = valid.sum(dim=1, dtype=torch.int32)
+    qoff = F.pad(torch.cumsum(counts, 0, dtype=torch.int32), (1, 0))
+    qc, inv = stack_query_bins(coords, Q_ids.reshape(-1)[cols][None])
+    pad = -P % 4                       # columns computed but never read
+    if inv is None:
+        Dv = pairwise_dist(coords, F.pad(qc, (0, 0, 0, pad)))
+    else:
+        Dv = pairwise_dist(coords, qc)[:, F.pad(inv, (0, pad))]
+    return (Dv.to(policy.storage_dtype)[:, :P], qoff,
+            Q_w.reshape(-1)[cols].contiguous())
 
 
 def gather_capacities(Q_w: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
@@ -554,8 +589,10 @@ def lc_ict_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
 # scored, so compaction is a Phase-2/3 matter: the same consumers as above,
 # gathering each query's own (b, hmax) sub-corpus (``corpus.ids[cand]``)
 # instead of all n rows. ``use_kernels`` fuses the per-query ladder gather
-# and the reduction into one ``cand_pour`` / ``cand_dist`` launch per query
-# block, so the (nq, b, hmax, k) gather never reaches memory.
+# and the reduction into one ``cand_pour`` launch per query block, so the
+# (nq, b, hmax, k) gather never reaches memory; ``rwmd_rev`` and ``ict``
+# go to the valid-bin ``cand_dist`` entry, one launch per batch, which
+# reads the candidate rows from the corpus itself.
 # --------------------------------------------------------------------------
 
 
@@ -624,30 +661,22 @@ def omr_reduce_cand_blocked(corpus: Corpus, Z: torch.Tensor,
 
 def rev_min_cand_blocked(corpus: Corpus, Dq: torch.Tensor,
                          Q_w: torch.Tensor, cand: torch.Tensor,
-                         block_q: int, *,
-                         use_kernels: bool = False) -> torch.Tensor:
+                         block_q: int) -> torch.Tensor:
     """Candidate-compacted reverse masked (min,+) reduction: Dq (nq, v, h),
     cand (nq, b) -> (nq, b) reverse-RWMD bounds. Masking and reduction run
     in float32, the sentinel written in float32 (never a reduced storage
     dtype); the contraction is a multiply then a sum over h."""
     idsg, xg = corpus.ids[cand], corpus.w[cand]
-    if use_kernels:
-        return _map_query_blocks(kops.cand_rev_min, (idsg, xg, Dq, Q_w),
-                                 block_q)
     return reduce_dist_rows(rev_min_sum, Dq, Q_w, idsg, xg, block_q)
 
 
 def ict_reduce_cand_blocked(corpus: Corpus, Dq: torch.Tensor,
                             Q_w: torch.Tensor, cand: torch.Tensor,
-                            block_q: int, *,
-                            use_kernels: bool = False) -> torch.Tensor:
+                            block_q: int) -> torch.Tensor:
     """Candidate-compacted Algorithm-2 reduction: Dq (nq, v, h),
     cand (nq, b) -> (nq, b) LC-ICT bounds, the remainder dumped at the max
     finite cost (see :func:`ict_pour`)."""
     idsg, xg = corpus.ids[cand], corpus.w[cand]
-    if use_kernels:
-        return _map_query_blocks(kops.cand_ict, (idsg, xg, Dq, Q_w),
-                                 block_q)
     return reduce_dist_rows(ict_reduce, Dq, Q_w, idsg, xg, block_q)
 
 
@@ -682,11 +711,16 @@ def lc_rwmd_scores_rev_cand(corpus: Corpus, Q_ids: torch.Tensor,
                             Q_w: torch.Tensor, cand: torch.Tensor, *,
                             use_kernels: bool = False, block_q: int = 8,
                             precision: str = "f32") -> torch.Tensor:
-    """Candidate-compacted batched LC-RWMD query -> db."""
+    """Candidate-compacted batched LC-RWMD query -> db. ``use_kernels``
+    takes the valid-bin handoff and K4's valid-bin entry, in one launch;
+    otherwise the stacked handoff and the reference reduction."""
+    if use_kernels:
+        return kops.cand_rev_min_valid(
+            corpus.ids, corpus.w, cand.long().contiguous(),
+            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision))
     Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
                                           precision=precision))
-    return rev_min_cand_blocked(corpus, Dq, Q_w, cand, block_q,
-                                use_kernels=use_kernels)
+    return rev_min_cand_blocked(corpus, Dq, Q_w, cand, block_q)
 
 
 def lc_omr_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
@@ -704,8 +738,14 @@ def lc_ict_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
                        Q_w: torch.Tensor, cand: torch.Tensor, *,
                        use_kernels: bool = False, block_q: int = 8,
                        precision: str = "f32") -> torch.Tensor:
-    """Candidate-compacted batched LC-ICT (the cascade's tight rescorer)."""
+    """Candidate-compacted batched LC-ICT (the cascade's tight rescorer).
+    ``use_kernels`` takes the valid-bin handoff and K4's valid-bin entry,
+    in one launch; otherwise the stacked handoff and the reference
+    reduction."""
+    if use_kernels:
+        return kops.cand_ict_valid(
+            corpus.ids, corpus.w, cand.long().contiguous(),
+            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision))
     Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
                                           precision=precision))
-    return ict_reduce_cand_blocked(corpus, Dq, Q_w, cand, block_q,
-                                   use_kernels=use_kernels)
+    return ict_reduce_cand_blocked(corpus, Dq, Q_w, cand, block_q)

@@ -14,6 +14,14 @@ Counterparts of the JAX package's ``kernels/cand_pour.py``:
   multiply by q_w and a sum over h) or mode ``ict`` (``lc.ict_pour``: the
   full sorted ladder, ties to the lower query bin, the remainder dumped
   at the max finite cost).
+* ``cand_dist_valid`` (K4 on the valid-bin handoff; CUDA
+  ``csrc/cand_dist_valid.cu``) is the same function as ``cand_dist`` on
+  the layout ``core.lc.phase1_valid_dist`` writes: Dv (v, P) holds only
+  the batch's P valid query bins, query q owning columns
+  [qoff[q], qoff[q+1]), with their weights qwv (P,). It reads the
+  candidate rows from the corpus (ids, w) at cand (nq, b) itself. An
+  empty query scores 0, as its padded bins add exactly 0 on the stacked
+  handoff. This is the entry the engines call.
 
 idsg (nq, b, hmax) int32 and xg (nq, b, hmax) float32 are the candidates'
 sub-corpus (``corpus.ids[cand]``, ``corpus.w[cand]``); padding slots carry
@@ -45,6 +53,15 @@ launches = {"pour": 0, "pour0": 0, "omr": 0, "rev_min": 0, "ict": 0}
 #: Largest query width h that K4 takes: each lane of a warp holds h/32
 #: costs of an entry in registers, at most 32.
 MAX_H = 1024
+
+#: Launches of K4's valid-bin entry by mode since the counts were last set
+#: to 0.
+valid_launches = {"rev_min": 0, "ict": 0}
+
+#: Most valid bins a query may have on the valid-bin K4: a lane holds 8
+#: aligned quads of an entry's costs, and 1,020 columns touch at most 256
+#: quads, 8 for each of 32 lanes, whatever their alignment.
+MAX_LEN = 1020
 
 _MODES = {"pour": 0, "omr": 1, "rev_min": 0, "ict": 1}
 
@@ -86,6 +103,39 @@ def cand_ict_plain(idsg: torch.Tensor, xg: torch.Tensor, dq: torch.Tensor,
     in row chunks of at most ``lc.GATHER_ELEMS`` gathered costs (the sort
     of a whole 20 Newsgroups-width block does not fit the card)."""
     return lc.reduce_dist_rows(lc.ict_reduce, dq, qw, idsg, xg, 1)
+
+
+def _reduce_valid(reduce, ids, w, cand, dv, qoff, qwv):
+    """``lc.reduce_dist_rows(reduce, ...)`` one query at a time on the
+    query's (v, len_q) slice of Dv and its weights; an empty query
+    scores 0."""
+    out = torch.zeros(cand.shape, dtype=torch.float32, device=w.device)
+    bounds = qoff.tolist()
+    for q, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        if hi > lo:
+            rows = cand[q:q + 1]
+            out[q] = lc.reduce_dist_rows(reduce, dv[None, :, lo:hi],
+                                         qwv[None, lo:hi], ids[rows],
+                                         w[rows], 1)[0]
+    return out
+
+
+def cand_rev_min_valid_plain(ids: torch.Tensor, w: torch.Tensor,
+                             cand: torch.Tensor, dv: torch.Tensor,
+                             qoff: torch.Tensor,
+                             qwv: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the valid-bin K4, mode ``rev_min``: the
+    reduction of :func:`cand_rev_min_plain` on each query's valid bins."""
+    return _reduce_valid(lc.rev_min_sum, ids, w, cand, dv, qoff, qwv)
+
+
+def cand_ict_valid_plain(ids: torch.Tensor, w: torch.Tensor,
+                         cand: torch.Tensor, dv: torch.Tensor,
+                         qoff: torch.Tensor,
+                         qwv: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the valid-bin K4, mode ``ict``: the
+    reduction of :func:`cand_ict_plain` on each query's valid bins."""
+    return _reduce_valid(lc.ict_reduce, ids, w, cand, dv, qoff, qwv)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -134,6 +184,29 @@ def cand_dist_cuda(idsg: torch.Tensor, xg: torch.Tensor, dq: torch.Tensor,
     return t
 
 
+def cand_dist_valid_cuda(ids: torch.Tensor, w: torch.Tensor,
+                         cand: torch.Tensor, dv: torch.Tensor,
+                         qoff: torch.Tensor, qwv: torch.Tensor,
+                         mode: str) -> torch.Tensor:
+    """Launch the valid-bin K4 on the current stream. The caller
+    (``ops.cand_rev_min_valid`` / ``ops.cand_ict_valid``) has checked
+    devices, dtypes, shapes, strides, the range of cand and qoff, and
+    that no query has more than MAX_LEN valid bins."""
+    lib = _lib("cand_dist_valid")
+    nq, b = cand.shape
+    t = torch.empty((nq, b), dtype=torch.float32, device=w.device)
+    err = lib.cand_dist_valid_launch(
+        ids.data_ptr(), w.data_ptr(), cand.data_ptr(), dv.data_ptr(),
+        qoff.data_ptr(), qwv.data_ptr(), t.data_ptr(), nq, b, ids.shape[1],
+        dv.stride(0), pad_dist_for(torch.float32), _MODES[mode],
+        int(dv.dtype == torch.bfloat16), _stream(w))
+    if err:
+        raise RuntimeError(f"cand_dist_valid kernel launch failed: "
+                           f"{lib.cand_dist_valid_error(err).decode()}")
+    valid_launches[mode] += 1
+    return t
+
+
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/<name>.cu``."""
@@ -143,6 +216,8 @@ def _lib(name: str) -> ctypes.CDLL:
                                                             f"{name}_error")
     if name == "cand_pour":
         launch.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
+    elif name == "cand_dist_valid":
+        launch.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_float, i, i, p]
     else:
         launch.argtypes = [p, p, p, p, p] + [i] * 5 + [ctypes.c_float, i, i,
                                                        p]
