@@ -19,8 +19,9 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
    within tolerance of the plain version, under float32 and bfloat16;
 3. the main path end to end: a 20 Newsgroups-shaped corpus (n=18828,
    v=69682, m=300, hmax=500, seed 0), ``EmdIndex(backend="cuda").search``
-   for 16 corpus rows with LC-ACT (iters=7, top_l=16) and with LC-RWMD,
-   each held against ``backend="reference"`` on the same card, with the
+   for 16 corpus rows with LC-ACT (iters=7, top_l=16), with LC-RWMD and
+   with LC-OMR (the two full-corpus users of K3's all-rows form), each
+   held against ``backend="reference"`` on the same card, with the
    kernels' launch counts set to 0 before each and read after;
 4. times (CUDA events after warm-up): each kernel, its plain version, its
    bound and, for K1, one library call (``torch.cdist`` + ``torch.topk``)
@@ -30,7 +31,10 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
 5. the candidate kernels against their plain versions on the card, on the
    inputs the cascade gives them at that width, under float32 and bfloat16
    handoffs: ``cand_pour`` (K3) mode ``omr`` at b=3766 candidates per
-   query and mode ``pour`` at iters 0 and 3 (b=941), ``cand_dist`` (K4)
+   query and mode ``pour`` at iters 0 and 3 (b=941), K3's corpus-row
+   entry ``cand_pour_rows`` (the engines' K3) in the same modes and in its
+   all-rows form (the LC-RWMD dump and LC-OMR over all 18828 rows), also
+   against the old K3 on the same rows, ``cand_dist`` (K4)
    modes ``ict`` and ``rev_min`` (b=941) on the stacked handoff and on the
    valid-bin handoff (``cand_dist_valid``, the entry the engines call),
    the latter also against the stacked K4 on the same costs,
@@ -47,9 +51,14 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
    be in the result (exactness wherever the budgets keep the true
    neighbours), and the recall and the number pruned by the budgets are
    printed; the recall of ``fast`` and of the rwmd_rev ladder against
-   full-corpus act-3 must be the same on both backends;
+   full-corpus act-3 must be the same on both backends; every search
+   launches K3's corpus-row entry once per stage and batch and the old K3
+   never;
 7. times: each candidate kernel, its plain version, its bound and, where
-   one PyTorch call computes the same function, that call; the valid-bin
+   one PyTorch call computes the same function, that call (for the
+   all-rows iters=0 form an ``embedding_bag`` over the whole corpus); K3's
+   corpus-row entry as the bare launch, in a CUDA graph of 20 launches (its
+   device time) and through its wrapper; the valid-bin
    handoff against the stacked one, with its host sync apart; seconds per
    16-query cascaded search and peak device memory for each ladder
    (under 1 GiB above the resident index for ``tight`` and the rwmd_rev
@@ -129,6 +138,21 @@ CAND_KERNELS = {
     "cand_dist_valid.rev_min": ("cand_dist_valid",
                                 "src/repro/kernels/cand_pour.py:214"),
     "act_phase2_cand": ("act_phase2", "src/repro/kernels/act_phase2.py:110"),
+    **{f"cand_pour_rows.{m}": ("cand_pour_rows",
+                               "src/repro/kernels/cand_pour.py:176")
+       for m in ("pour", "pour_iters0", "omr", "all_pour_iters0",
+                 "all_omr")},
+}
+#: K3's corpus-row entry: JSON name -> its key in ``rows_launches``.
+ROWS_KEYS = {"pour": "pour", "pour_iters0": "pour0", "omr": "omr",
+             "all_pour_iters0": "all_pour0", "all_omr": "all_omr"}
+#: Launches of K3's corpus-row entry each search must make (one per stage
+#: and batch), and the old K3 none.
+ROWS_EXPECTED = {
+    "chain": {"all_pour_iters0": 1, "omr": 1, "pour": 1},
+    "tight": {"all_pour_iters0": 1, "pour": 1},
+    "fast": {"pour_iters0": 1, "pour": 1},
+    "rwmd_rev": {"all_pour_iters0": 1, "pour": 1},
 }
 
 
@@ -192,6 +216,8 @@ def zero_counts():
         cand_pour.launches[mode] = 0
     for mode in cand_pour.valid_launches:
         cand_pour.valid_launches[mode] = 0
+    for mode in cand_pour.rows_launches:
+        cand_pour.rows_launches[mode] = 0
 
 
 def read_counts():
@@ -205,7 +231,14 @@ def read_counts():
             "cand_dist.rev_min": c["rev_min"], "cand_dist.ict": c["ict"],
             "cand_dist_valid.rev_min": cand_pour.valid_launches["rev_min"],
             "cand_dist_valid.ict": cand_pour.valid_launches["ict"],
-            "act_phase2_cand": act_phase2.cand_launches}
+            "act_phase2_cand": act_phase2.cand_launches,
+            **{f"cand_pour_rows.{name}": cand_pour.rows_launches[key]
+               for name, key in ROWS_KEYS.items()}}
+
+
+def rows_of(counts):
+    """The launches of K3's corpus-row entry in ``counts``, by mode."""
+    return {name: counts[f"cand_pour_rows.{name}"] for name in ROWS_KEYS}
 
 
 def firm_ranks(s_ref, next_ref):
@@ -274,6 +307,31 @@ def cand_cases(corpus, q_ids, q_w, wide, narrow, precision):
         row_bins = cand.shape[1] * int(lens.sum())
         return nbytes, ops_per_bin * entry_bins + row_ops_per_bin * row_bins
 
+    def rows_work(cand, width, ops_per_entry):
+        """K3's corpus-row entry reads cand, the weights of each distinct
+        row it names (every row when cand is None), the ids of their slots
+        with x > 0 and the ``width`` ladder values of each distinct
+        (query, id) those name, and writes t; it does ops_per_entry
+        operations per (query, entry with x > 0)."""
+        rows_u = (torch.arange(corpus.n, device=q_ids.device)
+                  if cand is None else torch.unique(cand))
+        live_u = corpus.w[rows_u] > 0
+        if cand is None:
+            entries = nq * int(live_u.sum())
+            pairs = nq * int(torch.unique(corpus.ids[live_u]).numel())
+            nbytes, cols = 0, corpus.n
+        else:
+            live = corpus.w[cand] > 0                   # (nq, b, hmax)
+            entries = int(live.sum())
+            pairs = int(torch.unique(
+                (torch.arange(nq, device=cand.device)[:, None, None] * v
+                 + corpus.ids[cand].long())[live]).numel())
+            nbytes, cols = 8 * cand.numel(), cand.shape[1]
+        nbytes += 4 * live_u.numel() + 4 * int(live_u.sum()) \
+            + esz * width * pairs + 4 * nq * cols
+        return nbytes, ops_per_entry * entries
+
+    ids, w = corpus.ids, corpus.w
     nb = x_n.shape[0] * x_n.shape[1]
     return {
         "cand_pour.pour": (
@@ -318,7 +376,30 @@ def cand_cases(corpus, q_ids, q_w, wide, narrow, precision):
             # pre-gathered ladders: each entry with x > 0 is its own input
             4 * x_n.numel() + int((x_n > 0).sum()) * (2 * ACT3 + 1) * esz
             + 4 * nb, 5 * (ACT3 + 1) * int((x_n > 0).sum())),
-    }, (Z1, Dq, ids_n, valid)
+        "cand_pour_rows.pour": (
+            lambda: ops.cand_pour_rows(ids, w, narrow, Z4, W4, ACT3),
+            lambda: cand_pour.cand_pour_rows_plain(ids, w, narrow, Z4, W4,
+                                                   ACT3),
+            *rows_work(narrow, 2 * ACT3 + 1, 5 * (ACT3 + 1))),
+        "cand_pour_rows.pour_iters0": (
+            lambda: ops.cand_pour_rows(ids, w, narrow, Z1, None, 0),
+            lambda: cand_pour.cand_pour_rows_plain(ids, w, narrow, Z1, None,
+                                                   0),
+            *rows_work(narrow, 1, 2)),
+        "cand_pour_rows.omr": (
+            lambda: ops.cand_omr_rows(ids, w, wide, Z2, W0),
+            lambda: cand_pour.cand_omr_rows_plain(ids, w, wide, Z2, W0),
+            *rows_work(wide, 3, 4)),
+        "cand_pour_rows.all_pour_iters0": (
+            lambda: ops.cand_pour_rows(ids, w, None, Z1, None, 0),
+            lambda: cand_pour.cand_pour_rows_plain(ids, w, None, Z1, None,
+                                                   0),
+            *rows_work(None, 1, 2)),
+        "cand_pour_rows.all_omr": (
+            lambda: ops.cand_omr_rows(ids, w, None, Z2, W0),
+            lambda: cand_pour.cand_omr_rows_plain(ids, w, None, Z2, W0),
+            *rows_work(None, 3, 4)),
+    }, (Z1, Dq, ids_n, valid, Z2, W0)
 
 
 def check_cand_kernels(corpus, q_ids, q_w, wide, narrow):
@@ -329,8 +410,8 @@ def check_cand_kernels(corpus, q_ids, q_w, wide, narrow):
     qrow = torch.arange(nq, device=q_ids.device)[:, None]
     errs = {}
     for precision in ("f32", "bf16"):
-        cases, (Z1, Dq, ids_n, valid) = cand_cases(corpus, q_ids, q_w, wide,
-                                                   narrow, precision)
+        cases, (Z1, Dq, ids_n, valid, Z2, W0) = cand_cases(
+            corpus, q_ids, q_w, wide, narrow, precision)
         for name, (kern, plain, _, _) in cases.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -351,6 +432,7 @@ def check_cand_kernels(corpus, q_ids, q_w, wide, narrow):
         # scattered back into (nq, v, h), the sentinel and weight 0 at the
         # invalid bins (which add exactly 0; the sums run in another order).
         same_costs(corpus, q_ids, q_w, narrow, valid, precision)
+        same_rows(corpus, cases, Z1, Z2, W0, precision)
         # The gathers, bitwise: one slot per row with x = 1 and the rest 0.
         # A pour at iters=0 then scores exactly Z1[q, id]; rev_min with a
         # one-hot q_w at a valid bin c scores exactly Dq[q, id, c].
@@ -369,8 +451,19 @@ def check_cand_kernels(corpus, q_ids, q_w, wide, narrow):
         check(torch.equal(ops.cand_rev_min(ids_n, xp, Dq, qw1),
                           Dq[qrow, at, col[:, None]].float()),
               f"cand_dist {precision}: the gather is not bitwise")
-        print(f"  gathers {precision}: bitwise at {at.numel()} probes each",
-              flush=True)
+        # The corpus-row entry's all-rows form, one slot per corpus row with
+        # x = 1: it scores exactly Z1[q, id].
+        slot_r = torch.randint(0, HMAX, (corpus.n,), device=ids_n.device,
+                               generator=gen)
+        xr = torch.zeros_like(corpus.w)
+        xr.scatter_(1, slot_r[:, None], 1.0)
+        at_r = torch.gather(corpus.ids, 1, slot_r[:, None])[:, 0].long()
+        check(torch.equal(ops.cand_pour_rows(corpus.ids, xr, None, Z1, None,
+                                             0), Z1[:, at_r, 0].float()),
+              f"cand_pour_rows {precision}: the gather is not bitwise")
+        print(f"  gathers {precision}: bitwise at {at.numel()} probes each "
+              f"(cand_pour, cand_dist), {nq * corpus.n} (cand_pour_rows, "
+              "all rows)", flush=True)
         if precision == "f32":
             f32_cases = cases
     return f32_cases, errs
@@ -401,6 +494,31 @@ def same_costs(corpus, q_ids, q_w, cand, valid, precision):
               f"K4 on the same costs max|d|={err:.3g} ({int(cols.numel())} "
               f"valid bins of {nq * h})", flush=True)
     del Dq
+
+
+def same_rows(corpus, cases, Z1, Z2, W0, precision):
+    """Phase 5: K3's corpus-row entry against the old K3 on the same rows:
+    the candidate form against the old K3 on the gathered candidate rows,
+    the all-rows form against the old K3 on every row of the corpus."""
+    nq = Z1.shape[0]
+    every = (corpus.ids.expand(nq, -1, -1).contiguous(),
+             corpus.w.expand(nq, -1, -1).contiguous())
+    old = {"pour": cases["cand_pour.pour"][0],
+           "pour_iters0": cases["cand_pour.pour_iters0"][0],
+           "omr": cases["cand_pour.omr"][0],
+           "all_pour_iters0": lambda: ops.cand_pour(*every, Z1, None, 0),
+           "all_omr": lambda: ops.cand_omr(*every, Z2, W0)}
+    for name, want_fn in old.items():
+        got, want = cases[f"cand_pour_rows.{name}"][0](), want_fn()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+              f"cand_pour_rows.{name} {precision}: max |d| {err} from the "
+              f"old K3 on the same rows, beyond rtol {RTOL} atol {ATOL}")
+        print(f"  cand_pour_rows.{name} {precision}: against the old K3 on "
+              f"the same rows max|d|={err:.3g} ({got.shape[1]} rows per "
+              "query)", flush=True)
+    del every
 
 
 def admissible_recall(spec, corpus, q_ids, q_w, i_c, full):
@@ -564,6 +682,59 @@ def time_valid_handoff(corpus, q_ids, q_w, cand):
     return bare
 
 
+def graph_ms(fn, n=20):
+    """Milliseconds per call of ``fn()`` on the device alone: ``n`` calls
+    captured in one CUDA graph and replayed, so no host time enters."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = cuda_ms(graph.replay, reps=5, warmup=1) / n
+    del graph
+    return ms
+
+
+def time_rows_entry(corpus, q_ids, q_w, wide, narrow):
+    """Phase 7: K3's corpus-row entry (f32 ladders) as the bare launch (one
+    launch between two events, the host's launch time included), in a CUDA
+    graph of 20 launches (the device's time alone) and through its wrapper
+    (its checks and, for the candidate form, the host sync of cand's
+    range); the all-rows form's times include its vocabulary-major copy of
+    the ladders. Returns {name: {key: ms}}."""
+    ids, w = corpus.ids, corpus.w
+    Z4, W4 = lc._phase1_batched_dispatch(corpus, q_ids, q_w, ACT3 + 1, True)
+    Z2, W2 = lc._phase1_batched_dispatch(corpus, q_ids, q_w, 2, True)
+    Z1, _ = lc._phase1_batched_dispatch(corpus, q_ids, q_w, 1, True)
+    W0 = W2[..., 0].contiguous()
+    calls = {
+        "pour": (narrow, Z4, W4, ACT3, "pour", ops.cand_pour_rows),
+        "pour_iters0": (narrow, Z1, None, 0, "pour", ops.cand_pour_rows),
+        "omr": (wide, Z2, W0, 1, "omr", ops.cand_omr_rows),
+        "all_pour_iters0": (None, Z1, None, 0, "pour", ops.cand_pour_rows),
+        "all_omr": (None, Z2, W0, 1, "omr", ops.cand_omr_rows),
+    }
+    out = {}
+    for name, (cand, Z, W, iters, mode, wrapper) in calls.items():
+        def launch():
+            return cand_pour.cand_pour_rows_cuda(ids, w, cand, Z, W, iters,
+                                                 mode)
+        t = {"ms": cuda_ms(launch, reps=20), "ms_graph": graph_ms(launch)}
+        args = (ids, w, cand, Z) + ((W,) if mode == "omr" else (W, iters))
+        t["wrapper_ms"] = host_ms(lambda: wrapper(*args), reps=20)
+        out[f"cand_pour_rows.{name}"] = t
+        print(f"phase 7: cand_pour_rows.{name}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+              + f" (ms: one launch between two events; ms_graph: per launch "
+              f"in a CUDA graph of 20; wrapper_ms: host clock around the "
+              f"wrapper and a sync)", flush=True)
+    return out
+
+
 def search_seconds(search):
     """Median host seconds of three searches after a warm-up each, and the
     peak device memory above what was resident before them."""
@@ -683,7 +854,7 @@ def main():
     # Phase 3: the main path end to end, cuda against reference.
     launches = {}
     results = {}
-    for method in ("act", "rwmd"):
+    for method in ("act", "rwmd", "omr"):
         cfg = dict(method=method, iters=ITERS, top_l=TOP_L, block_q=BLOCK_Q)
         cuda_index = EmdIndex.build(host_corpus, EngineConfig(**cfg),
                                     device=dev)
@@ -724,13 +895,19 @@ def main():
               f"self at rank 0 for {self_hit:.3f} of queries; launches "
               f"K1={launches[method]['dist_topk']} K2 fused gather="
               f"{launches[method]['act_phase2_gather']} K2 unfused="
-              f"{launches[method]['act_phase2']}", flush=True)
+              f"{launches[method]['act_phase2']} K3 rows "
+              f"{rows_of(launches[method])}", flush=True)
         results[method] = (cuda_index, ref_index)
     check(launches["act"]["dist_topk"] > 0
           and launches["act"]["act_phase2_gather"] > 0,
           f"act main path launched {launches['act']}")
     check(launches["rwmd"]["dist_topk"] > 0,
           "rwmd main path never launched K1")
+    check(launches["rwmd"]["cand_pour_rows.all_pour_iters0"] == 1
+          and launches["omr"]["cand_pour_rows.all_omr"] == 1
+          and sum(rows_of(launches["act"]).values()) == 0,
+          f"LC-RWMD's dump and LC-OMR did not launch K3's all-rows form "
+          f"once each: {launches}")
 
     # Phase 4: times.
     k = ITERS + 1
@@ -823,6 +1000,7 @@ def main():
     s1 = retrieval.batch_scores(corpus, q_ids, q_w, method="rwmd",
                                 use_kernels=True)
     _, wide = topk_smallest(s1, B_WIDE)
+    wide = wide.contiguous()
     narrow = wide[:, :B_NARROW].contiguous()
     print(f"phase 5: candidates per query {B_WIDE} and {B_NARROW}",
           flush=True)
@@ -849,16 +1027,21 @@ def main():
         cascade_counts[name] = counts
         cascade_idx[name] = (i_c, i_r)
     c = cascade_counts
-    for name in ("chain", "fast"):
+    # Every search takes K3's corpus-row entry once per stage and batch,
+    # and the old K3 never.
+    for name, want in ROWS_EXPECTED.items():
+        got = rows_of(c[name])
+        check(got == {k: want.get(k, 0) for k in ROWS_KEYS},
+              f"cascade {name}: K3's corpus-row entry launched {got}, not "
+              f"once per stage and batch ({want})")
         check(c[name]["cand_pour.pour"] + c[name]["cand_pour.pour_iters0"]
-              + c[name]["cand_pour.omr"] > 0,
-              f"cascade {name} never launched cand_pour: {c[name]}")
+              + c[name]["cand_pour.omr"] == 0,
+              f"cascade {name} launched the old K3: {c[name]}")
     # tight and the rwmd_rev ladder take K4's valid-bin entry, never the
     # stacked one.
-    check(c["tight"]["cand_pour.pour"] > 0
-          and c["tight"]["cand_dist_valid.ict"] > 0
+    check(c["tight"]["cand_dist_valid.ict"] > 0
           and c["tight"]["cand_dist.ict"] == 0,
-          f"cascade tight launched cand_pour/cand_dist {c['tight']}")
+          f"cascade tight launched cand_dist {c['tight']}")
     check(c["rwmd_rev"]["cand_dist_valid.rev_min"] > 0
           and c["rwmd_rev"]["cand_dist.rev_min"] == 0,
           f"the rwmd_rev ladder launched cand_dist {c['rwmd_rev']}")
@@ -895,20 +1078,38 @@ def main():
     check(torch.allclose(lib, cases["cand_pour.pour_iters0"][0](),
                          rtol=RTOL, atol=ATOL),
           "the embedding_bag yardstick disagrees with cand_pour")
-    # K4's valid-bin entry is timed as the bare launch, its wrapper apart.
+    # The same over the whole corpus: the yardstick of the all-rows dump.
+    flat_all = (corpus.ids.long()[None] + torch.arange(NQ, device=dev)[
+        :, None, None] * corpus.v).reshape(-1, HMAX)
+    bag_all_w = corpus.w.expand(NQ, -1, -1).reshape(-1, HMAX)
+
+    def library_all_pour0():
+        return torch.nn.functional.embedding_bag(
+            flat_all, table, per_sample_weights=bag_all_w, mode="sum")
+    check(torch.allclose(library_all_pour0().reshape(NQ, corpus.n),
+                         cases["cand_pour_rows.all_pour_iters0"][0](),
+                         rtol=RTOL, atol=ATOL),
+          "the embedding_bag yardstick disagrees with cand_pour_rows")
+    library = {"cand_pour.pour_iters0": library_pour0,
+               "cand_pour_rows.pour_iters0": library_pour0,
+               "cand_pour_rows.all_pour_iters0": library_all_pour0}
+    # K4's valid-bin entry and K3's corpus-row entry are timed as the bare
+    # launch, their wrappers apart.
     bare_ms = time_valid_handoff(corpus, q_ids, q_w, narrow)
+    rows_ms = time_rows_entry(corpus, q_ids, q_w, wide, narrow)
+    bare_ms.update({name: t["ms"] for name, t in rows_ms.items()})
     cand_times = {}
     for name, (kern, plain, nbytes, flops) in cases.items():
         k_ms = bare_ms[name] if name in bare_ms else cuda_ms(kern)
         p_ms = cuda_ms(plain, reps=3, warmup=1)
         b_ms, b_by = bound_ms(nbytes, flops)
-        l_ms = (cuda_ms(library_pour0) if name == "cand_pour.pour_iters0"
-                else None)
+        l_ms = cuda_ms(library[name]) if name in library else None
         cand_times[name] = (k_ms, p_ms, b_ms, b_by, l_ms)
         print(f"phase 7: {name:22s} {k_ms:.4f} ms (plain {p_ms:.3f}, "
               f"bound {b_ms:.4f} by {b_by}: {nbytes / 1e9:.3f} GB, "
               f"{flops / 1e9:.3f} GFLOP; library "
               f"{'none' if l_ms is None else f'{l_ms:.4f}'})", flush=True)
+    del flat_all, bag_all_w
     gib = 2**30
     for name, spec in CASCADES.items():
         t_c, m_c = search_seconds(
@@ -947,16 +1148,18 @@ def main():
          "max_abs_err": kg_err, "ms": kg_ms, "plain_ms": kg_plain,
          "bound_ms": kg_bound, "bound_by": kg_by, "library_ms": None},
     ]
+    # The main path's runs: the phase-3 searches and the cascades.
+    runs = {**launches, **cascade_counts}
     for name, (k_ms, p_ms, b_ms, b_by, l_ms) in cand_times.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{CAND_KERNELS[name][0]}.cu",
             "replaces": CAND_KERNELS[name][1],
-            "launches": sum(c[name] for c in cascade_counts.values()),
-            "launches_by_search": {p: c[name]
-                                   for p, c in cascade_counts.items()},
+            "launches": sum(c[name] for c in runs.values()),
+            "launches_by_search": {p: c[name] for p, c in runs.items()},
             "max_abs_err": cand_errs[name], "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+            **{k: t for k, t in rows_ms.get(name, {}).items() if k != "ms"}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

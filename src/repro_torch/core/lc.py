@@ -23,9 +23,11 @@ blocks are a plain Python loop) and the mesh sharding pins. JAX's
 
 ``use_kernels=True`` sends Phase 1 to the ``dist_topk`` kernel and Phase
 2/3 to the ``act_phase2`` kernel's fused-gather entry (``kernels/ops.py``),
-which reads the ladders at the corpus ids itself; in the candidate
-engines it sends Phase 2/3 to the ``cand_pour`` kernel and, for
-``rwmd_rev`` and ``ict``, Phase 1 to the valid-bin distance handoff
+which reads the ladders at the corpus ids itself; the LC-RWMD dump
+(iters=0) and LC-OMR to the all-rows form of the ``cand_pour`` kernel's
+corpus-row entry; in the candidate engines it sends Phase 2/3 to that
+entry's candidate form, one launch per batch, and, for ``rwmd_rev`` and
+``ict``, Phase 1 to the valid-bin distance handoff
 (:func:`phase1_valid_dist`) and Phase 2/3 to the ``cand_dist`` kernel's
 valid-bin entry, so the stacked (v, nq*h) tensor is never built there.
 
@@ -357,11 +359,13 @@ def pour_blocked(corpus: Corpus, Z: torch.Tensor, W: torch.Tensor,
     """Query-blocked Phase 2/3: (nq, v, iters+1) ladders -> (nq, n)
     bounds. Each block of ``block_q`` queries gathers its (bq, n, hmax, k)
     ladders once and pours them; under ``use_kernels`` the whole batch goes
-    to the fused-gather ``act_phase2`` kernel in one launch instead, which
-    reads the ladders at the corpus ids itself and so holds nothing per
-    block. ``iters=0`` is the nearest-cost dump of Phase 3 and has no
-    kernel."""
+    to one launch instead, which reads the ladders at the corpus ids itself
+    and so holds nothing per block: the fused-gather ``act_phase2`` kernel,
+    or at ``iters=0`` (the nearest-cost dump of Phase 3) the all-rows form
+    of ``cand_pour``'s corpus-row entry."""
     x = corpus.w
+    if iters == 0 and use_kernels:
+        return kops.cand_pour_rows(corpus.ids, x, None, Z, None, 0)
     if iters == 0:
         def blk0(Zb):                                    # (bq, v, k)
             return torch.sum(x * Zb[..., 0][:, corpus.ids], dim=-1)
@@ -526,10 +530,14 @@ def ict_reduce_blocked(corpus: Corpus, Dq: torch.Tensor, Q_w: torch.Tensor,
 
 
 def omr_reduce_blocked(corpus: Corpus, Z: torch.Tensor, W0: torch.Tensor,
-                       block_q: int) -> torch.Tensor:
+                       block_q: int, *,
+                       use_kernels: bool = False) -> torch.Tensor:
     """Query-blocked Algorithm-1 reduction on the top-2 handoff:
-    Z (nq, v, 2), W0 (nq, v) -> (nq, n) LC-OMR bounds."""
+    Z (nq, v, 2), W0 (nq, v) -> (nq, n) LC-OMR bounds; under
+    ``use_kernels`` one launch of ``cand_pour``'s all-rows form."""
     x = corpus.w
+    if use_kernels:
+        return kops.cand_omr_rows(corpus.ids, x, None, Z, W0.contiguous())
 
     def blk(Zb, W0b):                                    # (bq, v, 2), (bq, v)
         Zg = Zb[:, corpus.ids]                           # (bq, n, hmax, 2)
@@ -565,10 +573,12 @@ def lc_omr_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
                           block_q: int = 8,
                           precision: str = "f32") -> torch.Tensor:
     """Batched LC-OMR: batched Phase 1 with k=2 (the ``dist_topk`` kernel
-    when ``use_kernels``), query-blocked Algorithm-1 reduction."""
+    when ``use_kernels``), query-blocked Algorithm-1 reduction (one
+    ``cand_pour`` launch when ``use_kernels``)."""
     Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, 2, use_kernels,
                                     precision=precision)
-    return omr_reduce_blocked(corpus, Z, W[..., 0], block_q)
+    return omr_reduce_blocked(corpus, Z, W[..., 0], block_q,
+                              use_kernels=use_kernels)
 
 
 def lc_ict_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
@@ -588,11 +598,12 @@ def lc_ict_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
 # survived stage s. Phase 1 never depends on which database rows are
 # scored, so compaction is a Phase-2/3 matter: the same consumers as above,
 # gathering each query's own (b, hmax) sub-corpus (``corpus.ids[cand]``)
-# instead of all n rows. ``use_kernels`` fuses the per-query ladder gather
-# and the reduction into one ``cand_pour`` launch per query block, so the
-# (nq, b, hmax, k) gather never reaches memory; ``rwmd_rev`` and ``ict``
+# instead of all n rows. ``use_kernels`` fuses the candidate-row gather,
+# the per-query ladder gather and the reduction into one launch per batch
+# of ``cand_pour``'s corpus-row entry, so neither the (nq, b, hmax) rows
+# nor the (nq, b, hmax, k) ladders reach memory; ``rwmd_rev`` and ``ict``
 # go to the valid-bin ``cand_dist`` entry, one launch per batch, which
-# reads the candidate rows from the corpus itself.
+# also reads the candidate rows from the corpus itself.
 # --------------------------------------------------------------------------
 
 
@@ -602,10 +613,9 @@ def pour_min_cand_blocked(corpus: Corpus, Z0: torch.Tensor,
     """Candidate-compacted zero-round pour: Z0 (nq, v), cand (nq, b)
     -> (nq, b) scores at the candidate rows."""
     if use_kernels:
-        def blk_k(Zb, cb):                               # (bq, v), (bq, b)
-            return kops.cand_pour(corpus.ids[cb], corpus.w[cb],
-                                  Zb[..., None], None, 0)
-        return _map_query_blocks(blk_k, (Z0, cand), block_q)
+        return kops.cand_pour_rows(corpus.ids, corpus.w,
+                                   cand.long().contiguous(),
+                                   Z0[..., None].contiguous(), None, 0)
 
     def blk(Zb, cb):
         Zg = gather_per_query(Zb, corpus.ids[cb])       # (bq, b, hmax)
@@ -623,11 +633,8 @@ def pour_cand_blocked(corpus: Corpus, Z: torch.Tensor, W: torch.Tensor,
                                      use_kernels=use_kernels)
     if use_kernels:
         # The kernel reads the first iters capacity columns itself.
-        def blk_k(Zb, Wb, cb):
-            return kops.cand_pour(corpus.ids[cb], corpus.w[cb], Zb, Wb,
-                                  iters)
-        return _map_query_blocks(blk_k, (Z, W, cand), block_q)
-
+        return kops.cand_pour_rows(corpus.ids, corpus.w,
+                                   cand.long().contiguous(), Z, W, iters)
     W = W[..., :iters]
 
     def blk(Zb, Wb, cb):
@@ -646,11 +653,9 @@ def omr_reduce_cand_blocked(corpus: Corpus, Z: torch.Tensor,
     """Candidate-compacted Algorithm-1 reduction: Z (nq, v, 2), W0 (nq, v),
     cand (nq, b) -> (nq, b) LC-OMR bounds."""
     if use_kernels:
-        W0 = W0.contiguous()
-
-        def blk_k(Zb, W0b, cb):
-            return kops.cand_omr(corpus.ids[cb], corpus.w[cb], Zb, W0b)
-        return _map_query_blocks(blk_k, (Z, W0, cand), block_q)
+        return kops.cand_omr_rows(corpus.ids, corpus.w,
+                                  cand.long().contiguous(), Z,
+                                  W0.contiguous())
 
     def blk(Zb, W0b, cb):
         ids_g = corpus.ids[cb]

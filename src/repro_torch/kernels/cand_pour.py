@@ -22,6 +22,12 @@ Counterparts of the JAX package's ``kernels/cand_pour.py``:
   candidate rows from the corpus (ids, w) at cand (nq, b) itself. An
   empty query scores 0, as its padded bins add exactly 0 on the stacked
   handoff. This is the entry the engines call.
+* ``cand_pour_rows`` (K3 reading the corpus rows itself; CUDA
+  ``csrc/cand_pour_rows.cu``) is ``cand_pour`` on the corpus (ids, w) at
+  the candidate rows cand (nq, b), or at every row when cand is None (the
+  all-rows form, (nq, n) out, at iters=0 and in mode omr only: the
+  full-corpus LC-RWMD dump and LC-OMR).
+  This is the entry the engines call.
 
 idsg (nq, b, hmax) int32 and xg (nq, b, hmax) float32 are the candidates'
 sub-corpus (``corpus.ids[cand]``, ``corpus.w[cand]``); padding slots carry
@@ -62,6 +68,18 @@ valid_launches = {"rev_min": 0, "ict": 0}
 #: aligned quads of an entry's costs, and 1,020 columns touch at most 256
 #: quads, 8 for each of 32 lanes, whatever their alignment.
 MAX_LEN = 1020
+
+#: Launches of K3's corpus-row entry since the counts were last set to 0:
+#: the candidate form by mode (``pour``, ``pour0`` = pour at iters=0,
+#: ``omr``) and the all-rows form (``all_pour0``, ``all_omr``; it takes no
+#: pour at iters >= 1, which the engines send to the fused K2).
+rows_launches = {"pour": 0, "pour0": 0, "omr": 0, "all_pour0": 0,
+                 "all_omr": 0}
+
+#: Most pour rounds K3's corpus-row entry takes: a lane holds an entry's
+#: iters+1 costs and iters capacities in registers, at most 16 and 15 (K1
+#: selects at most 16 per row).
+MAX_ITERS = 15
 
 _MODES = {"pour": 0, "omr": 1, "rev_min": 0, "ict": 1}
 
@@ -138,6 +156,44 @@ def cand_ict_valid_plain(ids: torch.Tensor, w: torch.Tensor,
     return _reduce_valid(lc.ict_reduce, ids, w, cand, dv, qoff, qwv)
 
 
+def _rows_blocks(fn, ids, w, cand, tables, width):
+    """``fn(idsg, xg, *tables)`` one query at a time on the query's rows of
+    the corpus (every row when cand is None), in row chunks of at most
+    ``lc.GATHER_ELEMS`` gathered ladder values -> (nq, b or n) float32."""
+    nq = tables[0].shape[0]
+    b = ids.shape[0] if cand is None else cand.shape[1]
+    rows = max(1, lc.GATHER_ELEMS // (ids.shape[1] * width))
+    out = torch.empty((nq, b), dtype=torch.float32, device=w.device)
+    for q in range(nq):
+        tq = [t[q:q + 1] for t in tables]
+        for r in range(0, b, rows):
+            sel = (slice(r, r + rows) if cand is None
+                   else cand[q, r:r + rows])
+            out[q, r:r + rows] = fn(ids[sel][None], w[sel][None], *tq)[0]
+    return out
+
+
+def cand_pour_rows_plain(ids: torch.Tensor, w: torch.Tensor,
+                         cand: torch.Tensor | None, Z: torch.Tensor,
+                         W: torch.Tensor | None, iters: int) -> torch.Tensor:
+    """Plain PyTorch version of K3's corpus-row entry, mode ``pour``:
+    :func:`cand_pour_plain` on ``ids[cand]``, ``w[cand]`` (every row when
+    cand is None), gathered in blocks."""
+    tables = (Z,) if W is None else (Z, W)
+    return _rows_blocks(
+        lambda idsg, xg, z, wt=None: cand_pour_plain(idsg, xg, z, wt, iters),
+        ids, w, cand, tables, 2 * iters + 1)
+
+
+def cand_omr_rows_plain(ids: torch.Tensor, w: torch.Tensor,
+                        cand: torch.Tensor | None, Z: torch.Tensor,
+                        W0: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3's corpus-row entry, mode ``omr``:
+    :func:`cand_omr_plain` on ``ids[cand]``, ``w[cand]`` (every row when
+    cand is None), gathered in blocks."""
+    return _rows_blocks(cand_omr_plain, ids, w, cand, (Z, W0), 3)
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -207,6 +263,46 @@ def cand_dist_valid_cuda(ids: torch.Tensor, w: torch.Tensor,
     return t
 
 
+def cand_pour_rows_cuda(ids: torch.Tensor, w: torch.Tensor,
+                        cand: torch.Tensor | None, Z: torch.Tensor,
+                        W: torch.Tensor | None, iters: int,
+                        mode: str = "pour") -> torch.Tensor:
+    """Launch K3's corpus-row entry on the current stream. ``mode="omr"``
+    takes W = W0 (nq, v). The all-rows form reads the ladders from a
+    vocabulary-major (v, nq, k) copy made here: one id's values for the
+    whole batch are adjacent, so one load instruction reads them for 16
+    queries (on the H100 this beat reading the query-major ladders as
+    given, PERF.md); the candidate form reads them as given. The caller
+    (``ops.cand_pour_rows`` / ``ops.cand_omr_rows``) has checked devices,
+    dtypes, shapes, contiguity, the ranges of ids and cand, and that the
+    all-rows form gets no pour at iters >= 1."""
+    lib = _lib("cand_pour_rows")
+    omr = mode == "omr"
+    nq, n, hmax = Z.shape[0], ids.shape[0], ids.shape[1]
+    # The kernel reads element (q, id, l) at q * stride(0) + id * stride(1)
+    # + l of these (nq, v, k) views.
+    zk = Z[..., :2 if omr else iters + 1]
+    wk = None if W is None else (W[..., None] if omr else W[..., :iters])
+    if cand is None:
+        zk, wk = (None if t is None else
+                  t.transpose(0, 1).contiguous().transpose(0, 1)
+                  for t in (zk, wk))
+    cols = n if cand is None else cand.shape[1]
+    t = torch.empty((nq, cols), dtype=torch.float32, device=w.device)
+    err = lib.cand_pour_rows_launch(
+        ids.data_ptr(), w.data_ptr(), 0 if cand is None else cand.data_ptr(),
+        zk.data_ptr(), 0 if wk is None else wk.data_ptr(), zk.stride(0),
+        zk.stride(1), 0 if wk is None else wk.stride(0),
+        0 if wk is None else wk.stride(1), t.data_ptr(), nq, cols, hmax,
+        iters, _MODES[mode], int(Z.dtype == torch.bfloat16), _stream(w))
+    if err:
+        raise RuntimeError(f"cand_pour_rows kernel launch failed: "
+                           f"{lib.cand_pour_rows_error(err).decode()}")
+    key = "pour0" if mode == "pour" and iters == 0 else mode
+    rows_launches[key if cand is not None else f"all_{key}"] += 1
+    return t
+
+
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/<name>.cu``."""
@@ -218,6 +314,9 @@ def _lib(name: str) -> ctypes.CDLL:
         launch.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
     elif name == "cand_dist_valid":
         launch.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_float, i, i, p]
+    elif name == "cand_pour_rows":
+        launch.argtypes = [p] * 5 + [ctypes.c_longlong] * 4 + [p] + [i] * 6 \
+            + [p]
     else:
         launch.argtypes = [p, p, p, p, p] + [i] * 5 + [ctypes.c_float, i, i,
                                                        p]

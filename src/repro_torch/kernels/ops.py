@@ -9,6 +9,7 @@ other path.
 from __future__ import annotations
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.kernels import act_phase2, dist_topk
 from repro_torch.kernels import cand_pour as cand_k
@@ -30,6 +31,24 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     _require(device.type in ("cpu", "cuda"),
              f"unsupported device {device}; cpu or cuda")
     return device.type == "cpu"
+
+
+#: The corpus id tensors whose range the entries that read the corpus ids
+#: (the fused K2, K3 on the corpus rows) have checked: ids -> (its version
+#: counter then, its least and largest id). An in-place change bumps the
+#: version and so checks it again.
+_ID_RANGE = WeakIdKeyDictionary()
+
+
+def _check_ids_range(ids: torch.Tensor, v: int) -> None:
+    """ids must lie in [0, v): a pass and a sync the first time a corpus
+    is seen (and after it changes), a lookup after that."""
+    seen = _ID_RANGE.get(ids)
+    if seen is None or seen[0] != ids._version:
+        seen = (ids._version, *(int(e) for e in torch.aminmax(ids)))
+        _ID_RANGE[ids] = seen
+    _require(0 <= seen[1] and seen[2] < v,
+             f"ids must lie in [0, {v}), got [{seen[1]}, {seen[2]}]")
 
 
 def dist_topk_batched(coords: torch.Tensor, qcs: torch.Tensor,
@@ -122,9 +141,7 @@ def act_phase2_gather(x: torch.Tensor, ids: torch.Tensor, Z: torch.Tensor,
     _require(all(t.is_contiguous() for t in (x, ids, Z, W)),
              "x, ids, Z and W must be contiguous")
     on_cpu = _on_cpu(x, ids, Z, W)
-    lo, hi = (int(e) for e in torch.aminmax(ids))    # a pass and a sync
-    _require(0 <= lo and hi < Z.shape[1],
-             f"ids must lie in [0, {Z.shape[1]}), got [{lo}, {hi}]")
+    _check_ids_range(ids, Z.shape[1])
     fn = (act_phase2.act_phase2_gather_plain if on_cpu
           else act_phase2.act_phase2_gather_cuda)
     return fn(x, ids, Z, W)
@@ -342,3 +359,92 @@ def cand_ict_valid(ids: torch.Tensor, w: torch.Tensor, cand: torch.Tensor,
     float32; an empty query scores 0."""
     return _cand_dist_valid(ids, w, cand, dv, qoff, qwv, "ict",
                             cand_k.cand_ict_valid_plain)
+
+
+# ------------------------------------------- K3 on the corpus rows
+#
+# ids (n, hmax) int32 and w (n, hmax) float32 are the corpus; cand (nq, b)
+# int64 each query's candidate rows, or None for every row. The ladders are
+# those of ``cand_pour`` / ``cand_omr``.
+
+def _check_rows(ids, w, cand, tables):
+    _require(ids.dim() == 2 and ids.dtype == torch.int32
+             and min(ids.shape) >= 1,
+             f"ids must be non-empty (n, hmax) int32, got "
+             f"{tuple(ids.shape)} {ids.dtype}")
+    _require(w.shape == ids.shape and w.dtype == torch.float32,
+             f"w must be {tuple(ids.shape)} float32, got {tuple(w.shape)} "
+             f"{w.dtype}")
+    nq = tables[0].shape[0]
+    if cand is not None:
+        _require(cand.dim() == 2 and cand.dtype == torch.int64
+                 and cand.shape[0] == nq and cand.shape[1] >= 1,
+                 f"cand must be non-empty ({nq}, b) int64, got "
+                 f"{tuple(cand.shape)} {cand.dtype}")
+    tensors = (ids, w) + tuple(tables) + (() if cand is None else (cand,))
+    _require(all(t.is_contiguous() for t in tensors),
+             "ids, w, cand and the ladders must be contiguous")
+    on_cpu = _on_cpu(*tensors)
+    if cand is not None:
+        lo, hi = (int(e) for e in torch.aminmax(cand))   # a pass and a sync
+        _require(0 <= lo and hi < ids.shape[0],
+                 f"cand must lie in [0, {ids.shape[0]}), got [{lo}, {hi}]")
+    _check_ids_range(ids, tables[0].shape[1])
+    return on_cpu
+
+
+def cand_pour_rows(ids: torch.Tensor, w: torch.Tensor,
+                   cand: torch.Tensor | None, Z: torch.Tensor,
+                   W: torch.Tensor | None, iters: int) -> torch.Tensor:
+    """K3 mode ``pour`` reading the candidate rows from the corpus: the
+    value of :func:`cand_pour` on ``ids[cand]``, ``w[cand]``, in one launch
+    and without either tensor; with cand None, on every corpus row at
+    iters=0 only (the full-corpus LC-RWMD dump; ``act_phase2_gather``
+    pours every row at iters >= 1).
+
+    Z (nq, v, >= iters+1) cost ladder; W (nq, v, >= iters) capacity ladder
+    of Z's dtype (``None`` when iters == 0), both float32 or bfloat16,
+    ``0 <= iters <= cand_pour.MAX_ITERS`` -> (nq, b) float32, or (nq, n)
+    when cand is None.
+    """
+    _require(0 <= iters <= cand_k.MAX_ITERS,
+             f"iters must be in [0, {cand_k.MAX_ITERS}], got {iters}")
+    _require(Z.dim() == 3 and min(Z.shape[:2]) >= 1
+             and Z.shape[2] >= iters + 1 and Z.dtype in _LADDER_DTYPES,
+             f"Z must be non-empty (nq, v, >={iters + 1}) float32 or "
+             f"bfloat16, got {tuple(Z.shape)} {Z.dtype}")
+    _require((W is None) == (iters == 0),
+             "W must be None exactly when iters == 0")
+    _require(cand is not None or iters == 0,
+             "the all-rows form (cand None) pours at iters == 0 only; "
+             "act_phase2_gather pours every row at iters >= 1")
+    tables = (Z,)
+    if W is not None:
+        _require(W.dim() == 3 and W.shape[:2] == Z.shape[:2]
+                 and W.shape[2] >= iters and W.dtype == Z.dtype,
+                 f"W must be ({Z.shape[0]}, {Z.shape[1]}, >={iters}) "
+                 f"{Z.dtype}, got {tuple(W.shape)} {W.dtype}")
+        tables += (W,)
+    if _check_rows(ids, w, cand, tables):
+        return cand_k.cand_pour_rows_plain(ids, w, cand, Z, W, iters)
+    return cand_k.cand_pour_rows_cuda(ids, w, cand, Z, W, iters)
+
+
+def cand_omr_rows(ids: torch.Tensor, w: torch.Tensor,
+                  cand: torch.Tensor | None, Z: torch.Tensor,
+                  W0: torch.Tensor) -> torch.Tensor:
+    """K3 mode ``omr`` reading the candidate rows from the corpus: the
+    value of :func:`cand_omr` on ``ids[cand]``, ``w[cand]``; with cand
+    None, on every corpus row (full-corpus LC-OMR). Z (nq, v, >= 2) top-2
+    costs; W0 (nq, v) first capacities of Z's dtype -> (nq, b) float32, or
+    (nq, n) when cand is None."""
+    _require(Z.dim() == 3 and min(Z.shape[:2]) >= 1 and Z.shape[2] >= 2
+             and Z.dtype in _LADDER_DTYPES,
+             f"Z must be non-empty (nq, v, >=2) float32 or bfloat16, got "
+             f"{tuple(Z.shape)} {Z.dtype}")
+    _require(W0.shape == Z.shape[:2] and W0.dtype == Z.dtype,
+             f"W0 must be {tuple(Z.shape[:2])} {Z.dtype}, got "
+             f"{tuple(W0.shape)} {W0.dtype}")
+    if _check_rows(ids, w, cand, (Z, W0)):
+        return cand_k.cand_omr_rows_plain(ids, w, cand, Z, W0)
+    return cand_k.cand_pour_rows_cuda(ids, w, cand, Z, W0, 1, mode="omr")
