@@ -86,13 +86,18 @@ from repro_torch.cascade import (CascadeSpec, CascadeStage,  # noqa: E402
                                  resolve_spec, topk_recall, topk_smallest)
 from repro_torch.cascade import search as cascade_search  # noqa: E402
 from repro_torch.core import lc, retrieval  # noqa: E402
+from repro_torch.configs.emd_20news import CONFIG as NEWS  # noqa: E402
+from repro_torch.configs.emd_mnist import CONFIG as MNIST  # noqa: E402
+from repro_torch.core.lc import Corpus  # noqa: E402
 from repro_torch.core.precision import pad_dist_for  # noqa: E402
-from repro_torch.data.synth import make_clustered_text  # noqa: E402
+from repro_torch.data.synth import (make_clustered_text,  # noqa: E402
+                                    make_image_like)
 from repro_torch.kernels import (_build, act_phase2, cand_pour,  # noqa: E402
                                  dist_topk, ops)
 
-# 20 Newsgroups width: the JAX package's configs/emd_20news.py.
-N_DOCS, VOCAB, DIM, HMAX, ITERS = 18_828, 69_682, 300, 500, 7
+# 20 Newsgroups width: the port's configs/emd_20news.py.
+N_DOCS, VOCAB, DIM, HMAX, ITERS = (NEWS.n_db, NEWS.vocab, NEWS.dim,
+                                   NEWS.hmax, NEWS.iters)
 NQ, TOP_L, BLOCK_Q, SEED = 16, 16, 8, 0
 
 # Published H100 SXM peaks (the bound of a kernel is the larger of bytes over
@@ -137,6 +142,10 @@ CAND_KERNELS = {
                             "src/repro/kernels/cand_pour.py:214"),
     "cand_dist_valid.rev_min": ("cand_dist_valid",
                                 "src/repro/kernels/cand_pour.py:214"),
+    "cand_dist_valid.all_ict": ("cand_dist_valid",
+                                "src/repro/kernels/cand_pour.py:214"),
+    "cand_dist_valid.all_rev_min": ("cand_dist_valid",
+                                    "src/repro/kernels/cand_pour.py:214"),
     "act_phase2_cand": ("act_phase2", "src/repro/kernels/act_phase2.py:110"),
     **{f"cand_pour_rows.{m}": ("cand_pour_rows",
                                "src/repro/kernels/cand_pour.py:176")
@@ -154,6 +163,35 @@ ROWS_EXPECTED = {
     "fast": {"pour_iters0": 1, "pour": 1},
     "rwmd_rev": {"all_pour_iters0": 1, "pour": 1},
 }
+
+
+# Slice 6, the paper's evaluation path (phase 8): corpus-as-queries
+# all-pairs precision. The methods of each all-pairs run with their iters,
+# and the precision depths.
+EVAL_METHODS = {"rwmd": 0, "omr": 0, "act": ITERS}
+EVAL_L = (1, 4, 16)
+#: Rows of the prefix whose whole matrix is held against the reference.
+PREFIX = 2_000
+#: Seeded rows of each directional matrix held against the reference.
+CHECK_ROWS = 32
+#: The dense MNIST-shaped corpus is cut from 60,000 rows to this many for
+#: the time limit (depth only: v = 784 and hmax = 784 are kept).
+DENSE_N = 10_000
+#: Queries of an all-pairs chunk that K1 also runs alone (seeded, and the
+#: chunk's last), each held bitwise to its rows of the chunk's launch.
+K1_ALONE = 7
+#: Corpus rows over which K4's all-rows form at a dense MNIST-shaped chunk
+#: is held against its plain version (every (query, row) pair there costs
+#: 784 x 784 cost reads, and the plain version sorts each entry's 784), and
+#: over which, at every chunk, both are held against the plain version's
+#: float64 value.
+K4_F64_ROWS = 64
+#: The MNIST-shaped corpora: the port's configs/emd_mnist.py (v = 28 x 28
+#: pixels, m = 2), ten classes.
+SIDE, N_CLASSES = 28, 10
+#: Precision at chance on the dense corpus: within this of the label
+#: distribution's sum of squared frequencies.
+CHANCE_TOL = 0.03
 
 
 def check(cond, msg):
@@ -229,8 +267,8 @@ def read_counts():
             "cand_pour.pour": c["pour"], "cand_pour.pour_iters0": c["pour0"],
             "cand_pour.omr": c["omr"],
             "cand_dist.rev_min": c["rev_min"], "cand_dist.ict": c["ict"],
-            "cand_dist_valid.rev_min": cand_pour.valid_launches["rev_min"],
-            "cand_dist_valid.ict": cand_pour.valid_launches["ict"],
+            **{f"cand_dist_valid.{mode}": c
+               for mode, c in cand_pour.valid_launches.items()},
             "act_phase2_cand": act_phase2.cand_launches,
             **{f"cand_pour_rows.{name}": cand_pour.rows_launches[key]
                for name, key in ROWS_KEYS.items()}}
@@ -752,6 +790,603 @@ def search_seconds(search):
     return statistics.median(secs), max(peak)
 
 
+def prefix_corpus(host, rows):
+    """The first ``rows`` rows of a host corpus, at the same width."""
+    return Corpus(ids=host.ids[:rows], w=host.w[:rows], coords=host.coords)
+
+
+def timed(fn):
+    """(fn(), host seconds around the call and a synchronize, the peak
+    device memory above what was allocated before it in GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - base) / 2**30)
+
+
+def sum_band(S, live, live_cols=None):
+    """The tolerance of each entry of an all-pairs matrix (or of its rows
+    ``live``, columns ``live_cols``) held against another backend's: ATOL
+    plus the larger of RTOL and the float32 bound for two orders of
+    summation, (L - 1) 2^-24, relative, where L is the number of live
+    entries the score sums (the larger row of the pair; 784 on dense
+    images, where RTOL alone is below the bound)."""
+    cols = live if live_cols is None else live_cols
+    L = torch.maximum(live[:, None], cols[None, :]).float()
+    return ATOL + torch.clamp_min((L - 1) * 2.0**-24, RTOL) * S.abs()
+
+
+def off_diagonal(S):
+    return ~torch.eye(S.shape[0], dtype=torch.bool, device=S.device)
+
+
+def excess(got, want, band=None):
+    """Where ``got`` exceeds the band around ``want`` (default rtol/atol)
+    most: a description for a failed check (count, place, both values)."""
+    band = ATOL + RTOL * want.abs() if band is None else band
+    over = (got - want).abs() - band
+    i = int(over.argmax())
+    at = np.unravel_index(i, tuple(over.shape))
+    return (f"{int((over > 0).sum())} entries beyond the band; worst at "
+            f"{tuple(int(a) for a in at)}: {got.flatten()[i].item()!r} vs "
+            f"{want.flatten()[i].item()!r}")
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def off_diagonal_zero(S):
+    nz = torch.nonzero(S)
+    return bool((nz[:, 0] == nz[:, 1]).all())
+
+
+def chance_level(labels):
+    """Precision@l of a ranking blind to the labels: the sum of the
+    squared label frequencies."""
+    freq = np.bincount(labels) / len(labels)
+    return float((freq ** 2).sum())
+
+
+def near_ties_only(S_c, S_r, top_l):
+    """The number of rows whose top-l sets (self excluded) differ between
+    the cuda and the reference matrices, and whether each of them has a
+    near-tie at the reference's l-th place (its l-th and (l+1)-th scores
+    within twice the tolerance): the only way two matrices within
+    tolerance of each other can rank differently."""
+    i_c = retrieval.top_l_rows(S_c, top_l, exclude_self=True)
+    i_r = retrieval.top_l_rows(S_r, top_l, exclude_self=True)
+    rows = torch.nonzero((i_c.sort(dim=1).values
+                          != i_r.sort(dim=1).values).any(dim=1))[:, 0]
+    if rows.numel() == 0:
+        return 0, True
+    m = S_r[rows].clone()
+    m[torch.arange(rows.numel(), device=m.device), rows] = float("inf")
+    v = m.sort(dim=1).values[:, top_l - 1:top_l + 1]
+    gap = v[:, 1] - v[:, 0]
+    return int(rows.numel()), bool(
+        (gap <= 2 * (ATOL + RTOL * v[:, 1].abs())).all())
+
+
+def eval_corpus(name, host, labels, dev, runs, keep_rows=None):
+    """Phase 8 (a)-(c) on one corpus: ``EmdIndex.all_pairs`` and
+    ``precision_at_l`` with LC-RWMD, LC-OMR and LC-ACT-7 on the cuda
+    backend, the launch counts set to 0 before each all-pairs and read
+    after (into ``runs``). Each matrix must be finite and exactly
+    symmetric; at CHECK_ROWS seeded rows the directional scores must agree
+    with the reference backend's, the matrix must not fall below them, and
+    the rows' block of the matrix must be max(D, D^T) of the reference.
+    Returns {method: numbers}, the recall@16 of rwmd and omr against act
+    and the rows ``keep_rows`` of the rwmd matrix."""
+    index = EmdIndex.build(host, EngineConfig(top_l=TOP_L), device=dev)
+    n = index.n
+    check_rows = torch.tensor(np.sort(np.random.default_rng(SEED).choice(
+        n, CHECK_ROWS, replace=False)), device=dev)
+    qi, qw = index.corpus.ids[check_rows], index.corpus.w[check_rows]
+    out, idx, kept = {}, {}, None
+    for method, iters in EVAL_METHODS.items():
+        ix = index.with_config(method=method, iters=iters)
+        zero_counts()
+        S, secs, peak = timed(ix.all_pairs)
+        runs[f"all_pairs.{name}.{method}"] = counts = read_counts()
+        prec, prec_secs, _ = timed(lambda: {
+            f"p@{l}": ix.precision_at_l(labels, l, scores=S)
+            for l in EVAL_L})
+        check(bool(torch.isfinite(S).all()) and S.max().item() < 1e3,
+              f"{name} {method}: a score is not finite or reached the "
+              "sentinel scale")
+        check(torch.equal(S, S.T), f"{name} {method}: the all-pairs matrix "
+              "is not exactly symmetric")
+        d_c = ix.scores(qi, qw)
+        d_r = ix.with_config(backend="reference").scores(qi, qw)
+        err = (d_c - d_r).abs().max().item()
+        check(torch.allclose(d_c, d_r, rtol=RTOL, atol=ATOL),
+              f"{name} {method}: directional rows cuda vs reference max "
+              f"|d| {err}")
+        rows_s = S[check_rows]
+        check(bool((rows_s >= d_r - (ATOL + RTOL * d_r.abs())).all()),
+              f"{name} {method}: a symmetric score is below its "
+              "directional reference")
+        block = rows_s[:, check_rows]
+        want = torch.maximum(d_r[:, check_rows], d_r[:, check_rows].T)
+        block_err = (block - want).abs().max().item()
+        check(torch.allclose(block, want, rtol=RTOL, atol=ATOL),
+              f"{name} {method}: the seeded rows' block of the matrix is "
+              f"{block_err} from max(D, D^T) of the reference")
+        idx[method] = retrieval.top_l_rows(S, TOP_L, exclude_self=True)
+        zero = off_diagonal_zero(S)
+        if method == "rwmd" and keep_rows is not None:
+            kept = S[keep_rows].clone()
+        del S
+        out[method] = dict(seconds=secs, peak_gib=peak,
+                           precision_seconds=prec_secs, **prec,
+                           rows_err=err, block_err=block_err,
+                           zero_off_diagonal=zero)
+        print(f"phase 8: {name} all-pairs {method}-{iters} n={n}: "
+              f"{secs:.3f} s, peak above the resident {peak:.3f} GiB "
+              f"(the matrix alone {4 * n * n / 2**30:.3f}); precision@"
+              + "/".join(map(str, EVAL_L)) + " " + " ".join(
+                  f"{prec[f'p@{l}']:.6f}" for l in EVAL_L)
+              + f" ({prec_secs:.3f} s for the three); exactly symmetric; "
+              f"{CHECK_ROWS} seeded directional rows cuda vs reference "
+              f"max|d|={err:.3g}, their block vs max(D, D^T) "
+              f"{block_err:.3g}; zero off the diagonal: {zero}; launches "
+              f"{nonzero(counts)}", flush=True)
+    recall = {m: retrieval.topl_overlap(idx[m], idx["act"])
+              for m in ("rwmd", "omr")}
+    print(f"phase 8: {name} recall@{TOP_L} against act-{ITERS}: "
+          + ", ".join(f"{m} {r:.6f}" for m, r in recall.items()),
+          flush=True)
+    return out, recall, kept
+
+
+def eval_prefix(name, host, labels, dev):
+    """Phase 8: the whole matrix and the precisions of a PREFIX-row prefix
+    (at the same width) on the cuda backend against the reference
+    backend. Returns {method: cuda matrix} and {method: numbers}."""
+    lab = labels[:PREFIX]
+    index = EmdIndex.build(prefix_corpus(host, PREFIX),
+                           EngineConfig(top_l=TOP_L), device=dev)
+    live = (index.corpus.w > 0).sum(dim=1)
+    off = off_diagonal(torch.empty(index.n, index.n, device=dev))
+    mats, out = {}, {}
+    for method, iters in EVAL_METHODS.items():
+        c = index.with_config(method=method, iters=iters)
+        r = c.with_config(backend="reference")
+        S_c, secs_c, _ = timed(c.all_pairs)
+        S_r, secs_r, _ = timed(r.all_pairs)
+        # Off the diagonal, which every consumer masks: a row's distance to
+        # itself is exactly 0 through K1, but the reference's float32
+        # product can leave a word's self-distance above the zero snap.
+        band = sum_band(S_r, live)
+        d = (S_c - S_r).abs()
+        err = d[off].max().item()
+        diag = d.diagonal().max().item()
+        check(bool((d <= band)[off].all()),
+              f"{name} prefix {method}: cuda vs reference max |d| {err} off "
+              f"the diagonal; {excess(S_c * off, S_r * off, band)}")
+        row = dict(seconds=secs_c, reference_seconds=secs_r, max_abs_err=err,
+                   diagonal_err=diag)
+        for l in EVAL_L:
+            p_c = c.precision_at_l(lab, l, scores=S_c)
+            p_r = r.precision_at_l(lab, l, scores=S_r)
+            differ, ties = near_ties_only(S_c, S_r, l)
+            check(p_c == p_r or ties, f"{name} prefix {method} p@{l}: cuda "
+                  f"{p_c} vs reference {p_r} with {differ} rows whose top-"
+                  f"{l} differs beyond a near-tie")
+            row[f"p@{l}"], row[f"ref_p@{l}"] = p_c, p_r
+            row[f"rows_differ@{l}"] = differ
+        row["zero_off_diagonal"] = (off_diagonal_zero(S_c),
+                                    off_diagonal_zero(S_r))
+        out[method] = row
+        mats[method] = S_c
+        del S_r
+        print(f"phase 8: {name} prefix n={PREFIX} {method}-{iters}: cuda "
+              f"{secs_c:.3f} s, reference {secs_r:.3f} s, max|d|={err:.3g} "
+              f"off the diagonal ({diag:.3g} on it); "
+              "precision cuda/reference " + " ".join(
+                  f"@{l} {row[f'p@{l}']:.6f}/{row[f'ref_p@{l}']:.6f} "
+                  f"({row[f'rows_differ@{l}']} rows differ)" for l in EVAL_L)
+              + "; zero off the diagonal (cuda, reference): "
+              f"{row['zero_off_diagonal']}", flush=True)
+    return mats, out
+
+
+def chunk_kernel_times(name, host, dev):
+    """Phase 8: K1 (k=8), the fused K2 (iters 7) and K3's all-rows form
+    (the dump and omr) at the first all-pairs chunk of a corpus, its first
+    ALL_PAIRS_QUERIES rows as queries against every row, with their
+    bounds. K1's operations are 2m + 1 per (vocabulary row, valid bin):
+    the products and a comparison of the selection."""
+    corpus = host.to(dev)
+    nq = retrieval.ALL_PAIRS_QUERIES
+    q_ids, q_w = corpus.ids[:nq].contiguous(), corpus.w[:nq].contiguous()
+    v, m, n = corpus.v, corpus.m, corpus.n
+    x, ids = corpus.w, corpus.ids
+    live = x > 0
+    nnz = int(live.sum())
+    n_ids = int(torch.unique(ids[live]).numel())
+    nv = int((q_w > 0).sum())
+    qcs, qmask = corpus.coords[q_ids], q_w > 0
+    k = ITERS + 1
+    Z, W = lc._phase1_batched_dispatch(corpus, q_ids, q_w, k, True)
+    Z1, _ = lc._phase1_batched_dispatch(corpus, q_ids, q_w, 1, True)
+    Z2, W2 = lc._phase1_batched_dispatch(corpus, q_ids, q_w, 2, True)
+    W0 = W2[..., 0].contiguous()
+
+    def rows_bytes(width):
+        """x once, the ids of its live slots, ``width`` ladder values of
+        each distinct (query, id) they name; t out."""
+        return 4 * x.numel() + 4 * nnz + 4 * width * nq * n_ids + 4 * nq * n
+    cases = {
+        "dist_topk": (lambda: ops.dist_topk_batched(corpus.coords, qcs,
+                                                    qmask, k),
+                      4 * (corpus.coords.numel() + qcs.numel())
+                      + qmask.numel() + 8 * nq * v * k,
+                      (2 * m + 1) * v * nv),
+        "act_phase2_gather": (lambda: ops.act_phase2_gather(x, ids, Z, W),
+                              rows_bytes(2 * ITERS + 1),
+                              5 * nq * nnz * (ITERS + 1)),
+        "cand_pour_rows.all_pour_iters0": (
+            lambda: ops.cand_pour_rows(ids, x, None, Z1, None, 0),
+            rows_bytes(1), 2 * nq * nnz),
+        "cand_pour_rows.all_omr": (
+            lambda: ops.cand_omr_rows(ids, x, None, Z2, W0),
+            rows_bytes(3), 4 * nq * nnz),
+    }
+    out = {}
+    for kname, (fn, nbytes, flops) in cases.items():
+        ms = cuda_ms(fn, reps=5)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        out[kname] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"phase 8: {name} chunk nq={nq} n={n} v={v} m={m} "
+              f"hmax={corpus.hmax} ({nv} valid query bins): {kname} "
+              f"{ms:.4f} ms, bound {b_ms:.4f} by {b_by} "
+              f"({nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP)",
+              flush=True)
+    # K1 splits the chunk's queries into groups where its vocabulary tiles
+    # do not fill the card; a query launched alone is one group, and its
+    # output must be bitwise its rows of the chunk's. And, where its plain
+    # version fits the card, K1 against that (exact zeros of integer pixel
+    # coordinates included).
+    zk, sk = ops.dist_topk_batched(corpus.coords, qcs, qmask, k)
+    alone = torch.randperm(nq, generator=torch.Generator().manual_seed(SEED))
+    alone = alone[:K1_ALONE].tolist() + [nq - 1]
+    for q in alone:
+        z1, s1 = ops.dist_topk_batched(corpus.coords, qcs[q:q + 1],
+                                       qmask[q:q + 1], k)
+        check(torch.equal(z1[0], zk[q]) and torch.equal(s1[0], sk[q]),
+              f"{name}: K1 on query {q} alone differs from its rows of the "
+              "chunk's launch")
+    if v * corpus.hmax * nq < 2**28:
+        check_dist_topk(corpus.coords, qcs, qmask, k, torch.float32)
+        zp, _ = dist_topk.dist_topk_plain(corpus.coords, qcs, qmask, k)
+        check(torch.equal(zk == 0, zp == 0),
+              f"{name}: K1's exact zeros differ from its plain version's")
+    print(f"phase 8: {name} chunk: K1 on {len(alone)} queries launched "
+          "alone, bitwise their rows of the chunk's launch", flush=True)
+    return out
+
+
+def valid_rows_work(corpus, valid, ops_per_bin, row_ops_per_bin):
+    """Bytes and operations of K4's all-rows form: it reads the weights of
+    every row, the ids of their slots with x > 0, len_q costs of each
+    distinct (query, id) those name, qoff and qwv, and writes t (nq, n);
+    it does ops_per_bin operations per valid bin of each (query, entry)
+    and row_ops_per_bin per valid bin of each (query, row)."""
+    _, qoff, qwv = valid
+    lens = (qoff[1:] - qoff[:-1]).long()
+    live = corpus.w > 0
+    nnz = int(live.sum())
+    ids_u = int(torch.unique(corpus.ids[live]).numel())
+    bins = int(lens.sum())
+    nbytes = 4 * corpus.w.numel() + 4 * nnz \
+        + valid[0].element_size() * ids_u * bins + 4 * qoff.numel() \
+        + 4 * qwv.numel() + 4 * lens.numel() * corpus.n
+    return nbytes, (ops_per_bin * nnz + row_ops_per_bin * corpus.n) * bins
+
+
+def check_all_rows_k4(corpus, q_ids, q_w):
+    """Phase 8 (e): K4's all-rows form, both modes, against its plain
+    version on the 16-query batch over every corpus row: max |d|, the bare
+    launch, the wrapper, the plain version (one call), the bound."""
+    valid = lc.phase1_valid_dist(corpus.coords, q_ids, q_w)
+    args = (corpus.ids, corpus.w, None) + tuple(valid)
+    out = {}
+    for mode, op, plain, per_bin, per_row in (
+            ("rev_min", ops.cand_rev_min_valid,
+             cand_pour.cand_rev_min_valid_plain, 1, 2),
+            ("ict", ops.cand_ict_valid, cand_pour.cand_ict_valid_plain,
+             2, 0)):
+        name = f"cand_dist_valid.all_{mode}"
+        got = op(*args)
+        want, plain_s, _ = timed(lambda: plain(*args))
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+              f"{name}: max |d| {err} from its plain version beyond rtol "
+              f"{RTOL} atol {ATOL}")
+        check(bool(torch.isfinite(got).all()) and got.max().item() < 1e3,
+              f"{name}: a score reached the sentinel scale")
+        ms = cuda_ms(lambda: cand_pour.cand_dist_valid_cuda(*args, mode),
+                     reps=20)
+        wrapped = host_ms(lambda: op(*args), reps=5)
+        nbytes, flops = valid_rows_work(corpus, valid, per_bin, per_row)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=1e3 * plain_s,
+                         bound_ms=b_ms, bound_by=b_by, wrapper_ms=wrapped)
+        print(f"phase 8: {name} nq={NQ} n={corpus.n} "
+              f"({valid[0].shape[1]} valid bins): max|d| vs plain "
+              f"{err:.3g}; the bare launch {ms:.4f} ms, the wrapper "
+              f"{wrapped:.4f} ms, plain {1e3 * plain_s:.1f} ms (one call); "
+              f"bound {b_ms:.4f} by {b_by} ({nbytes / 1e9:.3f} GB, "
+              f"{flops / 1e9:.3f} GFLOP)", flush=True)
+    return out
+
+
+def full_corpus_rev(host_corpus, q_ids, q_w, dev, runs):
+    """Phase 8 (e): the full-corpus rwmd_rev and ict searches of the
+    16-query batch on the cuda backend, each one all-rows K4 launch (the
+    stacked handoff these engines built before took 23.3 ms and 4.68 GiB
+    for rwmd_rev on an H100 80GB HBM3 at 700 W); rwmd_rev also against the
+    reference backend."""
+    out = {}
+    for method, mode in (("rwmd_rev", "rev_min"), ("ict", "ict")):
+        index = EmdIndex.build(host_corpus, EngineConfig(method=method,
+                                                         top_l=TOP_L),
+                               device=dev)
+        zero_counts()
+        s_c = index.scores(q_ids, q_w)
+        torch.cuda.synchronize()
+        runs[f"search.{method}"] = counts = read_counts()
+        check(counts[f"cand_dist_valid.all_{mode}"] == 1
+              and counts["cand_dist.rev_min"] + counts["cand_dist.ict"] == 0,
+              f"full-corpus {method} did not launch K4's all-rows form "
+              f"once: {nonzero(counts)}")
+        secs, peak = search_seconds(lambda: index.search(q_ids, q_w))
+        row = dict(seconds=secs, peak_gib=peak / 2**30)
+        note = ""
+        if method == "rwmd_rev":
+            s_r = index.with_config(backend="reference").scores(q_ids, q_w)
+            row["max_abs_err"] = err = (s_c - s_r).abs().max().item()
+            check(torch.allclose(s_c, s_r, rtol=RTOL, atol=ATOL),
+                  f"full-corpus rwmd_rev: cuda vs reference max |d| {err}")
+            note = f"; cuda vs reference max|d|={err:.3g}"
+        out[method] = row
+        print(f"phase 8: full-corpus {method} search of {NQ} queries: cuda "
+              f"{secs:.4f} s, peak above the resident "
+              f"{peak / 2**30:.3f} GiB; launches {nonzero(counts)}{note}",
+              flush=True)
+    return out
+
+
+def symmetric_search(host_corpus, q_ids, q_w, rows_sym, dev, runs):
+    """Phase 8 (d): symmetric LC-RWMD search of the 16-query batch, cuda
+    against reference; each row equal to the matching row of the
+    20 Newsgroups all-pairs matrix (``rows_sym``)."""
+    index = EmdIndex.build(host_corpus, EngineConfig(
+        method="rwmd", symmetric=True, top_l=TOP_L), device=dev)
+    ref = index.with_config(backend="reference")
+    zero_counts()
+    _, i_c = index.search(q_ids, q_w)
+    torch.cuda.synchronize()
+    runs["search.rwmd_symmetric"] = counts = read_counts()
+    check(counts["dist_topk"] == 1
+          and counts["cand_pour_rows.all_pour_iters0"] == 1
+          and counts["cand_dist_valid.all_rev_min"] == 1,
+          "symmetric rwmd did not launch K1, K3's all-rows dump and K4's "
+          f"all-rows rev_min once each: {nonzero(counts)}")
+    full_c = index.scores(q_ids, q_w)
+    full_r, ref_secs, ref_peak = timed(lambda: ref.scores(q_ids, q_w))
+    err = (full_c - full_r).abs().max().item()
+    check(torch.allclose(full_c, full_r, rtol=RTOL, atol=ATOL),
+          f"symmetric rwmd: cuda vs reference max |d| {err}")
+    rows_err = (full_c - rows_sym).abs().max().item()
+    check(torch.allclose(full_c, rows_sym, rtol=RTOL, atol=ATOL),
+          f"symmetric rwmd: the search's rows are {rows_err} from the "
+          "all-pairs matrix's")
+    s_r, i_r = retrieval.top_l_smallest(full_r, TOP_L + 1)
+    firm = firm_ranks(s_r[:, :TOP_L], s_r[:, TOP_L])
+    check(bool((i_c == i_r[:, :TOP_L])[firm].all()),
+          f"symmetric rwmd: top-{TOP_L} indices differ where the gap "
+          "exceeds the tolerance")
+    secs, peak = search_seconds(lambda: index.search(q_ids, q_w))
+    print(f"phase 8: symmetric rwmd search of {NQ} queries: cuda "
+          f"{secs:.4f} s, peak above the resident {peak / 2**30:.3f} GiB; "
+          f"reference {ref_secs:.3f} s (one call, peak {ref_peak:.3f} GiB); "
+          f"cuda vs reference max|d|={err:.3g}, vs the all-pairs rows "
+          f"max|d|={rows_err:.3g}; top-{TOP_L} equal at {int(firm.sum())} "
+          f"separated ranks of {firm.numel()}; launches {nonzero(counts)}",
+          flush=True)
+    return dict(seconds=secs, peak_gib=peak / 2**30, max_abs_err=err,
+                rows_err=rows_err, reference_seconds=ref_secs)
+
+
+def rev_all_pairs_prefix(name, host, prefix_mats, dev, runs):
+    """Phase 8 (e): all-pairs of rwmd_rev and ict on a corpus's prefix, one
+    all-rows K4 launch per chunk (on the MNIST-shaped corpus the chunk's
+    valid bins outnumber 4v, so the valid-bin handoff takes its dedup
+    branch). max(D, D^T) of rwmd_rev is that of rwmd (rwmd_rev(a, b) =
+    rwmd(b, a)); ICT bounds ACT-7 from above (Theorem 2), so its matrix
+    must not fall below act's."""
+    index = EmdIndex.build(prefix_corpus(host, PREFIX),
+                           EngineConfig(top_l=TOP_L), device=dev)
+    live = (index.corpus.w > 0).sum(dim=1)
+    chunks = -(-PREFIX // retrieval.ALL_PAIRS_QUERIES)
+    first = live[:retrieval.ALL_PAIRS_QUERIES].sum().item()
+    dedup = first >= lc.DEDUP_STACK_RATIO * index.corpus.v
+    out = {}
+    for method, mode, other in (("rwmd_rev", "rev_min", "rwmd"),
+                                ("ict", "ict", "act")):
+        ix = index.with_config(method=method)
+        zero_counts()
+        S, secs, peak = timed(ix.all_pairs)
+        runs[f"all_pairs.{name}_prefix.{method}"] = counts = read_counts()
+        got = counts[f"cand_dist_valid.all_{mode}"]
+        check(got == chunks, f"all-pairs {method}: {got} all-rows K4 "
+              f"launches, not one per chunk ({chunks})")
+        # Off the diagonal: the valid-bin handoff is the reference's
+        # float32 product (see eval_prefix).
+        ref = prefix_mats[other]
+        tol = sum_band(ref, live)
+        off = off_diagonal(S)
+        if method == "rwmd_rev":
+            err = (S - ref).abs()[off].max().item()
+            check(bool(((S - ref).abs() <= tol)[off].all()),
+                  f"all-pairs rwmd_rev vs rwmd: max |d| {err} off the "
+                  f"diagonal; {excess(S * off, ref * off, tol)}")
+            note = f"vs rwmd's matrix max|d|={err:.3g} off the diagonal"
+        else:
+            err = (ref - S)[off].max().item()
+            check(bool((S >= ref - tol)[off].all()),
+                  f"all-pairs ict falls below act-{ITERS} by {err}")
+            note = (f"act-{ITERS}'s matrix minus it at most {err:.3g} off "
+                    "the diagonal")
+        check(torch.equal(S, S.T), f"all-pairs {method}: not symmetric")
+        out[method] = dict(seconds=secs, peak_gib=peak, launches=got,
+                           against=err, dedup=dedup)
+        print(f"phase 8: {name} prefix n={PREFIX} all-pairs {method}: "
+              f"{secs:.3f} s, peak {peak:.3f} GiB, {got} all-rows K4 "
+              f"launches (one per chunk of {retrieval.ALL_PAIRS_QUERIES}; "
+              f"the first chunk's {first} valid bins "
+              f"{'take' if dedup else 'do not take'} the handoff's dedup "
+              f"branch); {note}", flush=True)
+        del S
+    out["chunk"] = check_chunk_k4(name, index.corpus, PREFIX)
+    return out
+
+
+def check_chunk_k4(name, corpus, rows):
+    """Phase 8 (e): K4's all-rows form, both modes, at one all-pairs chunk
+    (the corpus's first ALL_PAIRS_QUERIES rows as queries, through the
+    valid-bin handoff that the engines build for it, with its dedup branch
+    where the chunk's valid bins reach DEDUP_STACK_RATIO v) against its
+    plain version on the same inputs over the corpus's first ``rows`` rows,
+    both ways, within the all-pairs band (:func:`sum_band`: RTOL / ATOL,
+    or the float32 bound of two orders of a sum of 784 dense entries).
+    Over the first K4_F64_ROWS rows both are also held, within that band,
+    to the plain version's value in float64."""
+    nq = retrieval.ALL_PAIRS_QUERIES
+    valid = lc.phase1_valid_dist(corpus.coords, corpus.ids[:nq].contiguous(),
+                                 corpus.w[:nq].contiguous())
+    nbins = valid[0].shape[1]
+    dedup = nbins >= lc.DEDUP_STACK_RATIO * corpus.v
+    live = (corpus.w > 0).sum(dim=1)
+    r64 = min(rows, K4_F64_ROWS)
+    # The costs stay the float32 inputs; the weights in float64 carry the
+    # plain version's arithmetic into float64.
+    args64 = (corpus.ids[:r64], corpus.w[:r64].double(), None, valid[0],
+              valid[1], valid[2].double())
+    out = {}
+    for mode, op, plain in (
+            ("rev_min", ops.cand_rev_min_valid,
+             cand_pour.cand_rev_min_valid_plain),
+            ("ict", ops.cand_ict_valid, cand_pour.cand_ict_valid_plain)):
+        got = op(corpus.ids[:rows], corpus.w[:rows], None, *valid)
+        want = plain(corpus.ids[:rows], corpus.w[:rows], None, *valid)
+        band = sum_band(want, live[:nq], live[:rows])
+        exact = plain(*args64)
+        band64 = band[:, :r64]
+        row = dict(max_abs_err=(got - want).abs().max().item(),
+                   band_share=((got - want).abs() / band).max().item(),
+                   f64_err=(got[:, :r64] - exact).abs().max().item(),
+                   plain_f64_err=(want[:, :r64] - exact).abs().max().item())
+        out[mode] = row
+        check(bool(((got - want).abs() <= band).all()),
+              f"{name} chunk: cand_dist_valid.all_{mode} beyond the band of "
+              f"its plain version: {excess(got, want, band)}")
+        check(bool(((got[:, :r64] - exact).abs() <= band64).all()),
+              f"{name} chunk: cand_dist_valid.all_{mode} beyond the band of "
+              f"the float64 value: {excess(got[:, :r64], exact, band64)}")
+        print(f"phase 8: {name} chunk nq={nq} ({nbins} valid query bins, "
+              f"{'through' if dedup else 'not through'} the handoff's dedup "
+              f"branch): K4's all-rows form {mode} over {rows} rows vs its "
+              f"plain version max|d| {row['max_abs_err']:.3g} (at most "
+              f"{row['band_share']:.3g} of the band); over {r64} rows vs the "
+              f"float64 value "
+              f"max|d| {row['f64_err']:.3g}, the plain version's "
+              f"{row['plain_f64_err']:.3g}", flush=True)
+    return out
+
+
+def phase8(host_corpus, labels, corpus, q_ids, q_w, rows, dev):
+    """Phase 8, the paper's evaluation path. Returns its numbers, those of
+    K4's all-rows form for the kernels line, and the launch counts of its
+    runs."""
+    t_start = time.perf_counter()
+    runs = {}
+    sparse, sparse_labels = make_image_like(MNIST.n_db, n_classes=N_CLASSES,
+                                            side=SIDE, seed=SEED)
+    dense, dense_labels = make_image_like(DENSE_N, n_classes=N_CLASSES,
+                                          side=SIDE, include_background=True,
+                                          seed=SEED)
+    check(sparse.v == MNIST.vocab and sparse.m == MNIST.dim
+          and dense.hmax == MNIST.hmax, "the MNIST-shaped corpora do not "
+          "have configs/emd_mnist.py's shape")
+    nbins = (sparse.w > 0).sum(dim=1).float()
+    print(f"phase 8: set-up: MNIST-shaped corpora in "
+          f"{time.perf_counter() - t_start:.1f} s: sparse n={sparse.n} "
+          f"hmax={sparse.hmax} (valid bins per image: mean "
+          f"{nbins.mean():.1f}), dense n={dense.n} hmax={dense.hmax} (cut "
+          f"from {MNIST.n_db} rows for the time limit)", flush=True)
+    corpora = {"20news": (host_corpus, labels),
+               "mnist_sparse": (sparse, sparse_labels),
+               "mnist_dense": (dense, dense_labels)}
+    results = {}
+    for name, (host, lab) in corpora.items():
+        full, recall, kept = eval_corpus(
+            name, host, lab, dev, runs,
+            keep_rows=torch.as_tensor(rows, device=dev)
+            if name == "20news" else None)
+        if kept is not None:
+            rows_sym = kept
+        mats, prefix = eval_prefix(name, host, lab, dev)
+        if name != "mnist_dense":
+            results[f"rev_prefix.{name}"] = rev_all_pairs_prefix(
+                name, host, mats, dev, runs)
+        else:
+            # No dense all-pairs of rwmd_rev / ict: each pair costs 784 x
+            # 784 cost reads. K4's all-rows form is held at one chunk.
+            results[f"rev_chunk.{name}"] = check_chunk_k4(
+                name, prefix_corpus(host, retrieval.ALL_PAIRS_QUERIES).to(dev),
+                K4_F64_ROWS)
+        del mats
+        results[name] = dict(full=full, recall=recall, prefix=prefix,
+                             chunk=chunk_kernel_times(name, host, dev))
+    # (c): the RWMD collapse on dense histograms.
+    d = results["mnist_dense"]
+    chance = chance_level(dense_labels)
+    chance_pre = chance_level(dense_labels[:PREFIX])
+    check(d["full"]["rwmd"]["zero_off_diagonal"]
+          and all(d["prefix"]["rwmd"]["zero_off_diagonal"]),
+          "dense LC-RWMD is not exactly 0 off the diagonal")
+    for l in EVAL_L:
+        p_full = d["full"]["rwmd"][f"p@{l}"]
+        p_c = d["prefix"]["rwmd"][f"p@{l}"]
+        p_r = d["prefix"]["rwmd"][f"ref_p@{l}"]
+        check(abs(p_full - chance) <= CHANCE_TOL and p_c == p_r
+              and abs(p_c - chance_pre) <= CHANCE_TOL,
+              f"dense LC-RWMD p@{l} {p_full} / prefix {p_c}, {p_r} is not "
+              f"at chance ({chance:.4f} / {chance_pre:.4f})")
+        check(d["full"]["act"][f"p@{l}"] > p_full,
+              f"dense LC-ACT-{ITERS} p@{l} does not beat LC-RWMD")
+    print(f"phase 8: dense MNIST-shaped: LC-RWMD exactly 0 off the diagonal "
+          f"on both backends, precision at chance ({chance:.4f}); "
+          f"LC-ACT-{ITERS} " + " ".join(
+              f"p@{l} {d['full']['act'][f'p@{l}']:.6f}" for l in EVAL_L),
+          flush=True)
+    results["symmetric"] = symmetric_search(host_corpus, q_ids, q_w,
+                                            rows_sym, dev, runs)
+    results["full_rev"] = full_corpus_rev(host_corpus, q_ids, q_w, dev, runs)
+    k4 = check_all_rows_k4(corpus, q_ids, q_w)
+    print(f"phase 8: done in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return results, k4, runs
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
 
@@ -779,9 +1414,9 @@ def main():
 
     # Set-up: the corpus and the query batch.
     t0 = time.perf_counter()
-    host_corpus, _ = make_clustered_text(N_DOCS, vocab=VOCAB, m=DIM,
-                                         hmax=HMAX, seed=SEED,
-                                         shard_docs=1024)
+    host_corpus, labels = make_clustered_text(N_DOCS, vocab=VOCAB, m=DIM,
+                                              hmax=HMAX, seed=SEED,
+                                              shard_docs=1024)
     dev = torch.device("cuda")
     corpus = host_corpus.to(dev)
     rows = np.sort(np.random.default_rng(SEED).choice(N_DOCS, NQ,
@@ -960,8 +1595,8 @@ def main():
     print(f"phase 4: K1 {k1_ms:.4f} ms on the batch ({nv} valid bins of "
           f"{NQ * HMAX}, the only ones it computes; bound {k1_bound:.4f} by "
           f"{k1_by}), {k1_all_ms:.4f} ms with all {NQ * HMAX} valid (bound "
-          f"{k1_all_bound:.4f}); plain {k1_plain:.3f}; library (cdist + "
-          f"topk) {k1_lib:.3f} on the valid work ({nv_max} wide), "
+          f"{k1_all_bound:.4f}); plain {k1_plain:.3f}; library "
+          f"(cdist + topk) {k1_lib:.3f} on the valid work ({nv_max} wide), "
           f"{k1_lib_full:.3f} at full width", flush=True)
     print(f"phase 4: K2 {k2_ms:.4f} ms on gathered ladders (plain "
           f"{k2_plain:.3f}, bound {k2_bound:.4f} by {k2_by}: {nnz} of "
@@ -1096,8 +1731,8 @@ def main():
     # K4's valid-bin entry and K3's corpus-row entry are timed as the bare
     # launch, their wrappers apart.
     bare_ms = time_valid_handoff(corpus, q_ids, q_w, narrow)
-    rows_ms = time_rows_entry(corpus, q_ids, q_w, wide, narrow)
-    bare_ms.update({name: t["ms"] for name, t in rows_ms.items()})
+    rows_times = time_rows_entry(corpus, q_ids, q_w, wide, narrow)
+    bare_ms.update({name: t["ms"] for name, t in rows_times.items()})
     cand_times = {}
     for name, (kern, plain, nbytes, flops) in cases.items():
         k_ms = bare_ms[name] if name in bare_ms else cuda_ms(kern)
@@ -1126,6 +1761,17 @@ def main():
                   f"cascade {name}: peak {m_c / gib:.3f} GiB above the "
                   f"resident, not under {VALID_PEAK_GIB} GiB")
 
+    # Phase 8: the paper's evaluation path.
+    del cases, bare_ms
+    p8, k4_rows, p8_runs = phase8(host_corpus, labels, corpus, q_ids, q_w,
+                                  rows, dev)
+
+    def chunk_times(kname):
+        """The kernel's times at the first all-pairs chunk of each
+        corpus."""
+        return {c: p8[c]["chunk"][kname]
+                for c in ("20news", "mnist_sparse", "mnist_dense")}
+
     kernels = [
         {"name": "dist_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/dist_topk.cu",
@@ -1134,7 +1780,8 @@ def main():
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1_lib,
          "ms_all_valid": k1_all_ms, "bound_ms_all_valid": k1_all_bound,
-         "library_full_width_ms": k1_lib_full},
+         "library_full_width_ms": k1_lib_full,
+         "all_pairs_chunk": chunk_times("dist_topk")},
         {"name": "act_phase2", "route": "cuda",
          "source": "src/repro_torch/csrc/act_phase2.cu",
          "replaces": "src/repro/kernels/act_phase2.py:73",
@@ -1146,10 +1793,12 @@ def main():
          "replaces": "src/repro/kernels/act_phase2.py:73",
          "launches": launches["act"]["act_phase2_gather"],
          "max_abs_err": kg_err, "ms": kg_ms, "plain_ms": kg_plain,
-         "bound_ms": kg_bound, "bound_by": kg_by, "library_ms": None},
+         "bound_ms": kg_bound, "bound_by": kg_by, "library_ms": None,
+         "all_pairs_chunk": chunk_times("act_phase2_gather")},
     ]
-    # The main path's runs: the phase-3 searches and the cascades.
-    runs = {**launches, **cascade_counts}
+    # The main path's runs: the phase-3 searches, the cascades and the
+    # phase-8 all-pairs and searches.
+    runs = {**launches, **cascade_counts, **p8_runs}
     for name, (k_ms, p_ms, b_ms, b_by, l_ms) in cand_times.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -1159,7 +1808,20 @@ def main():
             "launches_by_search": {p: c[name] for p, c in runs.items()},
             "max_abs_err": cand_errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
-            **{k: t for k, t in rows_ms.get(name, {}).items() if k != "ms"}})
+            **{k: t for k, t in rows_times.get(name, {}).items()
+               if k != "ms"},
+            **({"all_pairs_chunk": chunk_times(name)}
+               if name in p8["20news"]["chunk"] else {})})
+    for name, t in k4_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{CAND_KERNELS[name][0]}.cu",
+            "replaces": CAND_KERNELS[name][1],
+            "launches": sum(c[name] for c in runs.values()),
+            "launches_by_search": {p: c[name] for p, c in runs.items()
+                                   if c[name]},
+            "library_ms": None, **t})
+    print(json.dumps({"phase8": p8}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

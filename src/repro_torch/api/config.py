@@ -24,11 +24,10 @@ _UNPORTED_VALUES = {
 }
 
 #: JAX ``EngineConfig`` fields this package does not run yet: tile knobs
-#: of the Pallas kernels, the scan engine, symmetric scoring, the mesh and
-#: the autotuner. Each keeps its JAX default.
-_UNPORTED_FIELDS = ("symmetric", "batch_engine", "block_v", "block_h",
-                    "block_n", "rev_block", "pad_multiple", "autotune",
-                    "tune_cache")
+#: of the Pallas kernels, the scan engine, the mesh and the autotuner. Each
+#: keeps its JAX default.
+_UNPORTED_FIELDS = ("batch_engine", "block_v", "block_h", "block_n",
+                    "rev_block", "pad_multiple", "autotune", "tune_cache")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +46,9 @@ class EngineConfig:
     block_q:   queries gathered and poured per Phase-2 block.
     precision: ``f32`` or ``bf16`` (bfloat16 handoff ladders, float32
                matmul and accumulators).
+    symmetric: score the paper's symmetric measure, the max of both
+               directions (a method with a reverse direction: rwmd or
+               rwmd_rev; bow and wcd are symmetric already).
     cascade:   ``None`` (full-corpus search), a ``CascadeSpec`` or a preset
                name of ``repro_torch.cascade.CASCADES``: ``search`` then
                runs the prune-and-rescore ladder.
@@ -82,6 +84,11 @@ class EngineConfig:
         if self.method not in METHODS:
             raise ValueError(f"unknown method {self.method!r}; one of "
                              f"{sorted(METHODS)}")
+        spec = METHODS[self.method]
+        if self.symmetric and not spec.symmetric and spec.reverse is None:
+            raise ValueError(
+                f"method {self.method!r} has no reverse direction; "
+                "symmetric=True needs one (use method='rwmd')")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of "
                              f"{BACKENDS}")

@@ -5,6 +5,8 @@ batches, on one device.
     scores = index.scores(q_ids, q_w)          # (h,) -> (n,), (nq, h) -> (nq, n)
     top, idx = index.search(q_ids, q_w)        # top-l neighbours
     top, idx = index.search(q_ids, q_w, cascade="chain")   # prune + rescore
+    S = index.all_pairs()                      # n x n symmetric matrix
+    p = index.precision_at_l(labels, 8)        # corpus-as-queries
 
 The index lives on a CUDA device unless the caller asks for the CPU. A
 single query runs as a batch of one through the batched engine.
@@ -98,6 +100,7 @@ class EmdIndex:
         similar."""
         qi, qw, single = self._check_queries(q_ids, q_w)
         s = retrieval.batch_scores(self.corpus, qi, qw,
+                                   symmetric=self.config.symmetric,
                                    **self.config.score_kwargs())
         return s[0] if single else s
 
@@ -117,9 +120,55 @@ class EmdIndex:
         cascade = self.config.cascade if cascade is None else cascade
         if cascade is None:
             return retrieval.top_l_smallest(self.scores(q_ids, q_w), top_l)
+        if self.config.symmetric:
+            raise ValueError(
+                "cascade search scores directionally; this index is "
+                "configured symmetric=True (the rule EngineConfig enforces "
+                "for a cascade in the config)")
         qi, qw, single = self._check_queries(q_ids, q_w)
         res = cascade_search(self.corpus, qi, qw, cascade, top_l,
                              **self.config.cascade_knobs())
         if single:
             return res.scores[0], res.indices[0]
         return res.scores, res.indices
+
+    def all_pairs(self) -> torch.Tensor:
+        """n x n symmetric score matrix over the corpus (the paper's
+        evaluation mode; feed to :meth:`precision_at_l`), scored in chunks
+        of corpus rows and symmetrized in place."""
+        return retrieval.all_pairs_scores(self.corpus,
+                                          **self.config.score_kwargs())
+
+    def _matrix(self, scores) -> torch.Tensor:
+        return (self.all_pairs() if scores is None
+                else _to_tensor(scores, None, self.corpus.device))
+
+    def precision_at_l(self, labels, top_l: int | None = None, *,
+                       scores=None) -> float:
+        """Corpus-as-queries precision@top-l (paper Section 6): the
+        fraction of each row's top-l neighbours, self excluded, that share
+        its label. ``scores``: a precomputed n x n matrix (e.g. one
+        ``all_pairs()`` shared across several top-l); defaults to scoring
+        the corpus with this index's configuration."""
+        top_l = self.config.top_l if top_l is None else top_l
+        return retrieval.precision_at_l(self._matrix(scores), labels, top_l)
+
+    def recall_at_l(self, other_scores, top_l: int | None = None, *,
+                    scores=None) -> float:
+        """Agreement with a reference ranking: the fraction of
+        ``other_scores``' top-l neighbours (per corpus row, self excluded)
+        that this index's scoring also retrieves. ``other_scores``: the
+        reference n x n matrix (exact EMD, a full ACT run, ...);
+        ``scores``: this index's precomputed matrix, by default
+        ``all_pairs()``."""
+        top_l = self.config.top_l if top_l is None else top_l
+        return retrieval.recall_at_l(
+            self._matrix(scores),
+            _to_tensor(other_scores, None, self.corpus.device), top_l,
+            exclude_self=True)
+
+    def with_config(self, **changes) -> "EmdIndex":
+        """This index's corpus, already placed, under a config with
+        ``changes`` applied (``dataclasses.replace``)."""
+        return EmdIndex(corpus=self.corpus,
+                        config=dataclasses.replace(self.config, **changes))

@@ -34,3 +34,25 @@ def pairwise_dist(a: torch.Tensor, b: torch.Tensor,
     if snap:
         d2.masked_fill_(d2 < n2.mul_(snap * snap), 0.0)
     return d2.sqrt_()
+
+
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared Euclidean distances between rows of ``a`` (na, m) and ``b``
+    (nb, m), by the same expansion, clamped at 0 and not snapped."""
+    a2 = torch.sum(a * a, dim=-1, keepdim=True)          # (na, 1)
+    b2 = torch.sum(b * b, dim=-1, keepdim=True).T        # (1, nb)
+    return torch.clamp_min(a2 + b2 - 2.0 * (a @ b.T), 0.0)
+
+
+def l1_normalize(w: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """L1-normalize nonnegative weights along ``dim`` (histogram
+    convention)."""
+    return w / torch.clamp_min(torch.sum(w, dim=dim, keepdim=True), eps)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """Scale rows to unit Euclidean norm along ``dim``."""
+    return x / torch.clamp_min(torch.linalg.norm(x, dim=dim, keepdim=True),
+                               eps)

@@ -26,10 +26,11 @@ blocks are a plain Python loop) and the mesh sharding pins. JAX's
 which reads the ladders at the corpus ids itself; the LC-RWMD dump
 (iters=0) and LC-OMR to the all-rows form of the ``cand_pour`` kernel's
 corpus-row entry; in the candidate engines it sends Phase 2/3 to that
-entry's candidate form, one launch per batch, and, for ``rwmd_rev`` and
-``ict``, Phase 1 to the valid-bin distance handoff
-(:func:`phase1_valid_dist`) and Phase 2/3 to the ``cand_dist`` kernel's
-valid-bin entry, so the stacked (v, nq*h) tensor is never built there.
+entry's candidate form, one launch per batch; and, for ``rwmd_rev`` and
+``ict``, full-corpus and candidate engines alike, Phase 1 to the valid-bin
+distance handoff (:func:`phase1_valid_dist`) and Phase 2/3 to the
+``cand_dist`` kernel's valid-bin entry (at every row, or at the
+candidates), so the stacked (v, nq*h) tensor is never built there.
 
 The candidate engines depart from the JAX package in one place. There,
 Phase 1 of a candidate engine is the jnp pipeline on both paths, behind an
@@ -457,16 +458,10 @@ def _shared_rows(corpus: Corpus, nq: int):
     return corpus.ids.expand(shape), corpus.w.expand(shape)
 
 
-def rev_min_dot(C, x, qw):
-    """Masked (min,+) contracted with einsum, as JAX ``rev_min_blocked``."""
-    cmin = torch.where((x > 0.0)[..., None], C,
-                       pad_dist_for(C.dtype)).amin(dim=2)   # (bq, r, h)
-    return torch.einsum("qbh,qh->qb", cmin, qw)
-
-
 def rev_min_sum(C, x, qw):
-    """Masked (min,+) by multiply then sum over h: unlike a dot, its
-    accumulation does not depend on the row count of the block."""
+    """Masked (min,+) by multiply then sum over h: unlike a dot (JAX
+    contracts with einsum), its accumulation depends neither on the row
+    count of the block nor on the number of queries."""
     cmin = torch.where((x > 0.0)[..., None], C,
                        pad_dist_for(C.dtype)).amin(dim=2)   # (bq, r, h)
     return torch.sum(cmin * qw[:, None, :], dim=-1)
@@ -481,7 +476,7 @@ def rev_min_blocked(corpus: Corpus, Dq: torch.Tensor, Q_w: torch.Tensor,
     rows. Invalid slots mask to the float32 sentinel (finite, so an
     all-padding row scores huge instead of NaN)."""
     idsg, xg = _shared_rows(corpus, Dq.shape[0])
-    return reduce_dist_rows(rev_min_dot, Dq, Q_w, idsg, xg, block_q,
+    return reduce_dist_rows(rev_min_sum, Dq, Q_w, idsg, xg, block_q,
                         rows=block)
 
 
@@ -558,11 +553,16 @@ def omr_entries(x, Zg, W0g):
 
 def lc_rwmd_scores_rev_batched(corpus: Corpus, Q_ids: torch.Tensor,
                                Q_w: torch.Tensor, block: int = 256,
-                               block_q: int = 8,
-                               precision: str = "f32") -> torch.Tensor:
-    """Batched LC-RWMD query -> db: one stacked distance tensor for the
-    whole batch, through the (row-block, query-block) masked (min,+)
-    reduction."""
+                               block_q: int = 8, precision: str = "f32", *,
+                               use_kernels: bool = False) -> torch.Tensor:
+    """Batched LC-RWMD query -> db. ``use_kernels`` takes the valid-bin
+    handoff and one launch of the all-rows form of K4's valid-bin entry;
+    otherwise one stacked distance tensor for the whole batch, through the
+    (row-block, query-block) masked (min,+) reduction."""
+    if use_kernels:
+        return kops.cand_rev_min_valid(
+            corpus.ids, corpus.w, None,
+            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision))
     Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
                                           precision=precision))
     return rev_min_blocked(corpus, Dq, Q_w, block, block_q)
@@ -582,13 +582,54 @@ def lc_omr_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
 
 
 def lc_ict_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
-                          Q_w: torch.Tensor, *, block_q: int = 8,
+                          Q_w: torch.Tensor, *, use_kernels: bool = False,
+                          block_q: int = 8,
                           precision: str = "f32") -> torch.Tensor:
-    """Batched LC-ICT: one stacked Phase-1 distance tensor for the whole
-    query batch, query-blocked full-ladder pour."""
+    """Batched LC-ICT. ``use_kernels`` takes the valid-bin handoff and one
+    launch of the all-rows form of K4's valid-bin entry; otherwise one
+    stacked Phase-1 distance tensor for the whole query batch,
+    query-blocked full-ladder pour."""
+    if use_kernels:
+        return kops.cand_ict_valid(
+            corpus.ids, corpus.w, None,
+            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision))
     Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
                                           precision=precision))
     return ict_reduce_blocked(corpus, Dq, Q_w, block_q)
+
+
+def lc_rwmd_symmetric_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
+                                     Q_w: torch.Tensor, block: int = 256,
+                                     block_q: int = 8,
+                                     precision: str = "f32") -> torch.Tensor:
+    """Symmetric batched LC-RWMD: the max of the two directional bounds,
+    both read from ONE stacked Phase-1 distance tensor (the forward
+    masked-min row and the reverse (min,+) reduction)."""
+    D = phase1_stacked_dist(corpus.coords, Q_ids, Q_w, precision=precision)
+    fwd = pour_min_blocked(corpus, _min_handoff(D), block_q)
+    rev = rev_min_blocked(corpus, _rev_handoff(D), Q_w, block, block_q)
+    return torch.maximum(fwd, rev)
+
+
+#: Rows and columns of a tile of :func:`symmetric_scores`.
+SYM_TILE = 4096
+
+
+def symmetric_scores(asym: torch.Tensor) -> torch.Tensor:
+    """Corpus-vs-corpus symmetrization, IN PLACE: asym[a, b] = cost(move b
+    into a) becomes max(asym[a, b], asym[b, a]), the paper's symmetric
+    measure (JAX: ``max(asym, asym.T)``, a second n x n array). Tile pairs
+    (i, j), j >= i, of ``SYM_TILE`` rows are read and written together, so
+    the extra memory is two tiles. Returns ``asym``."""
+    n = asym.shape[0]
+    for i in range(0, n, SYM_TILE):
+        rows = slice(i, i + SYM_TILE)
+        for j in range(i, n, SYM_TILE):
+            cols = slice(j, j + SYM_TILE)
+            m = torch.maximum(asym[rows, cols], asym[cols, rows].T)
+            asym[rows, cols] = m
+            asym[cols, rows] = m.T
+    return asym
 
 
 # --------------------------------------------------------------------------

@@ -1,25 +1,32 @@
 """Top-l nearest-neighbour retrieval on the LC engines, through a typed
 method registry.
 
-The part of the JAX package's ``core/retrieval.py`` that serves the port's
-``EmdIndex`` and cascade: ``METHODS`` holds a :class:`MethodSpec` for each
-of the seven JAX methods (act, rwmd, rwmd_rev, omr, ict, bow, wcd) with
-its batched scorer and its candidate-compacted scorer. ``batch_scores``
-dispatches through ``METHODS[method].batch_fn``, ``cand_scores`` through
+The JAX package's ``core/retrieval.py`` without its single-query and mesh
+engines: ``METHODS`` holds a :class:`MethodSpec` for each of the seven JAX
+methods (act, rwmd, rwmd_rev, omr, ict, bow, wcd) with its batched scorer
+and its candidate-compacted scorer. ``batch_scores`` dispatches through
+``METHODS[method].batch_fn`` (or, for the symmetric measure, through
+``symmetric_batch_fn`` or both directions), ``cand_scores`` through
 ``cand_fn``; ``search`` and ``top_l_smallest`` match ``lax.top_k`` on the
 negated scores (ascending scores, the lowest index first among ties).
+
+The paper's evaluation harness (Section 6) is here too: every corpus row
+is a query against the whole corpus (``all_pairs_scores``, in chunks of
+queries), and ``precision_at_l`` is the fraction of each row's top-l
+neighbours, self excluded, that share its label; ``recall_at_l`` the
+agreement of two rankings.
 
 Every scorer takes the uniform keyword set ``iters``, ``use_kernels``,
 ``block_q`` and ``precision`` and ignores the ones it does not use.
 Not yet ported, and so absent from :class:`MethodSpec`: the single-query
-engines (``fn``) and the mesh and symmetric scorers (``dist_fn``,
-``symmetric_batch_fn``, ``dist_out``).
+engines (``fn``) and the mesh scorers (``dist_fn``, ``dist_out``).
 """
 from __future__ import annotations
 
 import dataclasses
 from collections.abc import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import lc
@@ -38,6 +45,10 @@ class MethodSpec:
     reverse:     registry name of the opposite-direction bound, if any
                  (rwmd <-> rwmd_rev).
     batch_fn:    (nq, h) queries -> (nq, n) scores.
+    symmetric_batch_fn: the symmetric measure (max of both directions) of
+                 a reverse-linked pair, sharing work between the two:
+                 rwmd/rwmd_rev read one stacked Phase-1 distance tensor.
+                 ``batch_scores`` takes it on the reference path only.
     cand_fn:     (nq, h) queries and (nq, b) candidate row ids -> (nq, b)
                  scores at those rows (Phase 1 unchanged, Phase 2/3
                  gather-compacted); for the five LC methods
@@ -52,6 +63,7 @@ class MethodSpec:
     supports_kernels: bool = False
     reverse: str | None = None
     batch_fn: Callable | None = None
+    symmetric_batch_fn: Callable | None = None
     cand_fn: Callable | None = None
 
 
@@ -83,10 +95,19 @@ def _rwmd_cand(corpus, q_ids, q_w, cand, *, use_kernels=False, block_q=8,
                                   precision=precision)
 
 
-def _rwmd_rev_batch(corpus, q_ids, q_w, *, block_q=8, precision="f32", **_):
+def _rwmd_rev_batch(corpus, q_ids, q_w, *, use_kernels=False, block_q=8,
+                    precision="f32", **_):
     return lc.lc_rwmd_scores_rev_batched(corpus, q_ids, q_w,
                                          block_q=block_q,
-                                         precision=precision)
+                                         precision=precision,
+                                         use_kernels=use_kernels)
+
+
+def _rwmd_symmetric_batch(corpus, q_ids, q_w, *, block_q=8, precision="f32",
+                          **_):
+    return lc.lc_rwmd_symmetric_scores_batched(corpus, q_ids, q_w,
+                                               block_q=block_q,
+                                               precision=precision)
 
 
 def _rwmd_rev_cand(corpus, q_ids, q_w, cand, *, use_kernels=False,
@@ -110,8 +131,10 @@ def _omr_cand(corpus, q_ids, q_w, cand, *, use_kernels=False, block_q=8,
                                  precision=precision)
 
 
-def _ict_batch(corpus, q_ids, q_w, *, block_q=8, precision="f32", **_):
-    return lc.lc_ict_scores_batched(corpus, q_ids, q_w, block_q=block_q,
+def _ict_batch(corpus, q_ids, q_w, *, use_kernels=False, block_q=8,
+               precision="f32", **_):
+    return lc.lc_ict_scores_batched(corpus, q_ids, q_w,
+                                    use_kernels=use_kernels, block_q=block_q,
                                     precision=precision)
 
 
@@ -135,11 +158,13 @@ def _query_vectors(corpus, q_ids, q_w) -> torch.Tensor:
 
 
 def _bow_batch(corpus, q_ids, q_w, **_):
-    """Bag-of-words cosine baseline: 1 - cosine as a distance."""
+    """Bag-of-words cosine baseline: 1 - cosine as a distance. The dot is
+    a multiply then a sum over the slots (JAX: einsum), so a query's scores
+    do not depend on the batch around it."""
     qv = _query_vectors(corpus, q_ids, q_w)
     wn = corpus.w / torch.clamp_min(
         torch.linalg.norm(corpus.w, dim=1, keepdim=True), 1e-12)
-    return 1.0 - torch.einsum("us,qus->qu", wn, qv[:, corpus.ids])
+    return 1.0 - torch.sum(wn * qv[:, corpus.ids], dim=-1)
 
 
 def _bow_cand(corpus, q_ids, q_w, cand, **_):
@@ -185,18 +210,24 @@ def _wcd_cand(corpus, q_ids, q_w, cand, **_):
     return torch.linalg.norm(cent - qc[:, None, :], dim=-1)
 
 
+#: ``rwmd_rev`` and ``ict`` support kernels here and not in the JAX
+#: package, which has no kernel for their full-corpus engines: here those
+#: take the all-rows form of K4's valid-bin entry.
 METHODS: dict[str, MethodSpec] = {s.name: s for s in (
     MethodSpec("rwmd", "LC-RWMD (db -> query)", supports_kernels=True,
                reverse="rwmd_rev", batch_fn=_rwmd_batch,
+               symmetric_batch_fn=_rwmd_symmetric_batch,
                cand_fn=_rwmd_cand),
-    MethodSpec("rwmd_rev", "LC-RWMD (query -> db)", reverse="rwmd",
-               batch_fn=_rwmd_rev_batch, cand_fn=_rwmd_rev_cand),
+    MethodSpec("rwmd_rev", "LC-RWMD (query -> db)", supports_kernels=True,
+               reverse="rwmd", batch_fn=_rwmd_rev_batch,
+               symmetric_batch_fn=_rwmd_symmetric_batch,
+               cand_fn=_rwmd_rev_cand),
     MethodSpec("omr", "LC-OMR", supports_kernels=True, batch_fn=_omr_batch,
                cand_fn=_omr_cand),
     MethodSpec("act", "LC-ACT-k", uses_iters=True, supports_kernels=True,
                batch_fn=_act_batch, cand_fn=_act_cand),
-    MethodSpec("ict", "LC-ICT (db -> query)", batch_fn=_ict_batch,
-               cand_fn=_ict_cand),
+    MethodSpec("ict", "LC-ICT (db -> query)", supports_kernels=True,
+               batch_fn=_ict_batch, cand_fn=_ict_cand),
     MethodSpec("bow", "BoW cosine baseline", symmetric=True,
                batch_fn=_bow_batch, cand_fn=_bow_cand),
     MethodSpec("wcd", "Word Centroid Distance baseline", symmetric=True,
@@ -212,15 +243,33 @@ def _spec(method: str) -> MethodSpec:
 
 
 def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
-                 *, method: str = "act", iters: int = 1,
-                 use_kernels: bool = False, block_q: int = 8,
+                 *, method: str = "act", symmetric: bool = False,
+                 iters: int = 1, use_kernels: bool = False, block_q: int = 8,
                  precision: str = "f32") -> torch.Tensor:
     """Query batch ``(nq, h)`` -> ``(nq, n)`` scores through the method's
     batched engine: Phase 1 once for the whole batch, Phase 2/3 in blocks
-    of ``block_q`` queries. ``iters`` is read by ``act`` only."""
-    return _spec(method).batch_fn(corpus, q_ids, q_w, iters=iters,
-                                  use_kernels=use_kernels, block_q=block_q,
-                                  precision=precision)
+    of ``block_q`` queries. ``iters`` is read by ``act`` only.
+
+    ``symmetric=True`` scores the paper's symmetric measure, the max of the
+    two directional bounds; it needs a method with a reverse direction
+    (rwmd / rwmd_rev), and symmetric methods (bow, wcd) pass through. The
+    reference path takes the shared-work ``symmetric_batch_fn``; under
+    ``use_kernels`` the two directional engines run, each on its
+    kernels, and their elementwise max is returned."""
+    spec = _spec(method)
+    kw = dict(iters=iters, use_kernels=use_kernels, block_q=block_q,
+              precision=precision)
+    if symmetric and not spec.symmetric:
+        if spec.reverse is None:
+            raise ValueError(
+                f"method {method!r} has no reverse direction registered; "
+                "symmetric scoring needs one (use rwmd/rwmd_rev)")
+        if spec.symmetric_batch_fn is not None and not use_kernels:
+            return spec.symmetric_batch_fn(corpus, q_ids, q_w, **kw)
+        fwd = spec.batch_fn(corpus, q_ids, q_w, **kw)
+        return torch.maximum(
+            fwd, METHODS[spec.reverse].batch_fn(corpus, q_ids, q_w, **kw))
+    return spec.batch_fn(corpus, q_ids, q_w, **kw)
 
 
 def cand_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
@@ -241,7 +290,13 @@ def cand_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
 
 def top_l_smallest(scores: torch.Tensor, top_l: int):
     """(values, indices) of the ``top_l`` smallest scores along the last
-    axis, ascending; among equal scores the lowest index comes first."""
+    axis, ascending; among equal scores the lowest index comes first.
+
+    A stable sort of whole rows: for a query batch one launch, which on an
+    H100 beats :func:`top_l_rows`'s selection (several launches and a host
+    sync) by 0.3-0.6 ms a 16-query search at 20 Newsgroups width. The
+    corpus-as-queries matrices of the evaluation take :func:`top_l_rows`,
+    whose memory does not grow with n x n."""
     if not 1 <= top_l <= scores.shape[-1]:
         raise ValueError(f"top_l must be in [1, {scores.shape[-1]}], got "
                          f"{top_l}")
@@ -261,13 +316,158 @@ def search(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
                      precision=precision), top_l)
 
 
+#: Queries per chunk of :func:`all_pairs_scores`: the batch of the 20
+#: Newsgroups workload (``configs/emd_20news.py``), far below K1's limit of
+#: 65,535. The JAX package scores all n rows as one batch; at 20 Newsgroups
+#: width the (n, v, k) ladders alone would be 84 GB.
+ALL_PAIRS_QUERIES = 256
+
+#: Most floats of the stacked (v, chunk * hmax) Phase-1 distance tensor
+#: that one chunk of the reference path builds: 2^29 (2 GiB), 15 queries at
+#: 20 Newsgroups width.
+ALL_PAIRS_STACK_ELEMS = 1 << 29
+
+
+def all_pairs_chunk(corpus: lc.Corpus, use_kernels: bool) -> int:
+    """The default query chunk of :func:`all_pairs_scores`:
+    ``ALL_PAIRS_QUERIES``, cut on the reference path so that the stacked
+    distance tensor stays within ``ALL_PAIRS_STACK_ELEMS``."""
+    if use_kernels:
+        return ALL_PAIRS_QUERIES
+    return max(1, min(ALL_PAIRS_QUERIES,
+                      ALL_PAIRS_STACK_ELEMS // (corpus.v * corpus.hmax)))
+
+
+def all_pairs_scores(corpus: lc.Corpus, method: str = "act", iters: int = 1,
+                     *, use_kernels: bool = False, block_q: int = 8,
+                     precision: str = "f32") -> torch.Tensor:
+    """n x n symmetric bound matrix over the corpus (the paper's evaluation
+    mode), float32 on the corpus's device.
+
+    asym[a, b] = directional bound of moving histogram b INTO histogram a
+    (query = row a), scored by ``batch_scores`` in chunks of
+    :func:`all_pairs_chunk` corpus rows; every chunk size gives the same
+    matrix. The matrix is then symmetrized in place, max(asym,
+    asym^T) (:func:`lc.symmetric_scores`), so no second n x n matrix is
+    held. For the symmetric measures (bow, wcd) that only evens out the
+    float rounding of the two directions, which JAX leaves in their
+    matrix: here every method's matrix is exactly symmetric."""
+    _spec(method)
+    chunk = all_pairs_chunk(corpus, use_kernels)
+    n = corpus.n
+    asym = torch.empty((n, n), dtype=torch.float32, device=corpus.device)
+    for s in range(0, n, chunk):
+        asym[s:s + chunk] = batch_scores(
+            corpus, corpus.ids[s:s + chunk], corpus.w[s:s + chunk],
+            method=method, iters=iters, use_kernels=use_kernels,
+            block_q=block_q, precision=precision)
+    return lc.symmetric_scores(asym)
+
+
+#: Score-matrix entries one chunk of rows of the top-l selection holds:
+#: 2^26, so a chunk and its masks stay near 1 GiB at any n.
+SELECT_ELEMS = 1 << 26
+
+
+def _mask_self(scores: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """A copy of ``scores`` (rows row0.. of a square corpus-as-queries
+    matrix) with each row's own column pushed to the dtype max, so that a
+    row never retrieves itself.
+
+    The mask is written in the float32 ACCUMULATOR dtype, never a reduced
+    storage dtype: ``finfo(bfloat16).max`` is also what bf16 overflow
+    saturates to, so masking in-dtype would tie the diagonal with any
+    saturated entry and let the index order pick between self and a real
+    row. Upcasting first (exact for bf16/f16) keeps the sentinel strictly
+    above every finite score; float32 values pass through unchanged."""
+    acc = torch.promote_types(scores.dtype, torch.float32)
+    out = scores.to(acc, copy=True)
+    r = torch.arange(out.shape[0], device=out.device)
+    out[r, row0 + r] = torch.finfo(acc).max
+    return out
+
+
+def _smallest_l(x: torch.Tensor, top_l: int) -> torch.Tensor:
+    """The indices of each row's ``top_l`` smallest scores, ascending, the
+    lowest index first among ties, without sorting whole rows:
+    ``torch.topk`` gives each row's l-th smallest value t (its order among
+    ties is unspecified, its values are not); the entries below t and the
+    lowest-indexed of those equal to t are the row's top-l set, which a
+    stable sort of its l values puts in order."""
+    t = torch.topk(x, top_l, dim=-1, largest=False).values[:, -1:]
+    below, tied = x < t, x == t
+    need = top_l - below.sum(dim=-1, keepdim=True)
+    take = below | (tied & (torch.cumsum(tied, dim=-1) <= need))
+    idx = torch.nonzero(take)[:, 1].view(-1, top_l)      # ascending index
+    order = torch.argsort(torch.gather(x, 1, idx), dim=-1, stable=True)
+    return torch.gather(idx, 1, order)
+
+
+def top_l_rows(scores: torch.Tensor, top_l: int, *,
+               exclude_self: bool = False) -> torch.Tensor:
+    """(rows, top_l) indices of each row's ``top_l`` smallest scores,
+    ascending, the lowest index first among ties (``lax.top_k`` of the
+    negated scores), in chunks of at most ``SELECT_ELEMS`` entries;
+    ``exclude_self`` masks each row's own column first
+    (:func:`_mask_self`)."""
+    n_rows, n = scores.shape
+    if not 1 <= top_l <= n:
+        raise ValueError(f"top_l must be in [1, {n}], got {top_l}")
+    rows = max(1, SELECT_ELEMS // n)
+    out = []
+    for s in range(0, n_rows, rows):
+        chunk = scores[s:s + rows]
+        chunk = _mask_self(chunk, s) if exclude_self else chunk.float()
+        out.append(_smallest_l(chunk, top_l))
+    return torch.cat(out)
+
+
+def _f32_mean(total, count: int) -> float:
+    """The float32 mean of ``count`` values summing to ``total``, rounded as
+    JAX's float32 mean is: the sum times the float32 reciprocal of the
+    count (XLA turns the division by the constant count into that
+    product), which can be one ulp off the correctly rounded quotient."""
+    return float(np.float32(total) * (np.float32(1) / np.float32(count)))
+
+
+def precision_at_l(scores: torch.Tensor, labels, top_l: int) -> float:
+    """Average precision@top-l: the fraction of each row's top-l
+    neighbours (self excluded) that share the row's label, averaged over
+    the rows. The row fractions are JAX's float32 row means and their sum
+    is taken exactly, so the result is JAX's float32 mean of means
+    whenever JAX's float32 sum of the fractions is exact too (for any
+    top_l that is a power of two)."""
+    idx = top_l_rows(scores, top_l, exclude_self=True)
+    lab = torch.as_tensor(np.asarray(labels), device=idx.device)
+    hits = (lab[idx] == lab[:, None]).sum(dim=1)
+    frac = hits.to(torch.float32) * (np.float32(1) / np.float32(top_l))
+    return _f32_mean(frac.double().sum().item(), frac.numel())
+
+
 def topl_overlap(got_idx, ref_idx) -> float:
     """Mean fraction of each row's reference index set that the row's
     ``got_idx`` set retrieves (the cascade's recall against full
-    scoring)."""
+    scoring), as a float32 mean."""
     got, ref = torch.as_tensor(got_idx), torch.as_tensor(ref_idx)
     if got.shape != ref.shape:
         raise ValueError(f"index sets must share a shape, got "
                          f"{tuple(got.shape)} vs {tuple(ref.shape)}")
     hit = (got[..., :, None] == ref[..., None, :].to(got.device)).any(-1)
-    return float(hit.float().mean())
+    return _f32_mean(int(hit.sum()), hit.numel())
+
+
+def recall_at_l(scores: torch.Tensor, ref_scores: torch.Tensor, top_l: int,
+                *, exclude_self: bool = False) -> float:
+    """Average recall@top-l of ``scores`` against a reference ranking: the
+    fraction of each row's reference top-l (by ``ref_scores``, e.g. exact
+    EMD or full-corpus ACT) that the row's top-l under ``scores``
+    retrieves. Shapes must match: (nq, n) query batches or (n, n)
+    corpus-as-queries matrices (``exclude_self=True`` masks the diagonal
+    of both, the convention of :func:`precision_at_l`)."""
+    if scores.shape != ref_scores.shape:
+        raise ValueError(f"score matrices must share a shape, got "
+                         f"{tuple(scores.shape)} vs "
+                         f"{tuple(ref_scores.shape)}")
+    return topl_overlap(
+        top_l_rows(scores, top_l, exclude_self=exclude_self),
+        top_l_rows(ref_scores, top_l, exclude_self=exclude_self))

@@ -9,7 +9,10 @@
 // cand_rev_min_valid_plain and cand_ict_valid_plain.
 //
 // Inputs. The corpus, ids (n, hmax) int32 and w (n, hmax) f32; the
-// candidate rows cand (nq, b) int64; the valid-bin handoff of
+// candidate rows cand (nq, b) int64, or none for the all-rows form (every
+// corpus row, b = n: the full-corpus rwmd_rev and ict engines, whose JAX
+// counterparts reduce the whole stacked (v, nq, h) tensor and have no
+// kernel); the valid-bin handoff of
 // core/lc.py::phase1_valid_dist: Dv (v, P) f32 or bf16 with a row stride
 // ld that is a multiple of 4, the distances of every vocabulary row to the
 // batch's P valid query bins, query q owning columns [qoff[q], qoff[q+1])
@@ -24,11 +27,11 @@
 //       r_i = clip(x_s - prefix_i, 0, qw_i), prefix_i = (sum_{p<=i} qw_p)
 //       - qw_i; dump the remainder max(x_s - sum_i r_i, 0) at the max
 //       FINITE cost of C_s (strict < big); t = sum_s (sum_i r_i c_i + dump);
-// in float32 whatever Dv's type. An empty query (len_q = 0) scores 0. On
-// the stacked (nq, v, h) handoff of cand_dist.cu the padded query bins
-// carry the sentinel and weight 0 and add exactly 0, so both kernels
-// compute the same function; the per-entry ict arithmetic is the same code
-// path, so only the order of the final sums differs.
+// in float32 whatever Dv's type (rev_min), the ict pour and its sums in
+// float64 (below). An empty query (len_q = 0) scores 0. On the stacked
+// (nq, v, h) handoff of cand_dist.cu the padded query bins carry the
+// sentinel and weight 0 and add exactly 0, so both kernels compute the
+// same function; cand_dist.cu pours in float32.
 //
 // Bound on an H100: bytes. Per entry with x > 0 the kernel reads len_q
 // costs (4 to 134 at 20 Newsgroups width, against h = 500 on the stacked
@@ -58,7 +61,9 @@
 //   pour.
 // * The candidate rows are gathered in the kernel: cand, ids and w are
 //   read directly (ids only at slots with x > 0), streamed past with
-//   evict-first loads, so no (nq, b, hmax) tensor exists.
+//   evict-first loads, so no (nq, b, hmax) tensor exists. The all-rows
+//   form takes row c of warp q * n + c, without cand; its warps in flight
+//   are one query's, so they share that query's columns of Dv in the L2.
 // * One launch per stage and batch, warps numbered query-major, so the
 //   warps in flight read one or two queries' columns of Dv, which stay in
 //   the L2 (the 20 Newsgroups batch's longest query, 134 columns, touches
@@ -87,7 +92,8 @@ constexpr int MODE_REV_MIN = 0;
 constexpr int MODE_ICT = 1;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float x) {
+template <typename F>
+__device__ __forceinline__ F warp_sum(F x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
   return x;
@@ -173,8 +179,12 @@ __device__ __forceinline__ void load_entry(const T* __restrict__ dv,
 
 // lc.ict_pour of one entry (weight x, this lane's costs c; x = 0 and all
 // costs +inf for a group without an entry, which scores exactly 0). The
-// arithmetic is cand_dist.cu's, per entry.
-__device__ __forceinline__ float ict_entry(const float (&c)[K], float x,
+// running prefix, the pour and the sums are float64: a dense image's
+// ladder has up to 784 near-equal capacities and its row 784 near-equal
+// entries, whose float32 running sums drift by correlated roundings (on an
+// H100, 1.3e-4 from the float64 value at a dense 256-image chunk, against
+// 3.8e-6 for the plain version's tree-ordered float32 sums).
+__device__ __forceinline__ double ict_entry(const float (&c)[K], float x,
                                            const Query& qy,
                                            const float* __restrict__ qwq,
                                            float big) {
@@ -183,7 +193,7 @@ __device__ __forceinline__ float ict_entry(const float (&c)[K], float x,
   for (int i = 0; i < K; ++i)
     if (c[i] < big) mx = fmaxf(mx, c[i]);
   mx = group_max(mx, qy.G);
-  float cum = 0.f, acc = 0.f, rsum = 0.f;
+  double cum = 0.0, acc = 0.0, rsum = 0.0;
   unsigned long long next = 0;   // the least key not yet poured into
   bool pouring = true;
   while (__any_sync(FULL, pouring)) {
@@ -208,16 +218,15 @@ __device__ __forceinline__ float ict_entry(const float (&c)[K], float x,
       pouring = false;
       continue;
     }
-    const float cap = qwq[bj];
-    cum = __fadd_rn(cum, cap);
-    const float r = fminf(fmaxf(__fsub_rn(x, __fsub_rn(cum, cap)), 0.f), cap);
-    acc = __fadd_rn(acc, __fmul_rn(r, bc));
-    rsum = __fadd_rn(rsum, r);
+    const double cap = qwq[bj];
+    cum += cap;
+    const double r = fmin(fmax(x - (cum - cap), 0.0), cap);
+    acc += r * bc;
+    rsum += r;
     if (cum >= x) pouring = false;   // x is poured: every later r is 0
     next = best + 1;
   }
-  const float rem = fmaxf(__fsub_rn(x, rsum), 0.f);
-  return __fadd_rn(acc, __fmul_rn(rem, mx));
+  return acc + fmax(x - rsum, 0.0) * mx;
 }
 
 template <typename T, int MODE>
@@ -249,7 +258,8 @@ cand_dist_valid_kernel(const int* __restrict__ ids,
   qy.tmax = (nquad + qy.G - 1) / qy.G;
   const int ng = 32 / qy.G, g = lane / qy.G;
   const float* qwq = qwv + qy.lo;
-  const size_t row = (size_t)__ldcs(cand + warp);
+  const size_t row = cand ? (size_t)__ldcs(cand + warp)
+                          : (size_t)(warp - (long long)q * b);
   const float* xr = w + row * hmax;
   const int* ir = ids + row * hmax;
   const unsigned below = (1u << lane) - 1u;
@@ -257,7 +267,7 @@ cand_dist_valid_kernel(const int* __restrict__ ids,
   float cmin[MODE == MODE_REV_MIN ? K : 1];   // running min per column
 #pragma unroll
   for (int i = 0; i < (MODE == MODE_REV_MIN ? K : 1); ++i) cmin[i] = big;
-  float total = 0.f;   // ict: this group's sum over its entries
+  double itotal = 0.0;   // ict: this group's sum over its entries
 
   for (int s0 = 0; s0 < hmax; s0 += 32 * CH) {
     // The weights of 32 * CH slots, then the ids of the live ones, all in
@@ -308,7 +318,7 @@ cand_dist_valid_kernel(const int* __restrict__ ids,
           xn = e < cnt ? sx[wib][e] : 0.f;
           load_entry<T>(dv, ld, e < cnt ? sid[wib][e] : -1, qy, cn);
         }
-        total = __fadd_rn(total, ict_entry(c, x, qy, qwq, big));
+        itotal += ict_entry(c, x, qy, qwq, big);
       }
     }
     __syncwarp();   // the queue is read before the next pass writes it
@@ -329,11 +339,12 @@ cand_dist_valid_kernel(const int* __restrict__ ids,
           part = __fadd_rn(part, __fmul_rn(cmin[i], qwq[j]));
       }
     }
-    total = warp_sum(part);
+    const float total = warp_sum(part);   // every lane takes part
+    if (lane == 0) t[warp] = total;
   } else {
-    total = warp_sum(qy.gl == 0 ? total : 0.f);
+    const double total = warp_sum(qy.gl == 0 ? itotal : 0.0);
+    if (lane == 0) t[warp] = (float)total;
   }
-  if (lane == 0) t[warp] = total;
 }
 
 template <typename T>
@@ -356,7 +367,8 @@ cudaError_t launch(const int* ids, const float* w, const long long* cand,
 }  // namespace
 
 // ids (n, hmax) int32 with ids in [0, v), w (n, hmax) f32, cand (nq, b)
-// int64 in [0, n), qoff (nq + 1,) int32 rising from 0 to P, qwv (P,) f32,
+// int64 in [0, n) or null for every row (then b = n), qoff (nq + 1,) int32
+// rising from 0 to P, qwv (P,) f32,
 // all contiguous; dv (v, P) f32 or bf16 (bf16 = 1) with rows of stride
 // ld, ld % 4 == 0, 16-byte aligned; no query's columns may touch more than
 // 32 * QPL = 256 aligned quads (1,020 columns always fit). big = the f32

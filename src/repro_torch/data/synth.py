@@ -1,5 +1,7 @@
-"""Synthetic text corpora with the structure of the paper's 20 Newsgroups
-workload: sparse histograms over a large embedded vocabulary.
+"""Synthetic corpora with the structure of the paper's two evaluation
+domains: 20 Newsgroups-like text (sparse histograms over a large embedded
+vocabulary) and MNIST-like images (pixel histograms over a 2-D grid, with
+an optional background floor that makes them dense).
 
 The same numpy draws, from the same seed, as the JAX package's
 ``data/synth.py``, so both packages see identical arrays. The corpora come
@@ -10,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.histogram import docs_to_corpus
+from repro_torch.core.histogram import docs_to_corpus, images_to_corpus
 from repro_torch.core.lc import Corpus
 
 
@@ -77,3 +79,23 @@ def make_clustered_text(n_docs: int, n_topics: int = 64, vocab: int = 2048,
         w[s:e] = wt
     return Corpus(ids=torch.from_numpy(ids), w=torch.from_numpy(w),
                   coords=torch.from_numpy(coords)), labels
+
+
+def make_image_like(n_images: int = 64, n_classes: int = 4, side: int = 12,
+                    include_background: bool = False,
+                    seed: int = 0) -> tuple[Corpus, np.ndarray]:
+    """Digit-like greyscale blobs: each class is a fixed pattern of three
+    gaussian strokes with per-sample jitter, rendered on a side x side grid
+    and thresholded at 5% of the image's maximum."""
+    rng = np.random.default_rng(seed)
+    protos = rng.uniform(1.5, side - 2.5, size=(n_classes, 3, 2))
+    yy, xx = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    grid = np.stack([yy, xx], axis=-1).astype(np.float64)    # (side, side, 2)
+    labels = rng.integers(0, n_classes, size=n_images)
+    images = np.zeros((n_images, side, side))
+    for u in range(n_images):
+        centers = protos[labels[u]] + rng.normal(scale=0.6, size=(3, 2))
+        for c in centers:
+            images[u] += np.exp(-np.sum((grid - c) ** 2, axis=-1) / 2.0)
+        images[u] *= images[u] > 0.05 * images[u].max()      # sparsify
+    return images_to_corpus(images, include_background), labels

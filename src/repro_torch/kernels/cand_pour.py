@@ -19,9 +19,11 @@ Counterparts of the JAX package's ``kernels/cand_pour.py``:
   the layout ``core.lc.phase1_valid_dist`` writes: Dv (v, P) holds only
   the batch's P valid query bins, query q owning columns
   [qoff[q], qoff[q+1]), with their weights qwv (P,). It reads the
-  candidate rows from the corpus (ids, w) at cand (nq, b) itself. An
-  empty query scores 0, as its padded bins add exactly 0 on the stacked
-  handoff. This is the entry the engines call.
+  candidate rows from the corpus (ids, w) at cand (nq, b) itself, or
+  every row when cand is None (the all-rows form, (nq, n) out: the
+  full-corpus ``rwmd_rev`` and ``ict`` engines). An empty query scores 0,
+  as its padded bins add exactly 0 on the stacked handoff. This is the
+  entry the engines call.
 * ``cand_pour_rows`` (K3 reading the corpus rows itself; CUDA
   ``csrc/cand_pour_rows.cu``) is ``cand_pour`` on the corpus (ids, w) at
   the candidate rows cand (nq, b), or at every row when cand is None (the
@@ -60,9 +62,10 @@ launches = {"pour": 0, "pour0": 0, "omr": 0, "rev_min": 0, "ict": 0}
 #: costs of an entry in registers, at most 32.
 MAX_H = 1024
 
-#: Launches of K4's valid-bin entry by mode since the counts were last set
-#: to 0.
-valid_launches = {"rev_min": 0, "ict": 0}
+#: Launches of K4's valid-bin entry since the counts were last set to 0:
+#: the candidate form by mode and the all-rows form (``all_rev_min``,
+#: ``all_ict``).
+valid_launches = {"rev_min": 0, "ict": 0, "all_rev_min": 0, "all_ict": 0}
 
 #: Most valid bins a query may have on the valid-bin K4: a lane holds 8
 #: aligned quads of an entry's costs, and 1,020 columns touch at most 256
@@ -125,16 +128,18 @@ def cand_ict_plain(idsg: torch.Tensor, xg: torch.Tensor, dq: torch.Tensor,
 
 def _reduce_valid(reduce, ids, w, cand, dv, qoff, qwv):
     """``lc.reduce_dist_rows(reduce, ...)`` one query at a time on the
-    query's (v, len_q) slice of Dv and its weights; an empty query
-    scores 0."""
-    out = torch.zeros(cand.shape, dtype=torch.float32, device=w.device)
+    query's (v, len_q) slice of Dv and its weights, at its candidate rows
+    (every row when cand is None); an empty query scores 0."""
     bounds = qoff.tolist()
+    nq = len(bounds) - 1
+    out = torch.zeros((nq, ids.shape[0] if cand is None else cand.shape[1]),
+                      dtype=torch.float32, device=w.device)
     for q, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
         if hi > lo:
-            rows = cand[q:q + 1]
+            idsg, xg = ((ids[None], w[None]) if cand is None
+                        else (ids[cand[q:q + 1]], w[cand[q:q + 1]]))
             out[q] = lc.reduce_dist_rows(reduce, dv[None, :, lo:hi],
-                                         qwv[None, lo:hi], ids[rows],
-                                         w[rows], 1)[0]
+                                         qwv[None, lo:hi], idsg, xg, 1)[0]
     return out
 
 
@@ -244,22 +249,24 @@ def cand_dist_valid_cuda(ids: torch.Tensor, w: torch.Tensor,
                          cand: torch.Tensor, dv: torch.Tensor,
                          qoff: torch.Tensor, qwv: torch.Tensor,
                          mode: str) -> torch.Tensor:
-    """Launch the valid-bin K4 on the current stream. The caller
+    """Launch the valid-bin K4 on the current stream, at the candidate rows
+    cand or, with cand None, at every corpus row. The caller
     (``ops.cand_rev_min_valid`` / ``ops.cand_ict_valid``) has checked
     devices, dtypes, shapes, strides, the range of cand and qoff, and
     that no query has more than MAX_LEN valid bins."""
     lib = _lib("cand_dist_valid")
-    nq, b = cand.shape
+    nq = qoff.shape[0] - 1
+    b = ids.shape[0] if cand is None else cand.shape[1]
     t = torch.empty((nq, b), dtype=torch.float32, device=w.device)
     err = lib.cand_dist_valid_launch(
-        ids.data_ptr(), w.data_ptr(), cand.data_ptr(), dv.data_ptr(),
-        qoff.data_ptr(), qwv.data_ptr(), t.data_ptr(), nq, b, ids.shape[1],
-        dv.stride(0), pad_dist_for(torch.float32), _MODES[mode],
-        int(dv.dtype == torch.bfloat16), _stream(w))
+        ids.data_ptr(), w.data_ptr(), 0 if cand is None else cand.data_ptr(),
+        dv.data_ptr(), qoff.data_ptr(), qwv.data_ptr(), t.data_ptr(), nq, b,
+        ids.shape[1], dv.stride(0), pad_dist_for(torch.float32),
+        _MODES[mode], int(dv.dtype == torch.bfloat16), _stream(w))
     if err:
         raise RuntimeError(f"cand_dist_valid kernel launch failed: "
                            f"{lib.cand_dist_valid_error(err).decode()}")
-    valid_launches[mode] += 1
+    valid_launches[mode if cand is not None else f"all_{mode}"] += 1
     return t
 
 

@@ -67,7 +67,9 @@ def dist_topk_cuda(coords: torch.Tensor, qcs: torch.Tensor,
                    qmask: torch.Tensor, k: int,
                    out_dtype: torch.dtype = torch.float32):
     """Launch the CUDA kernel on the current stream: a compaction of the
-    valid bins, then the distances and selection over those bins only. The
+    valid bins, then the distances and selection over those bins only, in
+    blocks of vocabulary rows by groups of queries (the kernel picks the
+    groups; a query's output does not depend on its group). The
     caller (``ops.dist_topk_batched``) has checked devices, dtypes, shapes
     and contiguity."""
     global launches

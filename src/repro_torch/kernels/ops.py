@@ -289,9 +289,10 @@ def cand_ict(idsg: torch.Tensor, xg: torch.Tensor, Dq: torch.Tensor,
 # ------------------------------------- K4 on the valid-bin distance handoff
 #
 # ids (n, hmax) int32 and w (n, hmax) float32 are the corpus, cand (nq, b)
-# int64 each query's candidate rows; Dv (v, P), qoff (nq+1,) and qwv (P,)
-# the handoff of ``core.lc.phase1_valid_dist``. The ids must lie in [0, v):
-# the kernel loads at them unchecked, as the stacked entries do.
+# int64 each query's candidate rows, or None for every row (the all-rows
+# form of the full-corpus engines); Dv (v, P), qoff (nq+1,) and qwv (P,)
+# the handoff of ``core.lc.phase1_valid_dist``. The ids must lie in
+# [0, v): the kernel loads at them unchecked, as the stacked entries do.
 
 
 def _cand_dist_valid(ids, w, cand, dv, qoff, qwv, mode, plain):
@@ -302,18 +303,20 @@ def _cand_dist_valid(ids, w, cand, dv, qoff, qwv, mode, plain):
     _require(w.shape == ids.shape and w.dtype == torch.float32,
              f"w must be {tuple(ids.shape)} float32, got {tuple(w.shape)} "
              f"{w.dtype}")
-    _require(cand.dim() == 2 and cand.dtype == torch.int64
-             and min(cand.shape) >= 1,
-             f"cand must be non-empty (nq, b) int64, got "
-             f"{tuple(cand.shape)} {cand.dtype}")
-    nq = cand.shape[0]
+    _require(qoff.dim() == 1 and qoff.shape[0] >= 2
+             and qoff.dtype == torch.int32,
+             f"qoff must be (nq+1,) int32 with nq >= 1, got "
+             f"{tuple(qoff.shape)} {qoff.dtype}")
+    nq = qoff.shape[0] - 1
+    if cand is not None:
+        _require(cand.dim() == 2 and cand.dtype == torch.int64
+                 and cand.shape[0] == nq and cand.shape[1] >= 1,
+                 f"cand must be non-empty ({nq}, b) int64, got "
+                 f"{tuple(cand.shape)} {cand.dtype}")
     _require(dv.dim() == 2 and dv.shape[0] >= 1 and dv.dtype in _LADDER_DTYPES,
              f"Dv must be (v, P) float32 or bfloat16, got {tuple(dv.shape)} "
              f"{dv.dtype}")
     P = dv.shape[1]
-    _require(qoff.shape == (nq + 1,) and qoff.dtype == torch.int32,
-             f"qoff must be ({nq + 1},) int32, got {tuple(qoff.shape)} "
-             f"{qoff.dtype}")
     _require(qwv.shape == (P,) and qwv.dtype == torch.float32,
              f"qwv must be ({P},) float32, got {tuple(qwv.shape)} "
              f"{qwv.dtype}")
@@ -322,13 +325,17 @@ def _cand_dist_valid(ids, w, cand, dv, qoff, qwv, mode, plain):
              "Dv's rows must be contiguous, 16-byte aligned, at a row stride "
              f"that is a multiple of 4 (phase1_valid_dist pads it), got "
              f"strides {dv.stride()}")
-    _require(all(t.is_contiguous() for t in (ids, w, cand, qoff, qwv)),
+    tensors = (ids, w, qoff, qwv) + (() if cand is None else (cand,))
+    _require(all(t.is_contiguous() for t in tensors),
              "ids, w, cand, qoff and qwv must be contiguous")
-    on_cpu = _on_cpu(ids, w, cand, dv, qoff, qwv)
-    *bounds, lo, hi = torch.cat([qoff.long(), torch.stack(           # a sync
-        torch.aminmax(cand))]).tolist()
-    _require(0 <= lo and hi < ids.shape[0],
-             f"cand must lie in [0, {ids.shape[0]}), got [{lo}, {hi}]")
+    on_cpu = _on_cpu(*tensors, dv)
+    if cand is None:
+        bounds = qoff.tolist()                                      # a sync
+    else:
+        *bounds, lo, hi = torch.cat([qoff.long(), torch.stack(      # a sync
+            torch.aminmax(cand))]).tolist()
+        _require(0 <= lo and hi < ids.shape[0],
+                 f"cand must lie in [0, {ids.shape[0]}), got [{lo}, {hi}]")
     lens = [b - a for a, b in zip(bounds, bounds[1:])]
     _require(bounds[0] == 0 and bounds[-1] == P and min(lens) >= 0,
              f"qoff must rise from 0 to {P}, got {bounds}")
@@ -341,22 +348,23 @@ def _cand_dist_valid(ids, w, cand, dv, qoff, qwv, mode, plain):
 
 
 def cand_rev_min_valid(ids: torch.Tensor, w: torch.Tensor,
-                       cand: torch.Tensor, dv: torch.Tensor,
+                       cand: torch.Tensor | None, dv: torch.Tensor,
                        qoff: torch.Tensor, qwv: torch.Tensor) -> torch.Tensor:
     """K4 mode ``rev_min`` on the valid-bin handoff: the reverse-RWMD
     masked (min,+) reduction of :func:`cand_rev_min` at the candidate rows
-    cand, reading each query's valid bins only -> (nq, b) float32; an
-    empty query scores 0."""
+    cand, reading each query's valid bins only -> (nq, b) float32; with
+    cand None, at every corpus row -> (nq, n). An empty query scores 0."""
     return _cand_dist_valid(ids, w, cand, dv, qoff, qwv, "rev_min",
                             cand_k.cand_rev_min_valid_plain)
 
 
-def cand_ict_valid(ids: torch.Tensor, w: torch.Tensor, cand: torch.Tensor,
-                   dv: torch.Tensor, qoff: torch.Tensor,
-                   qwv: torch.Tensor) -> torch.Tensor:
+def cand_ict_valid(ids: torch.Tensor, w: torch.Tensor,
+                   cand: torch.Tensor | None, dv: torch.Tensor,
+                   qoff: torch.Tensor, qwv: torch.Tensor) -> torch.Tensor:
     """K4 mode ``ict`` on the valid-bin handoff: the LC-ICT full-ladder
     pour of :func:`cand_ict` at the candidate rows cand -> (nq, b)
-    float32; an empty query scores 0."""
+    float32; with cand None, at every corpus row -> (nq, n). An empty
+    query scores 0."""
     return _cand_dist_valid(ids, w, cand, dv, qoff, qwv, "ict",
                             cand_k.cand_ict_valid_plain)
 

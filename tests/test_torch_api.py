@@ -143,7 +143,7 @@ def test_config_has_the_jax_fields():
 @pytest.mark.parametrize("field,value", [
     ("backend", "pallas"),
     ("backend", "distributed"), ("precision", "bf16_agg"),
-    ("symmetric", True), ("batch_engine", "scan"),
+    ("batch_engine", "scan"),
     ("autotune", "force"), ("autotune", "cached"), ("tune_cache", "t.json"),
     ("block_v", 128), ("block_h", 128), ("block_n", 128), ("rev_block", 64),
     ("pad_multiple", 16),

@@ -13,8 +13,12 @@ engines take under ``use_kernels``.
 * The engines: on the valid route under ``use_kernels`` (the stacked
   handoff is never built) and against JAX's engines, also with an empty
   query.
+* The all-rows form (cand None, every corpus row: the full-corpus
+  ``rwmd_rev`` and ``ict`` engines) against the candidate form at every
+  row, bitwise.
 * The wrapper's rejects; on a CUDA card only, the kernel against its plain
-  version and against the stacked kernel on the same costs.
+  version and against the stacked kernel on the same costs, and its
+  all-rows form against its plain version and its candidate form.
 * ``pairwise_dist``, which now runs its passes in place, against the
   expanded formula, bitwise.
 
@@ -187,6 +191,21 @@ def test_valid_entry_matches_the_stacked_entry(rng, mode, case, dtype):
     if mode == "rev_min":          # a pad row has no entry: sum big * qw
         full = (qoff[1:] > qoff[:-1])[:, None]
         assert bool(((got[:, :2] > 1e29) == full).all())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["prefix", "non_prefix", "ties",
+                                  "empty_query", "all_empty"])
+@pytest.mark.parametrize("mode", MODES)
+def test_all_rows_form_is_the_candidate_form_at_every_row(rng, mode, case,
+                                                          dtype):
+    (ids, w, cand, dv, qoff, qwv), _ = _case(rng, case, _DTYPES[dtype])
+    every = torch.arange(ids.shape[0]).expand(cand.shape[0], -1).contiguous()
+    op, plain = _VALID[mode]
+    got = op(ids, w, None, dv, qoff, qwv)
+    assert got.shape == (cand.shape[0], ids.shape[0])
+    assert torch.equal(got, plain(ids, w, None, dv, qoff, qwv))
+    assert torch.equal(got, op(ids, w, every, dv, qoff, qwv))
 
 
 def test_valid_entry_ict_remainder_goes_to_the_max_cost():
@@ -375,3 +394,32 @@ def test_pairwise_dist_in_place_is_the_expanded_formula(rng):
         got = geometry.pairwise_dist(a, b, snap)
         assert torch.equal(got, torch.sqrt(d2))
     assert int((geometry.pairwise_dist(a, b) == 0).sum()) == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case,nq,h,v,n,hmax", [
+    ("non_prefix", 4, 9, 40, 15, 6),
+    ("empty_query", 5, 40, 300, 60, 40),
+    ("prefix", 2, 500, 2000, 40, 500),
+    ("long", 3, 784, 784, 30, 784),               # dense MNIST-shaped rows
+    ("non_prefix", 64, 20, 784, 300, 70),         # many queries, many rows
+])
+def test_cand_dist_valid_all_rows_cuda_matches_plain(rng, cuda, case, nq, h,
+                                                     v, n, hmax, dtype):
+    (ids, w, _, dv, qoff, qwv), _ = _case(
+        rng, case, _DTYPES[dtype], nq=nq, h=h, v=v, n=n, hmax=hmax, b=8,
+        device=cuda)
+    every = torch.arange(n, device=cuda).expand(nq, n).contiguous()
+    for mode in MODES:
+        op, plain = _VALID[mode]
+        before = dict(cand_pour.valid_launches)
+        got = op(ids, w, None, dv, qoff, qwv)
+        torch.cuda.synchronize()
+        assert cand_pour.valid_launches[f"all_{mode}"] == \
+            before[f"all_{mode}"] + 1
+        assert cand_pour.valid_launches[mode] == before[mode]
+        assert got.shape == (nq, n)
+        torch.testing.assert_close(got, plain(ids, w, None, dv, qoff, qwv),
+                                   **F32_TOL)
+        assert torch.equal(got, op(ids, w, every, dv, qoff, qwv))

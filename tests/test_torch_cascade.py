@@ -64,15 +64,23 @@ def _tspec(spec):
 # --------------------------------------------------------- the registry
 
 
+#: Methods whose full-corpus engine has a kernel in the port and none in
+#: the JAX package: the all-rows form of K4's valid-bin entry.
+PORT_ONLY_KERNELS = {"rwmd_rev", "ict"}
+
+
 def test_registry_matches_jax():
     assert set(tr.METHODS) == set(jr.METHODS)
     for name, spec in tr.METHODS.items():
         j = jr.METHODS[name]
         assert (spec.paper_name, spec.symmetric, spec.uses_iters,
                 spec.supports_kernels, spec.reverse) == \
-            (j.paper_name, j.symmetric, j.uses_iters, j.supports_kernels,
+            (j.paper_name, j.symmetric, j.uses_iters,
+             j.supports_kernels or name in PORT_ONLY_KERNELS,
              j.reverse), name
         assert spec.batch_fn is not None and spec.cand_fn is not None
+        assert (spec.symmetric_batch_fn is None) == \
+            (j.symmetric_batch_fn is None), name
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
@@ -394,8 +402,12 @@ def test_engine_config_cascade_validation():
     assert EngineConfig().cascade_spec is None
     assert EngineConfig(backend="reference").cascade_knobs() == dict(
         use_kernels=False, block_q=8, precision="f32")
-    assert EngineConfig(method="ict").cascade_knobs()["use_kernels"]
-    assert not EngineConfig(method="ict").score_kwargs()["use_kernels"]
+    # cascade_knobs' use_kernels follows the backend alone; score_kwargs'
+    # also the method's kernel support (bow has none; ict has the all-rows
+    # K4 in the port).
+    assert EngineConfig(method="bow").cascade_knobs()["use_kernels"]
+    assert not EngineConfig(method="bow").score_kwargs()["use_kernels"]
+    assert EngineConfig(method="ict").score_kwargs()["use_kernels"]
 
 
 @pytest.mark.parametrize("method", sorted(jr.METHODS))

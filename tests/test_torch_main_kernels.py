@@ -8,8 +8,9 @@ package on the same numpy inputs: K1's plain version to
 mode, as ``tests/test_torch_kernels.py`` runs it), the fused K2's to
 ``repro.core.lc.pour_blocked`` (jnp path) and to the Pallas
 ``act_phase2_batched`` (interpret mode) on the gathered ladders. On a CUDA
-card the kernels are held to the plain versions, and the fused K2 bitwise
-to the unfused one.
+card the kernels are held to the plain versions, K1 split into query groups
+bitwise to K1 on each query alone, and the fused K2 bitwise to the unfused
+one.
 
 Tolerances: float32 rtol 1e-5 plus atol 1e-6; a bfloat16 Z ladder within
 one bf16 ulp of [1, 2) (2^-7 < 8e-3). Selection indices are compared
@@ -282,6 +283,30 @@ def test_dist_topk_cuda_matches_plain_on_edge_masks(rng, cuda, nq, v, h, m,
     assert torch.equal(sk, sp)
     atol = 1e-5 if out_dtype == torch.float32 else BF16_ATOL
     torch.testing.assert_close(zk.float(), zp.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,v,h,m,k", [
+    (200, 784, 60, 2, 8),           # MNIST width: 7 tiles, 4 queries a group
+    (9, 60_000, 70, 33, 1),         # 469 tiles fill the card: one group
+    (9, 300, 70, 33, 1), (64, 129, 16, 2, 16),
+])
+def test_dist_topk_cuda_query_groups_give_the_same_output(rng, cuda, nq, v,
+                                                          h, m, k):
+    """K1 splits the queries into groups when the vocabulary tiles alone
+    do not fill the card; a query's slots do not depend on its group: a
+    query launched alone (one group) or in the batch's first half gives
+    bitwise its rows of the whole batch's launch."""
+    coords, qcs, qmask = (torch.tensor(a, device=cuda) for a in
+                          _edge_inputs(rng, nq, v, h, m, k))
+    z, s = dist_topk.dist_topk_cuda(coords, qcs, qmask, k)
+    half = nq // 2 + 1
+    zh, sh = dist_topk.dist_topk_cuda(coords, qcs[:half], qmask[:half], k)
+    assert torch.equal(zh, z[:half]) and torch.equal(sh, s[:half])
+    for q in range(nq):
+        zq, sq = dist_topk.dist_topk_cuda(coords, qcs[q:q + 1],
+                                          qmask[q:q + 1], k)
+        assert torch.equal(zq[0], z[q]) and torch.equal(sq[0], s[q]), q
 
 
 @pytest.mark.cuda
