@@ -62,7 +62,24 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
    handoff against the stacked one, with its host sync apart; seconds per
    16-query cascaded search and peak device memory for each ladder
    (under 1 GiB above the resident index for ``tight`` and the rwmd_rev
-   ladder, which no longer build the stacked handoff).
+   ladder, which no longer build the stacked handoff);
+8. the paper's evaluation path: all-pairs LC-RWMD, LC-OMR and LC-ACT-7 with
+   precision@1/4/16 over the 20News-shaped corpus and 60,000 sparse /
+   10,000 dense MNIST-shaped images, each against the reference backend
+   (a 2,000-row prefix whole, its diagonal exactly 0 for LC-RWMD on both
+   backends), the symmetric LC-RWMD search, the full-corpus rwmd_rev and
+   ict searches, K4's all-rows form, and each chunk kernel's time, bound
+   and library yardstick at a 256-row chunk;
+9. the single-query engines (each method's 16 queries one at a time
+   through ``EmdIndex.scores``, K1 at nq=1 and, for LC-ACT, the unfused
+   K2), against the batched rows and the reference backend, with search
+   times; K1 at nq=1 (k = 1, 2, 8) and the unfused K2 at nq=1 timed and
+   held to their plain versions; the scan engine (bitwise a loop of
+   single queries; all-pairs on the prefix); ``bf16_agg`` searches (act-7,
+   rwmd, omr, chain, tight) on both backends against f32 and K1 on
+   bfloat16 coordinates; the prefix's rwmd and rwmd_rev self-distances
+   exactly 0 on both backends; the per-pair relaxations and the exact LP
+   against the engines, and ``wmd_search``.
 
 Any failed check exits non-zero before the last line. The last lines are the
 card's name and power limit, a JSON line of the kernels and
@@ -85,9 +102,11 @@ from repro_torch.api import EmdIndex, EngineConfig  # noqa: E402
 from repro_torch.cascade import (CascadeSpec, CascadeStage,  # noqa: E402
                                  resolve_spec, topk_recall, topk_smallest)
 from repro_torch.cascade import search as cascade_search  # noqa: E402
-from repro_torch.core import lc, retrieval  # noqa: E402
+from repro_torch.core import (histogram, lc, relaxations,  # noqa: E402
+                              retrieval, wmd)
 from repro_torch.configs.emd_20news import CONFIG as NEWS  # noqa: E402
 from repro_torch.configs.emd_mnist import CONFIG as MNIST  # noqa: E402
+from repro_torch.core.emd import emd_exact  # noqa: E402
 from repro_torch.core.lc import Corpus  # noqa: E402
 from repro_torch.core.precision import pad_dist_for  # noqa: E402
 from repro_torch.data.synth import (make_clustered_text,  # noqa: E402
@@ -194,6 +213,22 @@ SIDE, N_CLASSES = 28, 10
 CHANCE_TOL = 0.03
 
 
+# Slice 7 (phase 9): the single-query engines, the scan engine, bf16_agg
+# and the oracles. Every method with its iters, scored one query at a time.
+SINGLE_METHODS = {"act": ITERS, "rwmd": 0, "rwmd_rev": 0, "omr": 0,
+                  "ict": 0, "bow": 0, "wcd": 0}
+#: The single-query engines that launch K1, with its k.
+SINGLE_K = {"act": ITERS + 1, "omr": 2, "rwmd": 1}
+#: bf16_agg against f32: the reference's measured band
+#: (tests/test_precision.py), and the searches held to it.
+AGG_ATOL = 0.4
+AGG_SEARCHES = ("act", "rwmd", "omr", "chain", "tight")
+#: The oracles: queries and their act-7 top rows held to the per-pair
+#: relaxations and the exact LP; wmd_search's queries and top_l.
+ORACLE_QUERIES, ORACLE_TOP, WMD_QUERIES, WMD_TOP = 4, 4, 2, 4
+ORACLE_RTOL = 1e-5
+
+
 def check(cond, msg):
     if not cond:
         print(f"FAIL: {msg}", flush=True)
@@ -222,10 +257,12 @@ def bound_ms(nbytes, flops):
                                        else "operations")
 
 
-def check_dist_topk(coords, qcs, qmask, k, dtype):
-    """K1 against its plain version; returns max |Z - Z_plain|."""
+def check_dist_topk(coords, qcs, qmask, k, dtype, qids=None):
+    """K1 against its plain version (coordinates float32 or bfloat16; with
+    ``qids`` the plain version pins the same-id pairs to 0, which the
+    kernel gives by itself); returns max |Z - Z_plain|."""
     zk, sk = ops.dist_topk_batched(coords, qcs, qmask, k, out_dtype=dtype)
-    zp, sp = dist_topk.dist_topk_plain(coords, qcs, qmask, k, dtype)
+    zp, sp = dist_topk.dist_topk_plain(coords, qcs, qmask, k, dtype, qids)
     torch.cuda.synchronize()
     err = (zk.float() - zp.float()).abs().max().item()
     check(err <= K1_Z_ATOL[dtype],
@@ -241,7 +278,15 @@ def check_dist_topk(coords, qcs, qmask, k, dtype):
     gap = (dk - dp).abs().max().item() if len(q) else 0.0
     check(bool(qmask[q, ck].all()) and gap <= K1_TIE_TOL,
           f"dist_topk k={k} {dtype}: S differs beyond a tie (gap {gap})")
-    print(f"  K1 k={k} {str(dtype):14s} max|dZ|={err:.3g} "
+    if qids is not None:
+        vq, vc = torch.nonzero(qmask, as_tuple=True)
+        own = qids[vq, vc].long()
+        check(bool((zk[vq, own, 0] == 0).all()
+                   and (zp[vq, own, 0] == 0).all()),
+              f"dist_topk k={k} {dtype}: a valid bin's distance to its own "
+              "row is not exactly 0")
+    print(f"  K1 k={k} {str(dtype):14s} coords {str(coords.dtype):14s} "
+          f"max|dZ|={err:.3g} "
           f"S differs at {len(q)} near-tie positions (max gap {gap:.3g})",
           flush=True)
     return err
@@ -579,7 +624,8 @@ def admissible_recall(spec, corpus, q_ids, q_w, i_c, full):
     surv = cascade_search._prune(corpus, q_ids, q_w, spec,
                                  spec.resolve_budgets(corpus.n, TOP_L),
                                  n_valid=None, topk_blocks=1,
-                                 use_kernels=True, block_q=BLOCK_Q,
+                                 engine="batched", use_kernels=True,
+                                 block_q=BLOCK_Q,
                                  precision="f32")
     kept = (full_top[..., None] == surv[:, None, :]).any(-1)
     found = (full_top[..., None] == i_c[:, None, :]).any(-1)
@@ -959,18 +1005,23 @@ def eval_prefix(name, host, labels, dev):
         r = c.with_config(backend="reference")
         S_c, secs_c, _ = timed(c.all_pairs)
         S_r, secs_r, _ = timed(r.all_pairs)
-        # Off the diagonal, which every consumer masks: a row's distance to
-        # itself is exactly 0 through K1, but the reference's float32
-        # product can leave a word's self-distance above the zero snap.
+        # A row's distance to itself is exactly 0 on both backends: K1 by
+        # its FMA order, the reference's float32 product by the same-id pin
+        # of pairwise_dist.
         band = sum_band(S_r, live)
         d = (S_c - S_r).abs()
         err = d[off].max().item()
         diag = d.diagonal().max().item()
-        check(bool((d <= band)[off].all()),
+        check(bool((d <= band).all()),
               f"{name} prefix {method}: cuda vs reference max |d| {err} off "
-              f"the diagonal; {excess(S_c * off, S_r * off, band)}")
+              f"the diagonal, {diag} on it; {excess(S_c, S_r, band)}")
+        zero_diag = (bool((S_c.diagonal() == 0).all()),
+                     bool((S_r.diagonal() == 0).all()))
+        check(method != "rwmd" or all(zero_diag),
+              f"{name} prefix rwmd: a row's distance to itself is not "
+              f"exactly 0 (cuda, reference): {zero_diag}")
         row = dict(seconds=secs_c, reference_seconds=secs_r, max_abs_err=err,
-                   diagonal_err=diag)
+                   diagonal_err=diag, zero_diagonal=zero_diag)
         for l in EVAL_L:
             p_c = c.precision_at_l(lab, l, scores=S_c)
             p_r = r.precision_at_l(lab, l, scores=S_r)
@@ -992,7 +1043,8 @@ def eval_prefix(name, host, labels, dev):
                   f"@{l} {row[f'p@{l}']:.6f}/{row[f'ref_p@{l}']:.6f} "
                   f"({row[f'rows_differ@{l}']} rows differ)" for l in EVAL_L)
               + "; zero off the diagonal (cuda, reference): "
-              f"{row['zero_off_diagonal']}", flush=True)
+              f"{row['zero_off_diagonal']}; diagonal exactly 0: "
+              f"{zero_diag}", flush=True)
     return mats, out
 
 
@@ -1038,15 +1090,23 @@ def chunk_kernel_times(name, host, dev):
             lambda: ops.cand_omr_rows(ids, x, None, Z2, W0),
             rows_bytes(3), 4 * nq * nnz),
     }
+    library = {
+        "dist_topk": lambda: k1_library_ms(corpus.coords, qcs, qmask, k),
+        "cand_pour_rows.all_pour_iters0": lambda: dump_library_ms(
+            ids, x, Z1, cases["cand_pour_rows.all_pour_iters0"][0]()),
+    }
     out = {}
     for kname, (fn, nbytes, flops) in cases.items():
         ms = cuda_ms(fn, reps=5)
         b_ms, b_by = bound_ms(nbytes, flops)
-        out[kname] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        lib_ms = library[kname]() if kname in library else None
+        out[kname] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=lib_ms)
         print(f"phase 8: {name} chunk nq={nq} n={n} v={v} m={m} "
               f"hmax={corpus.hmax} ({nv} valid query bins): {kname} "
               f"{ms:.4f} ms, bound {b_ms:.4f} by {b_by} "
-              f"({nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP)",
+              f"({nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP); library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}",
               flush=True)
     # K1 splits the chunk's queries into groups where its vocabulary tiles
     # do not fill the card; a query launched alone is one group, and its
@@ -1070,6 +1130,65 @@ def chunk_kernel_times(name, host, dev):
     print(f"phase 8: {name} chunk: K1 on {len(alone)} queries launched "
           "alone, bitwise their rows of the chunk's launch", flush=True)
     return out
+
+
+#: Most elements of one group of a library yardstick at an all-pairs chunk
+#: (cdist's (group, v, width) distances; embedding_bag's indices).
+LIB_ELEMS = 1 << 29
+
+
+def k1_library_ms(coords, qcs, qmask, k):
+    """K1's library yardstick at a chunk: ``torch.cdist`` + ``torch.topk``
+    over each query's valid bins (gathered first and padded to the widest
+    query, outside the timed calls), in groups of queries whose (group, v,
+    width) distances stay within LIB_ELEMS floats; the sum of the groups'
+    median times (ms)."""
+    nq, _, m = qcs.shape
+    width = int(qmask.sum(dim=1).max())
+    order = torch.argsort((~qmask).int(), dim=1, stable=True)[:, :width]
+    qv = torch.gather(qcs, 1, order[..., None].expand(-1, -1, m))
+    mv = torch.gather(qmask, 1, order)
+    group = max(1, min(nq, LIB_ELEMS // (coords.shape[0] * width)))
+    total = 0.0
+    for s in range(0, nq, group):
+        qg, mg = qv[s:s + group], mv[s:s + group]
+
+        def call():
+            d = torch.cdist(coords.expand(qg.shape[0], -1, -1), qg)
+            return d.masked_fill_(~mg[:, None, :], 1e30).topk(
+                k, dim=-1, largest=False)
+        total += cuda_ms(call, reps=3, warmup=1)
+    return total
+
+
+def dump_library_ms(ids, x, Z1, want):
+    """The LC-RWMD dump's library yardstick at a chunk (K3's all-rows form
+    at iters 0): ``embedding_bag`` over the (nq v, 1) table of nearest costs
+    with per-slot weights, every row for every query, in groups of queries
+    whose int32 indices (built outside the timed calls) stay within
+    LIB_ELEMS; the sum of the groups' median times (ms). Each group's
+    result is held to the kernel's (``want``)."""
+    nq, v, _ = Z1.shape
+    hmax = ids.shape[1]
+    table = Z1.reshape(-1, 1)
+    group = max(1, min(nq, LIB_ELEMS // ids.numel()))
+    total = 0.0
+    for s in range(0, nq, group):
+        e = min(nq, s + group)
+        offs = torch.arange(s, e, device=ids.device, dtype=torch.int32) * v
+        flat = (ids[None] + offs[:, None, None]).reshape(-1, hmax)
+        wts = x.expand(e - s, -1, -1).reshape(-1, hmax)
+
+        def call():
+            return torch.nn.functional.embedding_bag(
+                flat, table, per_sample_weights=wts, mode="sum")
+        got = call().reshape(e - s, -1)
+        check(torch.allclose(got, want[s:e], rtol=RTOL, atol=ATOL),
+              "the embedding_bag yardstick disagrees with cand_pour_rows at "
+              "a chunk")
+        total += cuda_ms(call, reps=3, warmup=1)
+        del flat, wts, got
+    return total
 
 
 def valid_rows_work(corpus, valid, ops_per_bin, row_ops_per_bin):
@@ -1228,17 +1347,21 @@ def rev_all_pairs_prefix(name, host, prefix_mats, dev, runs):
         got = counts[f"cand_dist_valid.all_{mode}"]
         check(got == chunks, f"all-pairs {method}: {got} all-rows K4 "
               f"launches, not one per chunk ({chunks})")
-        # Off the diagonal: the valid-bin handoff is the reference's
-        # float32 product (see eval_prefix).
         ref = prefix_mats[other]
         tol = sum_band(ref, live)
         off = off_diagonal(S)
         if method == "rwmd_rev":
-            err = (S - ref).abs()[off].max().item()
-            check(bool(((S - ref).abs() <= tol)[off].all()),
-                  f"all-pairs rwmd_rev vs rwmd: max |d| {err} off the "
-                  f"diagonal; {excess(S * off, ref * off, tol)}")
-            note = f"vs rwmd's matrix max|d|={err:.3g} off the diagonal"
+            # The diagonal too: the valid-bin handoff pins a word's
+            # distance to itself to 0 (see eval_prefix).
+            err = (S - ref).abs().max().item()
+            check(bool(((S - ref).abs() <= tol).all()),
+                  f"all-pairs rwmd_rev vs rwmd: max |d| {err}; "
+                  f"{excess(S, ref, tol)}")
+            check(bool((S.diagonal() == 0).all()),
+                  f"{name} prefix all-pairs rwmd_rev: a row's distance to "
+                  "itself is not exactly 0")
+            note = (f"vs rwmd's matrix max|d|={err:.3g}; diagonal exactly "
+                    "0")
         else:
             err = (ref - S)[off].max().item()
             check(bool((S >= ref - tol)[off].all()),
@@ -1387,6 +1510,375 @@ def phase8(host_corpus, labels, corpus, q_ids, q_w, rows, dev):
     return results, k4, runs
 
 
+# --------------------------------------------------------------- phase 9
+
+
+def phase9_single(index, q_ids, q_w, runs):
+    """Phase 9 (a): each method's 16 queries scored one at a time through
+    ``EmdIndex.scores`` (the single-query engines) on the cuda backend,
+    the counts set to 0 before and read after; held against the batched
+    row and the reference backend's single queries; top-16 equal where the
+    reference is separated; search seconds (one query, median of 3) and
+    the peak above the resident; symmetric LC-RWMD on one query."""
+    gib = 2**30
+    out, rows_of_method = {}, {}
+    for method, iters in SINGLE_METHODS.items():
+        ix = index.with_config(method=method, iters=iters)
+        ref = ix.with_config(backend="reference")
+        zero_counts()
+        one, _, peak = timed(lambda: torch.stack(
+            [ix.scores(q_ids[i], q_w[i]) for i in range(NQ)]))
+        runs[f"single.{method}"] = counts = read_counts()
+        want = dict(dist_topk=NQ if method in SINGLE_K else 0,
+                    act_phase2=NQ if method == "act" else 0)
+        check(nonzero(counts) == nonzero(want),
+              f"single {method}: launches {nonzero(counts)}, not "
+              f"{nonzero(want)}")
+        batch = ix.scores(q_ids, q_w)
+        one_r = torch.stack([ref.scores(q_ids[i], q_w[i])
+                             for i in range(NQ)])
+        err_b = (one - batch).abs().max().item()
+        err_r = (one - one_r).abs().max().item()
+        check(torch.allclose(one, batch, rtol=RTOL, atol=ATOL),
+              f"single {method}: vs the batched rows max |d| {err_b}")
+        check(torch.allclose(one, one_r, rtol=RTOL, atol=ATOL),
+              f"single {method}: cuda vs reference max |d| {err_r}")
+        check(bool(torch.isfinite(one).all()) and one.max().item() < 1e3,
+              f"single {method}: a score is not finite or reached the "
+              "sentinel scale")
+        s_r, i_r = retrieval.top_l_smallest(one_r, TOP_L + 1)
+        firm = firm_ranks(s_r[:, :TOP_L], s_r[:, TOP_L])
+        _, i_c = retrieval.top_l_smallest(one, TOP_L)
+        check(bool((i_c == i_r[:, :TOP_L])[firm].all()),
+              f"single {method}: top-{TOP_L} indices differ where the "
+              "reference is separated")
+        secs, search_peak = search_seconds(
+            lambda: ix.search(q_ids[0], q_w[0]))
+        ref_secs, _ = search_seconds(lambda: ref.search(q_ids[0], q_w[0]))
+        out[method] = dict(search_seconds=secs, reference_seconds=ref_secs,
+                           peak_gib=max(peak, search_peak / gib),
+                           batched_err=err_b, reference_err=err_r,
+                           firm=int(firm.sum()), launches=nonzero(counts))
+        rows_of_method[method] = one
+        print(f"phase 9: single {method}-{iters}: {NQ} queries one at a "
+              f"time, vs the batched rows max|d|={err_b:.3g}, vs the "
+              f"reference's single queries max|d|={err_r:.3g}; top-{TOP_L} "
+              f"equal at {int(firm.sum())} separated ranks of "
+              f"{firm.numel()}; search of one query cuda {secs:.4f} s, "
+              f"reference {ref_secs:.4f} s (median of 3); peak above the "
+              f"resident {out[method]['peak_gib']:.3f} GiB; launches "
+              f"{nonzero(counts)}", flush=True)
+    sym = index.with_config(method="rwmd", symmetric=True)
+    zero_counts()
+    s1 = sym.scores(q_ids[0], q_w[0])
+    runs["single.rwmd_symmetric"] = counts = read_counts()
+    err = (s1 - sym.scores(q_ids, q_w)[0]).abs().max().item()
+    check(torch.allclose(s1, sym.scores(q_ids, q_w)[0], rtol=RTOL,
+                         atol=ATOL)
+          and torch.equal(s1, torch.maximum(rows_of_method["rwmd"][0],
+                                            rows_of_method["rwmd_rev"][0])),
+          f"single symmetric rwmd: vs the batched row max |d| {err}, or not "
+          "the max of the two directions")
+    out["rwmd_symmetric"] = dict(batched_err=err, launches=nonzero(counts))
+    print(f"phase 9: single symmetric rwmd: the max of both directions, vs "
+          f"the batched symmetric row max|d|={err:.3g}; launches "
+          f"{nonzero(counts)}", flush=True)
+    return out
+
+
+def phase9_kernels(corpus, q_ids, q_w):
+    """Phase 9 (b): K1 at nq=1 (k = 1, 2, 8) and the unfused K2 at nq=1 on
+    the first query: against their plain versions (K2 also bitwise against
+    the fused K2 at nq=1), times, bounds and, for K1, the library
+    yardstick (cdist + topk over the query's valid bins)."""
+    coords, x, ids = corpus.coords, corpus.w, corpus.ids
+    v, m = coords.shape
+    qi, qw = q_ids[0], q_w[0]
+    qc, qmask = coords[qi], qw > 0
+    nv = int(qmask.sum())
+    out = {}
+    for k in (1, 2, ITERS + 1):
+        err = check_dist_topk(coords, qc[None], qmask[None], k,
+                              torch.float32, qi[None])
+        ms = cuda_ms(lambda: ops.dist_topk(coords, qc, qmask, k), reps=20)
+        plain = cuda_ms(lambda: dist_topk.dist_topk_plain(
+            coords, qc[None], qmask[None], k, qids=qi[None]), reps=3)
+        # The library on the valid bins, padded with masked ones to k.
+        cols = torch.argsort((~qmask).int(), stable=True)[:max(nv, k)]
+        qv, mv = qc[cols], qmask[cols]
+        lib = cuda_ms(lambda: torch.cdist(coords, qv).masked_fill_(
+            ~mv[None], 1e30).topk(k, dim=-1, largest=False), reps=5)
+        nbytes = 4 * (coords.numel() + qc.numel()) + qmask.numel() \
+            + 8 * v * k
+        b_ms, b_by = bound_ms(nbytes, 2.0 * v * m * nv)
+        out[f"dist_topk.nq1.k{k}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib)
+        print(f"phase 9: K1 nq=1 k={k} ({nv} valid bins of query row "
+              f"0 of the batch): {ms:.4f} ms, plain {plain:.3f}, library "
+              f"(cdist + topk) {lib:.4f}, bound "
+              f"{b_ms:.4f} by {b_by}", flush=True)
+    Z, S = ops.dist_topk(coords, qc, qmask, ITERS + 1, qids=qi)
+    W = qw[S.long()]
+    zg, wg = Z[ids], W[:, :ITERS][ids]
+    t = ops.act_phase2(x, zg, wg)
+    tf = ops.act_phase2_gather(x, ids, Z[None].contiguous(),
+                               W[None].contiguous())[0]
+    tp = act_phase2.act_phase2_plain(x, zg[None], wg[None])[0]
+    torch.cuda.synchronize()
+    err = (t - tp).abs().max().item()
+    check(torch.equal(t, tf), "K2 nq=1: not bitwise the fused K2 at nq=1 "
+          f"(max |d| {(t - tf).abs().max().item()})")
+    check(torch.allclose(t, tp, rtol=RTOL, atol=ATOL),
+          f"K2 nq=1: max |dt| {err} from its plain version")
+    ms = cuda_ms(lambda: ops.act_phase2(x, zg, wg), reps=20)
+    plain = cuda_ms(lambda: act_phase2.act_phase2_plain(x, zg[None],
+                                                        wg[None]), reps=3)
+    nnz = int((x > 0).sum())
+    b_ms, b_by = bound_ms(4 * x.numel() + 4 * nnz * (2 * ITERS + 1)
+                          + 4 * corpus.n, 5.0 * nnz * (ITERS + 1))
+    out["act_phase2.nq1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None)
+    print(f"phase 9: K2 nq=1 iters={ITERS} on the gathered ladders: bitwise "
+          f"the fused K2 at nq=1, max|dt| vs plain {err:.3g}; {ms:.4f} ms, "
+          f"plain {plain:.3f}, bound {b_ms:.4f} by {b_by}", flush=True)
+    return out
+
+
+def phase9_scan(host_corpus, corpus, q_ids, q_w, dev, runs):
+    """Phase 9 (c): the scan engine, bitwise a loop of query_scores and
+    within tolerance of the batched engine on the 16 queries; all-pairs
+    LC-ACT-7 through it on the PREFIX-row prefix against the batched
+    matrix within the all-pairs band."""
+    kw = dict(method="act", iters=ITERS, use_kernels=True)
+    zero_counts()
+    scan = retrieval.batch_scores(corpus, q_ids, q_w, engine="scan", **kw)
+    runs["scan.act"] = counts = read_counts()
+    loop = torch.stack([retrieval.query_scores(corpus, q_ids[i], q_w[i],
+                                               **kw) for i in range(NQ)])
+    batched = retrieval.batch_scores(corpus, q_ids, q_w, **kw)
+    err = (scan - batched).abs().max().item()
+    check(torch.equal(scan, loop), "scan engine: not bitwise the loop of "
+          "query_scores")
+    check(torch.allclose(scan, batched, rtol=RTOL, atol=ATOL),
+          f"scan engine: vs the batched engine max |d| {err}")
+    index = EmdIndex.build(prefix_corpus(host_corpus, PREFIX),
+                           EngineConfig(method="act", iters=ITERS),
+                           device=dev)
+    live = (index.corpus.w > 0).sum(dim=1)
+    S_b, secs_b, _ = timed(index.all_pairs)
+    zero_counts()
+    S_s, secs_s, peak = timed(index.with_config(
+        batch_engine="scan").all_pairs)
+    runs["all_pairs.scan_prefix.act"] = ap_counts = read_counts()
+    ap_err = (S_s - S_b).abs().max().item()
+    band = sum_band(S_b, live)
+    check(bool(((S_s - S_b).abs() <= band).all()),
+          f"all-pairs scan vs batched: {excess(S_s, S_b, band)}")
+    print(f"phase 9: scan engine act-{ITERS}, {NQ} queries: bitwise the "
+          f"loop of query_scores, vs batched max|d|={err:.3g}; launches "
+          f"{nonzero(counts)}; all-pairs prefix n={PREFIX} scan "
+          f"{secs_s:.3f} s (batched {secs_b:.3f} s), vs the batched matrix "
+          f"max|d|={ap_err:.3g}, peak {peak:.3f} GiB; launches "
+          f"{nonzero(ap_counts)}", flush=True)
+    return dict(batched_err=err, all_pairs_err=ap_err,
+                all_pairs_seconds=secs_s, batched_all_pairs_seconds=secs_b)
+
+
+def omr_overlap_flips(corpus, q_ids, q_w):
+    """(nq, n): rows with a live slot whose nearest cost is exactly 0 under
+    the plain f32 Phase 1 and not under bf16_agg's, or the other way round:
+    LC-OMR's overlap test (float32 pins a word's distance to itself to 0,
+    bf16_agg's bfloat16 operands leave a residue there)."""
+    zero = [lc.phase1_batched(corpus.coords, q_ids, q_w, 2, precision=p)[0]
+            [..., 0] == 0 for p in ("f32", "bf16_agg")]
+    flip = (zero[0] != zero[1])[:, corpus.ids]          # (nq, n, hmax)
+    return (flip & (corpus.w > 0)).any(dim=-1)
+
+
+def phase9_agg(index, corpus, q_ids, q_w, runs):
+    """Phase 9 (d): bf16_agg searches (act-7, rwmd, omr, chain, tight) on
+    both backends against the f32 ones: scores within AGG_ATOL (plain
+    LC-OMR: beyond it only where the overlap test flips), the top-16
+    overlap, times and the peak above the resident; and K1 on bfloat16
+    coordinates against its plain version on the batch."""
+    gib = 2**30
+    out = {}
+    for name in AGG_SEARCHES:
+        cascade = name in CASCADES
+        cfg = ({} if cascade else
+               dict(method=name, iters=ITERS if name == "act" else 0))
+        for backend in ("cuda", "reference"):
+            f32 = index.with_config(backend=backend, **cfg)
+            agg = f32.with_config(precision="bf16_agg")
+            kw = dict(cascade=name) if cascade else {}
+            zero_counts()
+            s_a, i_a = agg.search(q_ids, q_w, **kw)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if backend == "cuda":
+                runs[f"bf16_agg.{name}"] = counts
+                check(counts["dist_topk"] > 0, f"bf16_agg {name}: K1 was "
+                      "not launched")
+            s_f, i_f = f32.search(q_ids, q_w, **kw)
+            if cascade:
+                got, want = s_a, s_f
+            else:
+                got, want = agg.scores(q_ids, q_w), f32.scores(q_ids, q_w)
+            beyond = (got - want).abs() > AGG_ATOL
+            if name == "omr" and backend == "reference":
+                beyond &= ~omr_overlap_flips(corpus, q_ids, q_w)
+            err = (got - want).abs().max().item()
+            check(not bool(beyond.any()), f"bf16_agg {name} {backend}: "
+                  f"max |d| {err} from f32 beyond {AGG_ATOL}")
+            overlap = retrieval.topl_overlap(i_a, i_f)
+            secs, peak = search_seconds(lambda: agg.search(q_ids, q_w, **kw))
+            out[f"{name}.{backend}"] = dict(
+                max_abs_err=err, topl_overlap=overlap, seconds=secs,
+                peak_gib=peak / gib, launches=nonzero(counts))
+            print(f"phase 9: bf16_agg {name} {backend}: vs f32 max|d|="
+                  f"{err:.3g}, top-{TOP_L} overlap {overlap:.4f}; search "
+                  f"{secs:.4f} s, peak above the resident {peak / gib:.3f} "
+                  f"GiB; launches {nonzero(counts)}", flush=True)
+    cb = corpus.coords.to(torch.bfloat16)
+    qcs, qmask = cb[q_ids], q_w > 0
+    err = max(check_dist_topk(cb, qcs, qmask, k, dtype, q_ids)
+              for k in (ITERS + 1, 2, 1)
+              for dtype in (torch.float32, torch.bfloat16))
+    k = ITERS + 1
+    ms = cuda_ms(lambda: ops.dist_topk_batched(cb, qcs, qmask, k))
+    plain = cuda_ms(lambda: dist_topk.dist_topk_plain(cb, qcs, qmask, k,
+                                                      qids=q_ids), reps=3)
+    nv = int(qmask.sum())
+    b_ms, b_by = bound_ms(2 * (cb.numel() + qcs.numel()) + qmask.numel()
+                          + 8 * NQ * corpus.v * k,
+                          2.0 * corpus.v * corpus.m * nv)
+    out["dist_topk.bf16_coords"] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain, bound_ms=b_ms,
+                                        bound_by=b_by, library_ms=None)
+    print(f"phase 9: K1 on bfloat16 coordinates k={k}, the batch: {ms:.4f} "
+          f"ms, plain {plain:.3f}, bound {b_ms:.4f} by {b_by}", flush=True)
+    return out
+
+
+def phase9_zeros(host_corpus, dev):
+    """Phase 9 (e): the PREFIX-row prefix's diagonal for rwmd and rwmd_rev
+    on both backends, a row's distance to itself, through the candidate
+    engines with each row as its own candidate (phase 8 holds the
+    all-pairs matrices' diagonals): exactly 0."""
+    pre = prefix_corpus(host_corpus, PREFIX).to(dev)
+    out = {}
+    for backend, use_kernels in (("cuda", True), ("reference", False)):
+        chunk = retrieval.all_pairs_chunk(pre, use_kernels)
+        for method in ("rwmd", "rwmd_rev"):
+            d = torch.cat([retrieval.cand_scores(
+                pre, pre.ids[s:s + chunk], pre.w[s:s + chunk],
+                torch.arange(s, min(s + chunk, PREFIX), device=dev)[:, None],
+                method=method, use_kernels=use_kernels)[:, 0]
+                for s in range(0, PREFIX, chunk)])
+            nz = int((d != 0).sum())
+            check(nz == 0, f"prefix {method} {backend}: {nz} rows at a "
+                  f"non-zero distance to themselves (max {d.max().item()})")
+            out[f"{method}.{backend}"] = nz
+    print(f"phase 9: the {PREFIX}-row prefix: every row's rwmd and rwmd_rev "
+          "distance to itself exactly 0 on both backends", flush=True)
+    return out
+
+
+def phase9_oracles(corpus, q_ids, q_w, rows, runs):
+    """Phase 9 (f): the ORACLE_QUERIES queries with the fewest valid bins
+    (the exact LP's size grows with the product of the two lengths) and
+    their act-7 top ORACLE_TOP rows: per pair rwmd_dir <= omr_dir <=
+    act_dir(7) <= ict_dir <= emd_exact, each within ORACLE_RTOL, and each
+    relaxation equal to the single-query engine's score of the pair; then
+    wmd_search for WMD_QUERIES of them at top_l=WMD_TOP, whose exact
+    distances must not fall below the act-7 bound."""
+    n_valid = (q_w > 0).sum(dim=1)
+    picks = torch.argsort(n_valid, stable=True)[:ORACLE_QUERIES].tolist()
+    fns = (("rwmd", relaxations.rwmd_dir, {}),
+           ("omr", relaxations.omr_dir, {}),
+           ("act", relaxations.act_dir, {"iters": ITERS}),
+           ("ict", relaxations.ict_dir, {}))
+    pairs, worst, lp_secs = 0, 0.0, 0.0             # worst: max |d|
+    act_rows = {}
+    for qn in picks:
+        qi, qw = q_ids[qn], q_w[qn]
+        eng = {"rwmd": lc.lc_rwmd_scores(corpus, qi, qw, use_kernels=True),
+               "omr": lc.lc_omr_scores(corpus, qi, qw, use_kernels=True),
+               "act": lc.lc_act_scores(corpus, qi, qw, ITERS,
+                                       use_kernels=True),
+               "ict": lc.lc_ict_scores(corpus, qi, qw)}
+        act_rows[qn] = eng["act"]
+        top = retrieval.top_l_smallest(eng["act"], ORACLE_TOP)[1].tolist()
+        for u in top:
+            p, q, C = histogram.pair_from_corpus(corpus, u, int(rows[qn]))
+            kp, kq = p > 0, q > 0
+            p, q, C = p[kp], q[kq], C[kp][:, kq]
+            vals = [float(fn(p, q, C, **kw)) for _, fn, kw in fns]
+            t0 = time.perf_counter()
+            vals.append(emd_exact(p.cpu(), q.cpu(), C.cpu()))
+            lp_secs += time.perf_counter() - t0
+            for lo, hi in zip(vals, vals[1:]):
+                check(lo <= hi * (1 + ORACLE_RTOL) + ATOL,
+                      f"oracles query {qn} row {u}: the chain breaks, "
+                      f"{vals}")
+            for (name, _, _), val in zip(fns, vals):
+                e = float(eng[name][u])
+                worst = max(worst, abs(val - e))
+                check(abs(val - e) <= ORACLE_RTOL * abs(e) + ATOL,
+                      f"oracles query {qn} row {u}: {name}_dir {val} vs the "
+                      f"engine's {e}")
+            pairs += 1
+    wmd_out = []
+    zero_counts()
+    for qn in picks[:WMD_QUERIES]:
+        t0 = time.perf_counter()
+        d, i = wmd.wmd_search(corpus, int(rows[qn]), WMD_TOP)
+        secs = time.perf_counter() - t0
+        bound = act_rows[qn][torch.as_tensor(i, device=corpus.device)]
+        check(bool((torch.as_tensor(d, device=corpus.device,
+                                    dtype=torch.float32)
+                    >= bound * (1 - ORACLE_RTOL) - ATOL).all()),
+              f"wmd_search query {qn}: an exact distance below its act-"
+              f"{ITERS} bound")
+        wmd_out.append(dict(query=int(rows[qn]), seconds=secs,
+                            ids=i.tolist(), exact=d.tolist()))
+        print(f"phase 9: wmd_search of row {int(rows[qn])} top-{WMD_TOP}: "
+              f"{secs:.3f} s, rows {i.tolist()}, exact {np.round(d, 6)}",
+              flush=True)
+    runs["wmd"] = read_counts()
+    print(f"phase 9: oracles on {pairs} pairs ({ORACLE_QUERIES} queries with "
+          f"{n_valid[picks].tolist()} valid bins, their act-{ITERS} top "
+          f"{ORACLE_TOP}): rwmd <= omr <= act-{ITERS} <= ict <= emd each "
+          f"within {ORACLE_RTOL}; each relaxation vs the engine's score "
+          f"max|d|={worst:.3g}; the {pairs} LPs {lp_secs:.2f} s",
+          flush=True)
+    return dict(pairs=pairs, max_abs_err=worst, lp_seconds=lp_secs,
+                wmd=wmd_out)
+
+
+def phase9(host_corpus, corpus, q_ids, q_w, rows, dev):
+    """Phase 9: the single-query engines, the scan engine, bf16_agg, the
+    exact zeros and the oracles. Returns its numbers, those of the kernels
+    it times and the launch counts of its runs."""
+    t_start = time.perf_counter()
+    runs = {}
+    index = EmdIndex.build(corpus, EngineConfig(top_l=TOP_L), device=dev)
+    results = {}
+    results["single"] = phase9_single(index, q_ids, q_w, runs)
+    kernels = phase9_kernels(corpus, q_ids, q_w)
+    results["scan"] = phase9_scan(host_corpus, corpus, q_ids, q_w, dev, runs)
+    agg = phase9_agg(index, corpus, q_ids, q_w, runs)
+    kernels["dist_topk.bf16_coords"] = agg.pop("dist_topk.bf16_coords")
+    results["bf16_agg"] = agg
+    results["zeros"] = phase9_zeros(host_corpus, dev)
+    results["oracles"] = phase9_oracles(corpus, q_ids, q_w, rows, runs)
+    results["seconds"] = time.perf_counter() - t_start
+    print(f"phase 9: done in {results['seconds']:.1f} s", flush=True)
+    return results, kernels, runs
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
 
@@ -1441,7 +1933,7 @@ def main():
               f"{mask.sum(dim=1).tolist()}", flush=True)
         for k in (ITERS + 1, 2, 1):
             for dtype in (torch.float32, torch.bfloat16):
-                err = check_dist_topk(coords, qcs, mask, k, dtype)
+                err = check_dist_topk(coords, qcs, mask, k, dtype, q_ids)
                 if (mask_name == "batch" and k == ITERS + 1
                         and dtype == torch.float32):
                     k1_err = err
@@ -1766,6 +2258,10 @@ def main():
     p8, k4_rows, p8_runs = phase8(host_corpus, labels, corpus, q_ids, q_w,
                                   rows, dev)
 
+    # Phase 9: the single-query engines, the scan engine and bf16_agg.
+    p9, p9_kernels, p9_runs = phase9(host_corpus, corpus, q_ids, q_w, rows,
+                                     dev)
+
     def chunk_times(kname):
         """The kernel's times at the first all-pairs chunk of each
         corpus."""
@@ -1785,7 +2281,9 @@ def main():
         {"name": "act_phase2", "route": "cuda",
          "source": "src/repro_torch/csrc/act_phase2.cu",
          "replaces": "src/repro/kernels/act_phase2.py:73",
-         "launches": launches["act"]["act_phase2"], "max_abs_err": k2_err,
+         "launches": sum(c["act_phase2"] for c in (*launches.values(),
+                                                   *p9_runs.values())),
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "act_phase2_gather", "route": "cuda",
@@ -1821,7 +2319,28 @@ def main():
             "launches_by_search": {p: c[name] for p, c in runs.items()
                                    if c[name]},
             "library_ms": None, **t})
+    # Phase 9's kernels: K1 and the unfused K2 at nq=1 on the single-query
+    # path, and K1 on bfloat16 coordinates under bf16_agg.
+    p9_launches = {
+        "dist_topk.nq1.k1": p9_runs["single.rwmd"]["dist_topk"],
+        "dist_topk.nq1.k2": p9_runs["single.omr"]["dist_topk"],
+        f"dist_topk.nq1.k{ITERS + 1}": p9_runs["single.act"]["dist_topk"],
+        "act_phase2.nq1": p9_runs["single.act"]["act_phase2"],
+        "dist_topk.bf16_coords": sum(p9_runs[f"bf16_agg.{name}"]["dist_topk"]
+                                     for name in AGG_SEARCHES),
+    }
+    for name, t in p9_kernels.items():
+        base = name.split(".")[0]
+        check(p9_launches[name] > 0, f"{name} was never launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{base}.cu",
+            "replaces": ("src/repro/kernels/dist_topk.py:121"
+                         if base == "dist_topk"
+                         else "src/repro/kernels/act_phase2.py:73"),
+            "launches": p9_launches[name], **t})
     print(json.dumps({"phase8": p8}))
+    print(json.dumps({"phase9": p9}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

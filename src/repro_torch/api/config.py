@@ -10,8 +10,8 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.cascade.spec import CascadeSpec, resolve_spec
-from repro_torch.core.precision import POLICIES, UNPORTED_POLICIES
-from repro_torch.core.retrieval import METHODS
+from repro_torch.core.precision import POLICIES
+from repro_torch.core.retrieval import ENGINES, METHODS
 
 #: ``reference`` runs plain PyTorch ops; ``cuda`` the hand-written kernels
 #: (the counterpart of the JAX package's ``pallas``).
@@ -20,14 +20,13 @@ BACKENDS = ("reference", "cuda")
 #: JAX ``EngineConfig`` values this package does not run yet.
 _UNPORTED_VALUES = {
     "backend": ("pallas", "distributed"),
-    "precision": UNPORTED_POLICIES,
 }
 
 #: JAX ``EngineConfig`` fields this package does not run yet: tile knobs
-#: of the Pallas kernels, the scan engine, the mesh and the autotuner. Each
-#: keeps its JAX default.
-_UNPORTED_FIELDS = ("batch_engine", "block_v", "block_h", "block_n",
-                    "rev_block", "pad_multiple", "autotune", "tune_cache")
+#: of the Pallas kernels, the mesh and the autotuner. Each keeps its JAX
+#: default.
+_UNPORTED_FIELDS = ("block_v", "block_h", "block_n", "rev_block",
+                    "pad_multiple", "autotune", "tune_cache")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,13 +41,23 @@ class EngineConfig:
                other methods).
     backend:   ``cuda`` (default; the CUDA kernels, or their plain versions
                on an index built on the CPU) or ``reference`` (PyTorch ops).
+               The JAX package's ``pallas`` is ``cuda`` here;
+               ``distributed`` is not yet ported.
     top_l:     default neighbour count for ``EmdIndex.search``.
     block_q:   queries gathered and poured per Phase-2 block.
-    precision: ``f32`` or ``bf16`` (bfloat16 handoff ladders, float32
-               matmul and accumulators).
+    precision: ``f32``, ``bf16`` (bfloat16 handoff ladders, float32 matmul
+               and accumulators) or ``bf16_agg`` (bfloat16 handoffs and
+               matmul operands, float32 accumulators). It applies to the
+               batched engines and the cascade; a single query runs float32
+               (the single-query engines are the full-precision oracle).
     symmetric: score the paper's symmetric measure, the max of both
                directions (a method with a reverse direction: rwmd or
                rwmd_rev; bow and wcd are symmetric already).
+    batch_engine: how ``EmdIndex.scores`` scores a batch: ``batched``
+               (default; Phase 1 once for the whole batch) or ``scan`` (a
+               loop of the single-query engine, bitwise equal to scoring
+               each query alone; for verification). A single query always
+               takes the single-query engine.
     cascade:   ``None`` (full-corpus search), a ``CascadeSpec`` or a preset
                name of ``repro_torch.cascade.CASCADES``: ``search`` then
                runs the prune-and-rescore ladder.
@@ -92,6 +101,9 @@ class EngineConfig:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of "
                              f"{BACKENDS}")
+        if self.batch_engine not in ENGINES:
+            raise ValueError(f"unknown batch_engine {self.batch_engine!r}; "
+                             f"one of {ENGINES}")
         if self.precision not in POLICIES:
             raise ValueError(f"unknown precision policy {self.precision!r}; "
                              f"one of {sorted(POLICIES)}")
@@ -121,7 +133,8 @@ class EngineConfig:
         return self.iters if self.spec.uses_iters else 0
 
     def score_kwargs(self) -> dict:
-        """Keyword arguments of ``retrieval.batch_scores``."""
+        """Keyword arguments of ``retrieval.query_scores`` and
+        ``retrieval.batch_scores``."""
         return dict(method=self.method, iters=self.effective_iters,
                     use_kernels=(self.backend == "cuda"
                                  and self.spec.supports_kernels),

@@ -9,7 +9,11 @@ batches, on one device.
     p = index.precision_at_l(labels, 8)        # corpus-as-queries
 
 The index lives on a CUDA device unless the caller asks for the CPU. A
-single query runs as a batch of one through the batched engine.
+single query runs through the single-query engine
+(``retrieval.query_scores``, float32 whatever the precision policy), a
+batch through ``retrieval.batch_scores`` with ``config.batch_engine``:
+``batched`` (Phase 1 once per batch) or ``scan`` (a loop of the
+single-query engine), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -96,13 +100,16 @@ class EmdIndex:
 
     def scores(self, q_ids, q_w) -> torch.Tensor:
         """Directional bound of every database row vs the query/queries:
-        ``(h,)`` -> ``(n,)``, ``(nq, h)`` -> ``(nq, n)``. Lower = more
+        ``(h,)`` -> ``(n,)`` through the single-query engine, ``(nq, h)``
+        -> ``(nq, n)`` through ``config.batch_engine``. Lower = more
         similar."""
         qi, qw, single = self._check_queries(q_ids, q_w)
-        s = retrieval.batch_scores(self.corpus, qi, qw,
-                                   symmetric=self.config.symmetric,
-                                   **self.config.score_kwargs())
-        return s[0] if single else s
+        kw = dict(symmetric=self.config.symmetric,
+                  **self.config.score_kwargs())
+        if single:
+            return retrieval.query_scores(self.corpus, qi[0], qw[0], **kw)
+        return retrieval.batch_scores(self.corpus, qi, qw,
+                                      engine=self.config.batch_engine, **kw)
 
     def search(self, q_ids, q_w, top_l: int | None = None, *,
                cascade=None):
@@ -127,6 +134,7 @@ class EmdIndex:
                 "for a cascade in the config)")
         qi, qw, single = self._check_queries(q_ids, q_w)
         res = cascade_search(self.corpus, qi, qw, cascade, top_l,
+                             engine=self.config.batch_engine,
                              **self.config.cascade_knobs())
         if single:
             return res.scores[0], res.indices[0]
@@ -137,6 +145,7 @@ class EmdIndex:
         evaluation mode; feed to :meth:`precision_at_l`), scored in chunks
         of corpus rows and symmetrized in place."""
         return retrieval.all_pairs_scores(self.corpus,
+                                          engine=self.config.batch_engine,
                                           **self.config.score_kwargs())
 
     def _matrix(self, scores) -> torch.Tensor:

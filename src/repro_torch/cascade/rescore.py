@@ -64,8 +64,9 @@ def sinkhorn_cand(corpus: lc.Corpus, Q_ids: torch.Tensor, Q_w: torch.Tensor,
     1e30 cost would blow up the dual updates.
     """
     nq, h = Q_ids.shape
-    qc = corpus.coords[Q_ids.reshape(-1)]                # (nq*h, m)
-    Dq = pairwise_dist(corpus.coords, qc).reshape(corpus.v, nq, h)
+    flat = Q_ids.reshape(-1)
+    Dq = pairwise_dist(corpus.coords, corpus.coords[flat],
+                       b_ids=flat).reshape(corpus.v, nq, h)
     Dq = Dq.movedim(1, 0)                                # (nq, v, h)
 
     def blk(Db, Wb, cb):                     # (bq, v, h), (bq, h), (bq, b)
@@ -91,8 +92,8 @@ def emd_cand_host(corpus: lc.Corpus, Q_ids, Q_w, cand, **_) -> np.ndarray:
         vq = Q_w[u] > 0.0
         if not vq.any():
             continue                                    # padding query
-        qc = coords[torch.from_numpy(Q_ids[u][vq]).long()]
-        D = pairwise_dist(coords, qc).numpy()           # (v, h_valid)
+        qi = torch.from_numpy(Q_ids[u][vq]).long()
+        D = pairwise_dist(coords, coords[qi], b_ids=qi).numpy()  # (v, h')
         for j in range(b):
             r = cand[u, j]
             vr = w[r] > 0.0

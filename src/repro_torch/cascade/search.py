@@ -61,12 +61,13 @@ def stage_rows(spec: CascadeSpec, n: int, top_l: int) -> dict[str, int]:
 
 def _prune(corpus: lc.Corpus, Q_ids: torch.Tensor, Q_w: torch.Tensor,
            spec: CascadeSpec, budgets: tuple[int, ...], *, n_valid,
-           topk_blocks, **knobs) -> torch.Tensor:
+           topk_blocks, engine, **knobs) -> torch.Tensor:
     """Run the pruning ladder; returns the (nq, budgets[-1]) global row
-    ids surviving every stage."""
+    ids surviving every stage. Stage 1 scores the full corpus with the
+    ``engine`` of ``retrieval.batch_scores``."""
     first = spec.stages[0]
     s = retrieval.batch_scores(corpus, Q_ids, Q_w, method=first.method,
-                               iters=first.iters, **knobs)
+                               iters=first.iters, engine=engine, **knobs)
     _, cand = topk_smallest(lc.mask_pad_rows(s, n_valid), budgets[0],
                             topk_blocks)
     for stage, b in zip(spec.stages[1:], budgets[1:], strict=True):
@@ -81,16 +82,20 @@ def _prune(corpus: lc.Corpus, Q_ids: torch.Tensor, Q_w: torch.Tensor,
 def cascade_search(corpus: lc.Corpus, Q_ids: torch.Tensor,
                    Q_w: torch.Tensor, spec: CascadeSpec | str, top_l: int,
                    *, n_valid: int | None = None, topk_blocks: int = 1,
-                   use_kernels: bool = False, block_q: int = 8,
-                   precision: str = "f32") -> CascadeResult:
+                   engine: str = "batched", use_kernels: bool = False,
+                   block_q: int = 8, precision: str = "f32") -> CascadeResult:
     """Cascaded top-l search of a ``(nq, h)`` query batch.
 
     ``spec`` is a :class:`~repro_torch.cascade.spec.CascadeSpec` or a
     preset name from :data:`~repro_torch.cascade.spec.CASCADES`.
     ``n_valid`` keeps zero-weight pad rows beyond it out of candidacy.
-    ``use_kernels`` sends stage 1 through the Phase-1/2 kernels and every
-    candidate stage and device rescorer of the LC methods through the
-    candidate kernels (``kernels/cand_pour``).
+    ``engine`` is stage 1's ``retrieval.batch_scores`` engine (``scan``
+    scores it one query at a time, float32). ``use_kernels`` sends stage 1
+    through the Phase-1/2 kernels and every candidate stage and device
+    rescorer of the LC methods through the candidate kernels
+    (``kernels/cand_pour``). ``precision`` reaches every stage and device
+    rescorer (under ``bf16_agg`` the kernels' coordinates are bfloat16 and
+    the distance handoffs' products have bfloat16 operands).
     """
     spec = resolve_spec(spec)
     knobs = dict(use_kernels=use_kernels, block_q=block_q,
@@ -100,7 +105,7 @@ def cascade_search(corpus: lc.Corpus, Q_ids: torch.Tensor,
     n = n_valid if n_valid is not None else corpus.n
     budgets = spec.resolve_budgets(n, top_l)
     cand = _prune(corpus, Q_ids, Q_w, spec, budgets, n_valid=n_valid,
-                  topk_blocks=topk_blocks, **knobs)
+                  topk_blocks=topk_blocks, engine=engine, **knobs)
     resc = rescore.resolve(spec.rescorer)
     if resc.jittable:
         rescored = resc.fn(corpus, Q_ids, Q_w, cand,

@@ -62,12 +62,14 @@ def images_to_corpus(images: np.ndarray, include_background: bool) -> Corpus:
 
 def pair_from_corpus(corpus: Corpus, a: int, b: int):
     """(p, q, C) of rows a and b: their weights and the (hmax, hmax) cost
-    matrix between their bins, the dense per-pair view of the oracles.
-    Costs between padding slots are raised to the largest real cost + 1:
+    matrix between their bins, the dense per-pair view of the oracles; two
+    bins of the same vocabulary id cost exactly 0. Costs between padding
+    slots are raised to the largest real cost + 1:
     a zero-cost overlap with pad id 0 must not help."""
     w_a, w_b = corpus.w[a], corpus.w[b]
-    C = pairwise_dist(corpus.coords[corpus.ids[a].long()],
-                      corpus.coords[corpus.ids[b].long()])
+    ids_a, ids_b = corpus.ids[a].long(), corpus.ids[b].long()
+    C = pairwise_dist(corpus.coords[ids_a], corpus.coords[ids_b],
+                      a_ids=ids_a, b_ids=ids_b)
     valid = (w_a[:, None] > 0) & (w_b[None, :] > 0)
     C = torch.where(valid, C, torch.max(torch.where(valid, C, 0.0)) + 1.0)
     return w_a, w_b, C

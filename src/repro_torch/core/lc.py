@@ -1,6 +1,6 @@
-"""LC-EMD engines (paper Section 5), in PyTorch: batched LC-ACT, LC-RWMD
-(both directions), LC-OMR and LC-ICT, and their candidate-compacted forms
-for the cascade.
+"""LC-EMD engines (paper Section 5), in PyTorch: LC-ACT, LC-RWMD (both
+directions), LC-OMR and LC-ICT, single-query and batched, and the batched
+ones' candidate-compacted forms for the cascade.
 
 A query batch (nq, h) is scored against ``n`` database histograms over a
 shared vocabulary of ``v`` coordinates in R^m:
@@ -198,6 +198,17 @@ def streaming_smallest_k(D: torch.Tensor, k: int, chunk: int = 512):
 DEDUP_STACK_RATIO = 4
 
 
+def _stack_ids(v: int, Q_ids: torch.Tensor):
+    """The vocabulary ids of the Phase-1 columns and the inverse map of
+    :func:`stack_query_bins` (the ids of every slot, or the distinct ids
+    when nq*h >= DEDUP_STACK_RATIO * v)."""
+    flat = Q_ids.reshape(-1)
+    if flat.numel() < DEDUP_STACK_RATIO * v:
+        return flat, None
+    uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
+    return uniq, inv.reshape(-1)
+
+
 def stack_query_bins(coords: torch.Tensor, Q_ids: torch.Tensor):
     """Phase-1 column stacking with duplicate-bin dedup.
 
@@ -207,24 +218,31 @@ def stack_query_bins(coords: torch.Tensor, Q_ids: torch.Tensor):
     (qc, inv) with ``inv`` None on the no-dedup path. Unlike the JAX
     version the deduped stack is not padded to the static size v.
     """
-    nq, h = Q_ids.shape
-    flat = Q_ids.reshape(-1)
-    if nq * h < DEDUP_STACK_RATIO * coords.shape[0]:
-        return coords[flat], None
-    uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
-    return coords[uniq], inv.reshape(-1)
+    cols, inv = _stack_ids(coords.shape[0], Q_ids)
+    return coords[cols], inv
+
+
+def _vocab_dist(coords: torch.Tensor, cols: torch.Tensor,
+                policy) -> torch.Tensor:
+    """(v, len(cols)) distances of the vocabulary to its rows ``cols``,
+    the product's operands in the policy's compute dtype; a column's
+    distance to its own row is exactly 0 under float32 compute
+    (``pairwise_dist``'s same-id pin)."""
+    return pairwise_dist(coords, coords[cols],
+                         compute_dtype=policy.compute_dtype, b_ids=cols)
 
 
 def phase1_stacked_dist(coords: torch.Tensor, Q_ids: torch.Tensor,
                         Q_w: torch.Tensor, precision: str = "f32"):
     """Stacked Phase-1 distance tensor of the whole query batch: one
-    (v, nq*h) matmul, viewed query-major as (v, nq, h). Padding query slots
-    (weight 0) are masked to the storage dtype's sentinel, and the tensor
-    is returned in the policy's storage dtype."""
+    (v, nq*h) matmul, viewed query-major as (v, nq, h). The matmul's
+    operands run in the policy's compute dtype (float32 sums either way).
+    Padding query slots (weight 0) are masked to the storage dtype's
+    sentinel, and the tensor is returned in the policy's storage dtype."""
     policy = resolve_precision(precision)
     nq, h = Q_ids.shape
-    qc, inv = stack_query_bins(coords, Q_ids)
-    D = pairwise_dist(coords, qc)
+    cols, inv = _stack_ids(coords.shape[0], Q_ids)
+    D = _vocab_dist(coords, cols, policy)
     if inv is not None:
         D = D[:, inv]                                    # re-expand dedup
     D = D.reshape(coords.shape[0], nq, h)
@@ -244,24 +262,26 @@ def phase1_valid_dist(coords: torch.Tensor, Q_ids: torch.Tensor,
     multiple of 4 (the kernel's aligned vector loads); qoff (nq+1,) int32,
     query q owning columns [qoff[q], qoff[q+1]); qwv (P,) float32 their
     query weights. The dedup rule of :func:`stack_query_bins` applies to
-    the P columns. Sizing P is one host sync. On the valid columns Dv holds
-    the values of :func:`phase1_stacked_dist`, which fills the other
+    the P columns, and the compute dtype of :func:`phase1_stacked_dist`
+    to the product. Sizing P is one host sync. On the valid columns Dv
+    holds the values of :func:`phase1_stacked_dist`, which fills the other
     nq*h - P columns with the sentinel.
     """
     policy = resolve_precision(precision)
     valid = Q_w > 0.0
-    cols = torch.nonzero(valid.reshape(-1))[:, 0]        # sizes P: a sync
-    P = cols.numel()
+    flat = torch.nonzero(valid.reshape(-1))[:, 0]        # sizes P: a sync
+    P = flat.numel()
     counts = valid.sum(dim=1, dtype=torch.int32)
     qoff = F.pad(torch.cumsum(counts, 0, dtype=torch.int32), (1, 0))
-    qc, inv = stack_query_bins(coords, Q_ids.reshape(-1)[cols][None])
+    cols, inv = _stack_ids(coords.shape[0], Q_ids.reshape(-1)[flat])
     pad = -P % 4                       # columns computed but never read
     if inv is None:
-        Dv = pairwise_dist(coords, F.pad(qc, (0, 0, 0, pad)))
+        # The pad columns repeat id 0: computed, pinned, never read.
+        Dv = _vocab_dist(coords, F.pad(cols, (0, pad)), policy)
     else:
-        Dv = pairwise_dist(coords, qc)[:, F.pad(inv, (0, pad))]
+        Dv = _vocab_dist(coords, cols, policy)[:, F.pad(inv, (0, pad))]
     return (Dv.to(policy.storage_dtype)[:, :P], qoff,
-            Q_w.reshape(-1)[cols].contiguous())
+            Q_w.reshape(-1)[flat].contiguous())
 
 
 def gather_capacities(Q_w: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
@@ -324,6 +344,121 @@ def pour(x: torch.Tensor, Zg: torch.Tensor, Wg: torch.Tensor,
     return poured + torch.sum(remainder * Zg[..., iters], dim=-1)
 
 
+# ------------------------------------------------- single-query engines
+#
+# One query (h,) against every corpus row, the JAX package's full-precision
+# parity oracle: float32 always, whatever the batch's precision policy.
+# ``retrieval.query_scores`` dispatches to them and the scan engine loops
+# over them. Under ``use_kernels`` LC-ACT takes the ``dist_topk`` kernel at
+# nq=1 and the unfused ``act_phase2`` kernel on the gathered (n, hmax, k)
+# ladders, as the JAX package does; LC-RWMD and LC-OMR the ``dist_topk``
+# kernel. rwmd_rev and ict have no kernel here, as in the JAX package.
+
+
+def phase1(coords: torch.Tensor, q_ids: torch.Tensor, q_w: torch.Tensor,
+           k: int):
+    """Single-query Phase 1: the (v, h) distances to the query's bins
+    (padding bins, weight 0, at the sentinel), then the k smallest per
+    vocabulary row. Returns Z (v, k) ascending distances and W (v, k) the
+    matching query capacities."""
+    D = pairwise_dist(coords, coords[q_ids], b_ids=q_ids)
+    D = torch.where(q_w[None, :] > 0.0, D, pad_dist_for(D.dtype))
+    Z, S = streaming_smallest_k(D, k)
+    return Z, q_w[S.long()]
+
+
+def _phase1_one(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
+                k: int, use_kernels: bool):
+    """Single-query Phase 1 through the ``dist_topk`` kernel (a batch of
+    one) or :func:`phase1`."""
+    if use_kernels:
+        Z, S = kops.dist_topk(corpus.coords, corpus.coords[q_ids],
+                              q_w > 0.0, k, qids=q_ids)
+        return Z, q_w[S.long()]
+    return phase1(corpus.coords, q_ids, q_w, k)
+
+
+def lc_act_scores(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
+                  iters: int = 1, *, use_kernels: bool = False
+                  ) -> torch.Tensor:
+    """LC-ACT of one query: lower bounds on EMD(x_u, q), the cost of
+    moving each corpus row INTO the query, for all n rows -> (n,).
+
+    Phase 2/3 gather the (n, hmax, k) ladders and pour them; under
+    ``use_kernels`` the pour is the unfused ``act_phase2`` kernel on those
+    ladders. At iters=0 (LC-RWMD) the nearest cost is dumped and no pour
+    runs."""
+    Z, W = _phase1_one(corpus, q_ids, q_w, iters + 1, use_kernels)
+    Zg = Z[corpus.ids]                                   # (n, hmax, k)
+    if iters == 0:
+        return torch.sum(corpus.w * Zg[..., 0], dim=-1)
+    Wg = W[:, :iters][corpus.ids]                        # (n, hmax, iters)
+    if use_kernels:
+        return kops.act_phase2(corpus.w, Zg, Wg)
+    return pour(corpus.w, Zg, Wg, iters)
+
+
+def lc_rwmd_scores(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
+                   *, use_kernels: bool = False) -> torch.Tensor:
+    """LC-RWMD of one query, direction db -> query (LC-ACT with zero
+    Phase-2 rounds)."""
+    return lc_act_scores(corpus, q_ids, q_w, iters=0,
+                         use_kernels=use_kernels)
+
+
+def lc_rwmd_scores_rev(corpus: Corpus, q_ids: torch.Tensor,
+                       q_w: torch.Tensor, block: int = 256) -> torch.Tensor:
+    """LC-RWMD of one query, direction query -> db: each query bin ships
+    to the nearest coordinate present in each corpus row, c[u, j] = min
+    over the valid slots s of D[ids[u, s], j], then c[u] . q_w. In blocks
+    of ``block`` rows (the last one ragged: no pad rows), each gathering
+    its (block, hmax, h) costs. Invalid slots mask to the finite float32
+    sentinel, so an all-padding row scores huge, never NaN."""
+    D = pairwise_dist(corpus.coords, corpus.coords[q_ids], b_ids=q_ids)
+    big = pad_dist_for(D.dtype)
+    out = []
+    for s in range(0, corpus.n, block):
+        Dg = D[corpus.ids[s:s + block]]                  # (b, hmax, h)
+        Dg = torch.where((corpus.w[s:s + block] > 0.0)[..., None], Dg, big)
+        out.append(Dg.amin(dim=1) @ q_w)
+    return torch.cat(out)
+
+
+def lc_omr_scores(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
+                  *, use_kernels: bool = False) -> torch.Tensor:
+    """LC-OMR of one query: Algorithm 1 over every corpus row on the top-2
+    Phase-1 ladders (the ``dist_topk`` kernel at k=2 under
+    ``use_kernels``)."""
+    Z, W = _phase1_one(corpus, q_ids, q_w, 2, use_kernels)
+    return omr_entries(corpus.w, Z[corpus.ids], W[:, 0][corpus.ids])
+
+
+def lc_ict_scores(corpus: Corpus, q_ids: torch.Tensor,
+                  q_w: torch.Tensor) -> torch.Tensor:
+    """LC-ICT of one query: Algorithm 2 over every corpus row -> (n,).
+
+    The JAX package gathers the (n, hmax, h) costs at once (18.8 GB at 20
+    Newsgroups width). Here the query is first trimmed to its valid bins,
+    whose order it keeps (its padding bins sort last at the sentinel with
+    zero capacity, so nothing is poured there and the dump, the largest
+    finite cost, is theirs too; a query without one keeps one padding bin
+    and scores 0), and the rows go in blocks of at most ``GATHER_ELEMS``
+    gathered costs. Trimming changes only the length of the sums over the
+    bins, so the scores agree with JAX's to float32 rounding."""
+    keep = torch.nonzero(q_w > 0.0)[:, 0]                # a sync
+    if keep.numel() == 0:
+        keep = keep.new_zeros(1)
+    q_ids, q_w = q_ids[keep], q_w[keep]
+    D = pairwise_dist(corpus.coords, corpus.coords[q_ids], b_ids=q_ids)
+    D = torch.where(q_w[None, :] > 0.0, D, pad_dist_for(D.dtype))
+    rows = max(1, GATHER_ELEMS // (corpus.hmax * q_ids.numel()))
+    out = []
+    for s in range(0, corpus.n, rows):
+        C = D[corpus.ids[s:s + rows]]                    # (r, hmax, h')
+        out.append(ict_pour(corpus.w[s:s + rows], q_w.expand(C.shape), C))
+    return torch.cat(out)
+
+
 def _map_query_blocks(fn, arrays, block_q: int) -> torch.Tensor:
     """Run ``fn`` over blocks of ``block_q`` queries (leading axis of every
     array) and concatenate the (bq, ...) results."""
@@ -336,12 +471,20 @@ def _phase1_batched_dispatch(corpus: Corpus, Q_ids: torch.Tensor,
                              Q_w: torch.Tensor, k: int, use_kernels: bool,
                              precision: str = "f32"):
     """Batched Phase 1 through the ``dist_topk`` kernel or the reference
-    ops. Returns query-major Z, W (nq, v, k) in the storage dtype."""
+    ops. Returns query-major Z, W (nq, v, k) in the storage dtype.
+
+    Under a reduced compute dtype (``bf16_agg``) the kernel is given the
+    coordinates in that dtype, as in the JAX package: its norms then come
+    from the rounded coordinates too, where the reference path rounds only
+    the cross term's operands (:func:`phase1_stacked_dist`)."""
     if use_kernels:
         policy = resolve_precision(precision)
-        Z, S = kops.dist_topk_batched(corpus.coords, corpus.coords[Q_ids],
-                                      Q_w > 0.0, k,
-                                      out_dtype=policy.storage_dtype)
+        coords = corpus.coords
+        if policy.compute_dtype is not None:
+            coords = coords.to(policy.compute_dtype)
+        Z, S = kops.dist_topk_batched(coords, coords[Q_ids], Q_w > 0.0, k,
+                                      out_dtype=policy.storage_dtype,
+                                      qids=Q_ids)
         return Z, gather_capacities(Q_w, S).to(policy.storage_dtype)
     return phase1_batched(corpus.coords, Q_ids, Q_w, k, precision=precision)
 

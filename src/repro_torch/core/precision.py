@@ -11,10 +11,14 @@ name       storage    compute    accum
 =========  =========  =========  =======
 f32        float32    float32    float32   (default)
 bf16       bfloat16   float32    float32
+bf16_agg   bfloat16   bfloat16   float32
 =========  =========  =========  =======
 
-The JAX package's third preset, ``bf16_agg`` (bfloat16 matmul operands),
-is not yet ported; :func:`resolve` rejects it by name.
+Under ``bf16_agg`` the compute dtype reaches the distances in two ways, as
+in the JAX package: the plain Phase 1 (``core.geometry.pairwise_dist``)
+rounds only the operands of its cross term to bfloat16, while the
+``dist_topk`` kernel is given bfloat16 coordinates and computes the norms
+from them too (``core.lc._phase1_batched_dispatch``).
 
 Every reduced-precision path masks with :func:`pad_dist_for` (dtype)
 rather than the float32 sentinel 1e30, which rounds in bfloat16 and
@@ -46,14 +50,20 @@ class PrecisionPolicy:
     def storage_dtype(self) -> torch.dtype:
         return getattr(torch, self.storage)
 
+    @property
+    def compute_dtype(self) -> torch.dtype | None:
+        """The matmul operands' dtype, or ``None`` for float32 (the
+        ``compute_dtype`` argument of ``pairwise_dist``)."""
+        return None if self.compute == "float32" else getattr(torch,
+                                                               self.compute)
+
 
 POLICIES = {
     "f32": PrecisionPolicy("f32", "float32", "float32", "float32"),
     "bf16": PrecisionPolicy("bf16", "bfloat16", "float32", "float32"),
+    "bf16_agg": PrecisionPolicy("bf16_agg", "bfloat16", "bfloat16",
+                                "float32"),
 }
-
-#: Presets of the JAX package that this package does not run yet.
-UNPORTED_POLICIES = ("bf16_agg",)
 
 
 def resolve(precision) -> PrecisionPolicy:
@@ -62,9 +72,6 @@ def resolve(precision) -> PrecisionPolicy:
         return precision
     if precision in POLICIES:
         return POLICIES[precision]
-    if precision in UNPORTED_POLICIES:
-        raise ValueError(f"precision policy {precision!r} is not yet ported; "
-                         f"one of {sorted(POLICIES)}")
     raise ValueError(f"unknown precision policy {precision!r}; "
                      f"one of {sorted(POLICIES)}")
 

@@ -1,14 +1,16 @@
 """Top-l nearest-neighbour retrieval on the LC engines, through a typed
 method registry.
 
-The JAX package's ``core/retrieval.py`` without its single-query and mesh
-engines: ``METHODS`` holds a :class:`MethodSpec` for each of the seven JAX
-methods (act, rwmd, rwmd_rev, omr, ict, bow, wcd) with its batched scorer
-and its candidate-compacted scorer. ``batch_scores`` dispatches through
-``METHODS[method].batch_fn`` (or, for the symmetric measure, through
-``symmetric_batch_fn`` or both directions), ``cand_scores`` through
-``cand_fn``; ``search`` and ``top_l_smallest`` match ``lax.top_k`` on the
-negated scores (ascending scores, the lowest index first among ties).
+The JAX package's ``core/retrieval.py`` without its mesh engine:
+``METHODS`` holds a :class:`MethodSpec` for each of the seven JAX methods
+(act, rwmd, rwmd_rev, omr, ict, bow, wcd) with its single-query, batched
+and candidate-compacted scorers. ``query_scores`` dispatches one query
+through ``METHODS[method].fn`` (the full-precision oracle), ``batch_scores``
+a batch through ``batch_fn`` (or, for the symmetric measure, through
+``symmetric_batch_fn`` or both directions), or with ``engine="scan"``
+through a loop of ``query_scores``; ``cand_scores`` through ``cand_fn``;
+``search`` and ``top_l_smallest`` match ``lax.top_k`` on the negated
+scores (ascending scores, the lowest index first among ties).
 
 The paper's evaluation harness (Section 6) is here too: every corpus row
 is a query against the whole corpus (``all_pairs_scores``, in chunks of
@@ -18,8 +20,8 @@ agreement of two rankings.
 
 Every scorer takes the uniform keyword set ``iters``, ``use_kernels``,
 ``block_q`` and ``precision`` and ignores the ones it does not use.
-Not yet ported, and so absent from :class:`MethodSpec`: the single-query
-engines (``fn``) and the mesh scorers (``dist_fn``, ``dist_out``).
+Not yet ported, and so absent from :class:`MethodSpec`: the mesh scorers
+(``dist_fn``, ``dist_out``) and ``batch_scores(engine="dist")``.
 """
 from __future__ import annotations
 
@@ -44,6 +46,9 @@ class MethodSpec:
                  engine through the CUDA kernels.
     reverse:     registry name of the opposite-direction bound, if any
                  (rwmd <-> rwmd_rev).
+    fn:          one (h,) query -> (n,) scores, always float32; under
+                 ``use_kernels`` act, rwmd and omr take the ``dist_topk``
+                 kernel at nq=1 (act also the unfused ``act_phase2``).
     batch_fn:    (nq, h) queries -> (nq, n) scores.
     symmetric_batch_fn: the symmetric measure (max of both directions) of
                  a reverse-linked pair, sharing work between the two:
@@ -62,9 +67,15 @@ class MethodSpec:
     uses_iters: bool = False
     supports_kernels: bool = False
     reverse: str | None = None
+    fn: Callable | None = None
     batch_fn: Callable | None = None
     symmetric_batch_fn: Callable | None = None
     cand_fn: Callable | None = None
+
+
+def _act(corpus, q_ids, q_w, *, iters=1, use_kernels=False, **_):
+    return lc.lc_act_scores(corpus, q_ids, q_w, iters=iters,
+                            use_kernels=use_kernels)
 
 
 def _act_batch(corpus, q_ids, q_w, *, iters=1, use_kernels=False,
@@ -79,6 +90,14 @@ def _act_cand(corpus, q_ids, q_w, cand, *, iters=1, use_kernels=False,
     return lc.lc_act_scores_cand(corpus, q_ids, q_w, cand, iters=iters,
                                  use_kernels=use_kernels, block_q=block_q,
                                  precision=precision)
+
+
+def _rwmd(corpus, q_ids, q_w, *, use_kernels=False, **_):
+    return lc.lc_rwmd_scores(corpus, q_ids, q_w, use_kernels=use_kernels)
+
+
+def _rwmd_rev(corpus, q_ids, q_w, **_):
+    return lc.lc_rwmd_scores_rev(corpus, q_ids, q_w)
 
 
 def _rwmd_batch(corpus, q_ids, q_w, *, use_kernels=False, block_q=8,
@@ -117,6 +136,10 @@ def _rwmd_rev_cand(corpus, q_ids, q_w, cand, *, use_kernels=False,
                                       block_q=block_q, precision=precision)
 
 
+def _omr(corpus, q_ids, q_w, *, use_kernels=False, **_):
+    return lc.lc_omr_scores(corpus, q_ids, q_w, use_kernels=use_kernels)
+
+
 def _omr_batch(corpus, q_ids, q_w, *, use_kernels=False, block_q=8,
                precision="f32", **_):
     return lc.lc_omr_scores_batched(corpus, q_ids, q_w,
@@ -129,6 +152,12 @@ def _omr_cand(corpus, q_ids, q_w, cand, *, use_kernels=False, block_q=8,
     return lc.lc_omr_scores_cand(corpus, q_ids, q_w, cand,
                                  use_kernels=use_kernels, block_q=block_q,
                                  precision=precision)
+
+
+def _ict(corpus, q_ids, q_w, **_):
+    """The paper's tightest linear-complexity bound (Algorithm 2, the full
+    cost-sorted ladder): between ACT-k and exact EMD (Theorem 2)."""
+    return lc.lc_ict_scores(corpus, q_ids, q_w)
 
 
 def _ict_batch(corpus, q_ids, q_w, *, use_kernels=False, block_q=8,
@@ -167,6 +196,12 @@ def _bow_batch(corpus, q_ids, q_w, **_):
     return 1.0 - torch.sum(wn * qv[:, corpus.ids], dim=-1)
 
 
+def _bow(corpus, q_ids, q_w, **_):
+    """One query's bag-of-words cosine baseline: the batch engine's
+    arithmetic (a multiply then a sum per row) on a batch of one."""
+    return _bow_batch(corpus, q_ids[None], q_w[None])[0]
+
+
 def _bow_cand(corpus, q_ids, q_w, cand, **_):
     qv = _query_vectors(corpus, q_ids, q_w)
     w_c = corpus.w[cand]                                  # (nq, b, hmax)
@@ -202,6 +237,12 @@ def _wcd_batch(corpus, q_ids, q_w, **_):
     return torch.linalg.norm(cent[None, :] - qc[:, None], dim=-1)
 
 
+def _wcd(corpus, q_ids, q_w, **_):
+    """One query's Word Centroid Distance: the batch engine's on a batch
+    of one."""
+    return _wcd_batch(corpus, q_ids[None], q_w[None])[0]
+
+
 def _wcd_cand(corpus, q_ids, q_w, cand, **_):
     # Centroids of the (nq, b) candidate rows only.
     qc = _query_centroids(corpus, q_ids, q_w)
@@ -211,27 +252,28 @@ def _wcd_cand(corpus, q_ids, q_w, cand, **_):
 
 
 #: ``rwmd_rev`` and ``ict`` support kernels here and not in the JAX
-#: package, which has no kernel for their full-corpus engines: here those
-#: take the all-rows form of K4's valid-bin entry.
+#: package, which has no kernel for their full-corpus engines: here the
+#: batched ones take the all-rows form of K4's valid-bin entry (their
+#: single-query engines have none, as in the JAX package).
 METHODS: dict[str, MethodSpec] = {s.name: s for s in (
     MethodSpec("rwmd", "LC-RWMD (db -> query)", supports_kernels=True,
-               reverse="rwmd_rev", batch_fn=_rwmd_batch,
+               reverse="rwmd_rev", fn=_rwmd, batch_fn=_rwmd_batch,
                symmetric_batch_fn=_rwmd_symmetric_batch,
                cand_fn=_rwmd_cand),
     MethodSpec("rwmd_rev", "LC-RWMD (query -> db)", supports_kernels=True,
-               reverse="rwmd", batch_fn=_rwmd_rev_batch,
+               reverse="rwmd", fn=_rwmd_rev, batch_fn=_rwmd_rev_batch,
                symmetric_batch_fn=_rwmd_symmetric_batch,
                cand_fn=_rwmd_rev_cand),
-    MethodSpec("omr", "LC-OMR", supports_kernels=True, batch_fn=_omr_batch,
-               cand_fn=_omr_cand),
+    MethodSpec("omr", "LC-OMR", supports_kernels=True, fn=_omr,
+               batch_fn=_omr_batch, cand_fn=_omr_cand),
     MethodSpec("act", "LC-ACT-k", uses_iters=True, supports_kernels=True,
-               batch_fn=_act_batch, cand_fn=_act_cand),
+               fn=_act, batch_fn=_act_batch, cand_fn=_act_cand),
     MethodSpec("ict", "LC-ICT (db -> query)", supports_kernels=True,
-               batch_fn=_ict_batch, cand_fn=_ict_cand),
-    MethodSpec("bow", "BoW cosine baseline", symmetric=True,
+               fn=_ict, batch_fn=_ict_batch, cand_fn=_ict_cand),
+    MethodSpec("bow", "BoW cosine baseline", symmetric=True, fn=_bow,
                batch_fn=_bow_batch, cand_fn=_bow_cand),
     MethodSpec("wcd", "Word Centroid Distance baseline", symmetric=True,
-               batch_fn=_wcd_batch, cand_fn=_wcd_cand),
+               fn=_wcd, batch_fn=_wcd_batch, cand_fn=_wcd_cand),
 )}
 
 
@@ -242,23 +284,72 @@ def _spec(method: str) -> MethodSpec:
     return METHODS[method]
 
 
-def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
+#: The engines of :func:`batch_scores`.
+ENGINES = ("batched", "scan")
+
+
+def query_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
                  *, method: str = "act", symmetric: bool = False,
                  iters: int = 1, use_kernels: bool = False, block_q: int = 8,
                  precision: str = "f32") -> torch.Tensor:
-    """Query batch ``(nq, h)`` -> ``(nq, n)`` scores through the method's
-    batched engine: Phase 1 once for the whole batch, Phase 2/3 in blocks
-    of ``block_q`` queries. ``iters`` is read by ``act`` only.
+    """One query ``(h,)`` against the whole corpus -> ``(n,)`` scores,
+    through ``METHODS[method].fn``.
+
+    ``symmetric=True`` returns the paper's symmetric measure, the max of
+    the two directional bounds (a method with a reverse direction: rwmd /
+    rwmd_rev). ``block_q`` and ``precision`` are accepted for parity with
+    :func:`batch_scores` and have no effect: the single-query engines are
+    the full-precision oracle and always run float32."""
+    spec = _spec(method)
+    kw = dict(iters=iters, use_kernels=use_kernels)
+    fwd = spec.fn(corpus, q_ids, q_w, **kw)
+    if not symmetric or spec.symmetric:
+        return fwd
+    if spec.reverse is None:
+        raise ValueError(
+            f"method {method!r} has no reverse direction registered; "
+            "per-query symmetric scoring needs one (use rwmd/rwmd_rev)")
+    return torch.maximum(fwd, METHODS[spec.reverse].fn(corpus, q_ids, q_w,
+                                                       **kw))
+
+
+def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
+                 *, method: str = "act", symmetric: bool = False,
+                 engine: str = "batched", iters: int = 1,
+                 use_kernels: bool = False, block_q: int = 8,
+                 precision: str = "f32") -> torch.Tensor:
+    """Query batch ``(nq, h)`` -> ``(nq, n)`` scores.
+
+    ``engine="batched"`` (default) runs the method's batched engine: Phase 1
+    once for the whole batch, Phase 2/3 in blocks of ``block_q`` queries.
+    ``iters`` is read by ``act`` only. ``engine="scan"`` runs
+    :func:`query_scores` on each query in turn and stacks the rows, so it
+    is bitwise a loop of single-query calls (float32, whatever
+    ``precision``): the check of the batched engine. The JAX package's
+    mesh engine, ``engine="dist"``, is not yet ported.
 
     ``symmetric=True`` scores the paper's symmetric measure, the max of the
     two directional bounds; it needs a method with a reverse direction
     (rwmd / rwmd_rev), and symmetric methods (bow, wcd) pass through. The
-    reference path takes the shared-work ``symmetric_batch_fn``; under
-    ``use_kernels`` the two directional engines run, each on its
+    batched reference path takes the shared-work ``symmetric_batch_fn``;
+    under ``use_kernels`` the two directional engines run, each on its
     kernels, and their elementwise max is returned."""
+    if engine == "dist":
+        raise ValueError("batch_scores(engine='dist'), the JAX package's "
+                         "mesh engine, is not yet ported")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
     spec = _spec(method)
     kw = dict(iters=iters, use_kernels=use_kernels, block_q=block_q,
               precision=precision)
+    if engine == "scan":
+        if q_ids.shape[0] == 0:
+            return torch.empty((0, corpus.n), dtype=torch.float32,
+                               device=corpus.device)
+        return torch.stack([
+            query_scores(corpus, q_ids[i], q_w[i], method=method,
+                         symmetric=symmetric, **kw)
+            for i in range(q_ids.shape[0])])
     if symmetric and not spec.symmetric:
         if spec.reverse is None:
             raise ValueError(
@@ -306,14 +397,20 @@ def top_l_smallest(scores: torch.Tensor, top_l: int):
 
 def search(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
            top_l: int, method: str = "act", iters: int = 1, *,
+           symmetric: bool = False, engine: str = "batched",
            use_kernels: bool = False, block_q: int = 8,
            precision: str = "f32"):
-    """(scores, indices) of the top-l most similar database rows for each
-    query of a ``(nq, h)`` batch, each ``(nq, top_l)``."""
-    return top_l_smallest(
-        batch_scores(corpus, q_ids, q_w, method=method, iters=iters,
-                     use_kernels=use_kernels, block_q=block_q,
-                     precision=precision), top_l)
+    """(scores, indices) of the top-l most similar database rows: for one
+    ``(h,)`` query through :func:`query_scores` (the JAX package's
+    ``search``), ``(top_l,)`` each; for a ``(nq, h)`` batch through
+    :func:`batch_scores`, ``(nq, top_l)`` each."""
+    kw = dict(method=method, symmetric=symmetric, iters=iters,
+              use_kernels=use_kernels, block_q=block_q, precision=precision)
+    if q_ids.dim() == 1:
+        scores = query_scores(corpus, q_ids, q_w, **kw)
+    else:
+        scores = batch_scores(corpus, q_ids, q_w, engine=engine, **kw)
+    return top_l_smallest(scores, top_l)
 
 
 #: Queries per chunk of :func:`all_pairs_scores`: the batch of the 20
@@ -339,15 +436,16 @@ def all_pairs_chunk(corpus: lc.Corpus, use_kernels: bool) -> int:
 
 
 def all_pairs_scores(corpus: lc.Corpus, method: str = "act", iters: int = 1,
-                     *, use_kernels: bool = False, block_q: int = 8,
+                     *, engine: str = "batched", use_kernels: bool = False,
+                     block_q: int = 8,
                      precision: str = "f32") -> torch.Tensor:
     """n x n symmetric bound matrix over the corpus (the paper's evaluation
     mode), float32 on the corpus's device.
 
     asym[a, b] = directional bound of moving histogram b INTO histogram a
-    (query = row a), scored by ``batch_scores`` in chunks of
-    :func:`all_pairs_chunk` corpus rows; every chunk size gives the same
-    matrix. The matrix is then symmetrized in place, max(asym,
+    (query = row a), scored by ``batch_scores`` (with ``engine``) in
+    chunks of :func:`all_pairs_chunk` corpus rows; every chunk size gives
+    the same matrix. The matrix is then symmetrized in place, max(asym,
     asym^T) (:func:`lc.symmetric_scores`), so no second n x n matrix is
     held. For the symmetric measures (bow, wcd) that only evens out the
     float rounding of the two directions, which JAX leaves in their
@@ -359,8 +457,8 @@ def all_pairs_scores(corpus: lc.Corpus, method: str = "act", iters: int = 1,
     for s in range(0, n, chunk):
         asym[s:s + chunk] = batch_scores(
             corpus, corpus.ids[s:s + chunk], corpus.w[s:s + chunk],
-            method=method, iters=iters, use_kernels=use_kernels,
-            block_q=block_q, precision=precision)
+            method=method, engine=engine, iters=iters,
+            use_kernels=use_kernels, block_q=block_q, precision=precision)
     return lc.symmetric_scores(asym)
 
 

@@ -43,6 +43,18 @@
 //    sequential grid axis over h blocks is this loop over tiles. Selection
 //    is float32; Z is cast to the storage type only on the store.
 //
+// Coordinates in bfloat16 (the bf16_agg policy; the JAX package casts
+// coords and the query coordinates to bfloat16 before its kernel, which
+// upcasts them): the same kernel reads 2-byte values, half the bytes, and
+// upcasts each to float32 as it stages it in shared memory, so the norms,
+// products, snap and selection are float32 on the rounded values and
+// identical coordinates still give exactly 0. cp.async copies 4 bytes at
+// least, so the bfloat16 chunks go through registers instead: each call
+// of copy_next writes the chunk it loaded at the call before to shared
+// memory and loads the next one, whose loads are then in flight during
+// one chunk's arithmetic (the chunk ring holds the rest: a chunk is
+// written two chunks before its turn).
+//
 // Degenerate rows (fewer than k valid bins, among them a query with none):
 // slots past the valid bins get the sentinel `big` (passed in from
 // pad_dist_for(out_dtype)) and the column min(lowest invalid column,
@@ -83,6 +95,11 @@ struct Smem {
   int tc[BH];                      // and its column within the query
 };
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
@@ -107,8 +124,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // entries), ascending, into packed; their number into *count; and each
 // listed bin's squared norm, summed with fmaf in ascending order of the
 // dimension as the distance tiles sum a.b, into bnorm. One block.
+template <typename TIn>
 __global__ void __launch_bounds__(COMPACT_THREADS)
-compact_kernel(const bool* __restrict__ qmask, const float* __restrict__ qc,
+compact_kernel(const bool* __restrict__ qmask, const TIn* __restrict__ qc,
                int total, int m, int* __restrict__ packed,
                int* __restrict__ count, float* __restrict__ bnorm) {
   __shared__ int warp_base[COMPACT_THREADS / 32];
@@ -140,9 +158,12 @@ compact_kernel(const bool* __restrict__ qmask, const float* __restrict__ qc,
   }
   if (tid == 0) *count = base;
   for (int j = tid; j < base; j += COMPACT_THREADS) {
-    const float* b = qc + (size_t)packed[j] * m;
+    const TIn* b = qc + (size_t)packed[j] * m;
     float nrm = 0.f;
-    for (int kk = 0; kk < m; ++kk) nrm = fmaf(b[kk], b[kk], nrm);
+    for (int kk = 0; kk < m; ++kk) {
+      const float x = to_f(b[kk]);
+      nrm = fmaf(x, x, nrm);
+    }
     bnorm[j] = nrm;
   }
 }
@@ -213,10 +234,10 @@ __device__ __forceinline__ void flush(float (&zr)[KMAX], int (&sr)[KMAX],
 }
 
 // Three blocks on an SM: 170 registers a thread at most.
-template <int KMAX, typename OutT>
+template <int KMAX, typename TIn, typename OutT>
 __global__ void __launch_bounds__(THREADS, 3)
-dist_topk_kernel(const float* __restrict__ coords,
-                 const float* __restrict__ qc,
+dist_topk_kernel(const TIn* __restrict__ coords,
+                 const TIn* __restrict__ qc,
                  const bool* __restrict__ qmask,
                  const int* __restrict__ packed,
                  const int* __restrict__ count,
@@ -247,7 +268,22 @@ dist_topk_kernel(const float* __restrict__ coords,
   int it = 0, ic = 0, ib = 0;      // the next chunk to copy: tile, chunk, slot
   int ptile = -1;                  // the tile whose packed ids are in pk
   int pk[LB];
+  constexpr bool kBf16 = sizeof(TIn) == 2;
+  // bfloat16: the chunk loaded at the last call, bound for slot pib.
+  TIn ra[kBf16 ? LA : 1], rb[kBf16 ? LB : 1];
+  int pib = -1;
   auto copy_next = [&]() {
+    if constexpr (kBf16) {
+      if (pib >= 0) {
+#pragma unroll
+        for (int i = 0; i < LA; ++i)
+          sm.a[pib][skk][sr0 + RS * i] = to_f(ra[i]);
+#pragma unroll
+        for (int i = 0; i < LB; ++i)
+          sm.b[pib][skk][sr0 + RS * i] = to_f(rb[i]);
+        pib = -1;
+      }
+    }
     if (it < ntiles) {
       const int gk = ic * BK + skk;
       if (it != ptile) {
@@ -258,18 +294,31 @@ dist_topk_kernel(const float* __restrict__ coords,
           pk[i] = j < nvalid ? packed[j] : -1;
         }
       }
+      if constexpr (kBf16) {
+        const TIn zero = __float2bfloat16_rn(0.f);
 #pragma unroll
-      for (int i = 0; i < LA; ++i) {
-        const int gr = row0 + sr0 + RS * i;
-        const bool ok = gr < v && gk < m;
-        cp_async4(&sm.a[ib][skk][sr0 + RS * i],
-                  ok ? coords + (size_t)gr * m + gk : coords, ok);
-      }
+        for (int i = 0; i < LA; ++i) {
+          const int gr = row0 + sr0 + RS * i;
+          ra[i] = gr < v && gk < m ? coords[(size_t)gr * m + gk] : zero;
+        }
 #pragma unroll
-      for (int i = 0; i < LB; ++i) {
-        const bool ok = pk[i] >= 0 && gk < m;
-        cp_async4(&sm.b[ib][skk][sr0 + RS * i],
-                  ok ? qc + (size_t)pk[i] * m + gk : qc, ok);
+        for (int i = 0; i < LB; ++i)
+          rb[i] = pk[i] >= 0 && gk < m ? qc[(size_t)pk[i] * m + gk] : zero;
+        pib = ib;
+      } else {
+#pragma unroll
+        for (int i = 0; i < LA; ++i) {
+          const int gr = row0 + sr0 + RS * i;
+          const bool ok = gr < v && gk < m;
+          cp_async4(&sm.a[ib][skk][sr0 + RS * i],
+                    ok ? coords + (size_t)gr * m + gk : coords, ok);
+        }
+#pragma unroll
+        for (int i = 0; i < LB; ++i) {
+          const bool ok = pk[i] >= 0 && gk < m;
+          cp_async4(&sm.b[ib][skk][sr0 + RS * i],
+                    ok ? qc + (size_t)pk[i] * m + gk : qc, ok);
+        }
       }
       if (++ic == nchunks) { ic = 0; ++it; }
       ib = ib + 1 == STAGES ? 0 : ib + 1;
@@ -296,8 +345,11 @@ dist_topk_kernel(const float* __restrict__ coords,
     const int row = row0 + tid;
     float na = 0.f;
     if (row < v) {
-      const float* a = coords + (size_t)row * m;
-      for (int kk = 0; kk < m; ++kk) na = fmaf(a[kk], a[kk], na);
+      const TIn* a = coords + (size_t)row * m;
+      for (int kk = 0; kk < m; ++kk) {
+        const float x = to_f(a[kk]);
+        na = fmaf(x, x, na);
+      }
     }
     sm.sa2[tid] = na;              // read after the loop's first barrier
   }
@@ -377,14 +429,14 @@ dist_topk_kernel(const float* __restrict__ coords,
     flush<KMAX>(zr, sr, taken, cur_q, row0 + tid, qmask, z, s, v, h, k, big);
 }
 
-template <int KMAX, typename OutT>
-cudaError_t launch_main(const float* coords, const float* qc,
+template <int KMAX, typename TIn, typename OutT>
+cudaError_t launch_main(const TIn* coords, const TIn* qc,
                         const bool* qmask, const int* packed,
                         const int* count, const float* bnorm, OutT* z,
                         int* s, int nq, int v, int h, int m, int k, float big,
                         cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      dist_topk_kernel<KMAX, OutT>,
+      dist_topk_kernel<KMAX, TIn, OutT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
@@ -400,19 +452,19 @@ cudaError_t launch_main(const float* coords, const float* qc,
   const int groups = min(nq, max(1, (3 * sms + gx - 1) / gx));
   const int qpb = (nq + groups - 1) / groups;
   const dim3 grid(gx, (nq + qpb - 1) / qpb);
-  dist_topk_kernel<KMAX, OutT><<<grid, THREADS, sizeof(Smem), stream>>>(
+  dist_topk_kernel<KMAX, TIn, OutT><<<grid, THREADS, sizeof(Smem), stream>>>(
       coords, qc, qmask, packed, count, bnorm, z, s, nq, v, h, m, k, qpb,
       big);
   return cudaGetLastError();
 }
 
-template <int KMAX>
-cudaError_t launch(const float* coords, const float* qc, const bool* qmask,
+template <int KMAX, typename TIn>
+cudaError_t launch(const TIn* coords, const TIn* qc, const bool* qmask,
                    int* packed, int* count, float* bnorm, void* z, int* s,
                    int nq, int v, int h, int m, int k, float big,
                    int out_bf16, cudaStream_t stream) {
-  compact_kernel<<<1, COMPACT_THREADS, 0, stream>>>(qmask, qc, nq * h, m,
-                                                    packed, count, bnorm);
+  compact_kernel<TIn><<<1, COMPACT_THREADS, 0, stream>>>(
+      qmask, qc, nq * h, m, packed, count, bnorm);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (out_bf16)
@@ -426,7 +478,8 @@ cudaError_t launch(const float* coords, const float* qc, const bool* qmask,
 
 }  // namespace
 
-// coords (v, m) f32, qc (nq, h, m) f32, qmask (nq, h) bool, all contiguous;
+// coords (v, m) and qc (nq, h, m) both f32 or both bf16 (in_bf16), qmask
+// (nq, h) bool, all contiguous;
 // scratch packed (nq*h) int32, count (1) int32 and bnorm (nq*h) f32;
 // writes z (nq, v, k) f32 or bf16 and s (nq, v, k) int32. 1 <= k <= 16,
 // nq*h < 2^31, nq <= 65535. Returns the cudaError_t of the launches (0 on
@@ -434,10 +487,8 @@ cudaError_t launch(const float* coords, const float* qc, const bool* qmask,
 extern "C" int dist_topk_launch(const void* coords, const void* qc,
                                 const void* qmask, void* packed, void* count,
                                 void* bnorm, void* z, void* s, int nq, int v,
-                                int h, int m, int k, float big, int out_bf16,
-                                void* stream) {
-  const float* c = static_cast<const float*>(coords);
-  const float* q = static_cast<const float*>(qc);
+                                int h, int m, int k, float big, int in_bf16,
+                                int out_bf16, void* stream) {
   const bool* mk = static_cast<const bool*>(qmask);
   int* pk = static_cast<int*>(packed);
   int* cn = static_cast<int*>(count);
@@ -445,13 +496,20 @@ extern "C" int dist_topk_launch(const void* coords, const void* qc,
   int* si = static_cast<int*>(s);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bf = out_bf16;
-#define DIST_TOPK_LAUNCH(KM) \
-  launch<KM>(c, q, mk, pk, cn, bn, z, si, nq, v, h, m, k, big, bf, st)
-  if (k <= 1) return DIST_TOPK_LAUNCH(1);
-  if (k <= 2) return DIST_TOPK_LAUNCH(2);
-  if (k <= 4) return DIST_TOPK_LAUNCH(4);
-  if (k <= 8) return DIST_TOPK_LAUNCH(8);
-  return DIST_TOPK_LAUNCH(16);
+#define DIST_TOPK_LAUNCH(KM, T)                                             \
+  launch<KM>(static_cast<const T*>(coords), static_cast<const T*>(qc), mk, \
+             pk, cn, bn, z, si, nq, v, h, m, k, big, bf, st)
+#define DIST_TOPK_BY_K(T)                      \
+  if (k <= 1) return DIST_TOPK_LAUNCH(1, T);   \
+  if (k <= 2) return DIST_TOPK_LAUNCH(2, T);   \
+  if (k <= 4) return DIST_TOPK_LAUNCH(4, T);   \
+  if (k <= 8) return DIST_TOPK_LAUNCH(8, T);   \
+  return DIST_TOPK_LAUNCH(16, T);
+  if (in_bf16) {
+    DIST_TOPK_BY_K(__nv_bfloat16)
+  }
+  DIST_TOPK_BY_K(float)
+#undef DIST_TOPK_BY_K
 #undef DIST_TOPK_LAUNCH
 }
 

@@ -7,7 +7,12 @@ same function in plain PyTorch, which the CPU path runs and the card is
 checked against. Contract (both versions):
 
 * d = sqrt(snap(max(|a|^2 + |b|^2 - 2 a.b, 0))) in float32, where snap
-  zeroes values below 1e-6 (|a|^2 + |b|^2);
+  zeroes values below 1e-6 (|a|^2 + |b|^2); the coordinates come in
+  float32 or bfloat16 (the ``bf16_agg`` policy), both upcast to float32,
+  so the norms and products are float32 on the rounded values;
+* identical coordinates give exactly 0: the kernel by summing the norms
+  and the products in one FMA order, the plain version by pinning the
+  pairs of the same vocabulary id (``qids``) to 0;
 * invalid query bins (``qmask`` false) read ``pad_dist_for(out_dtype)``;
 * per vocabulary row the k smallest, ascending, ties to the lowest column,
   selected in float32. On a row with fewer than k valid bins the slots past
@@ -39,15 +44,21 @@ launches = 0
 
 def dist_topk_plain(coords: torch.Tensor, qcs: torch.Tensor,
                     qmask: torch.Tensor, k: int,
-                    out_dtype: torch.dtype = torch.float32):
+                    out_dtype: torch.dtype = torch.float32,
+                    qids: torch.Tensor | None = None):
     """Plain PyTorch version of the kernel: materialize the (v, nq, h)
     distances, then k rounds of masked min-extraction with the
-    ``out_dtype`` sentinel. coords (v, m), qcs (nq, h, m), qmask (nq, h)
-    bool -> Z (nq, v, k) ``out_dtype``, S (nq, v, k) int32."""
+    ``out_dtype`` sentinel. coords (v, m), qcs (nq, h, m) float32 or
+    bfloat16, qmask (nq, h) bool -> Z (nq, v, k) ``out_dtype``, S (nq, v,
+    k) int32. ``qids`` (nq, h): the vocabulary ids of the query bins
+    (qcs = coords[qids]); their distances to their own rows are pinned to
+    0, where the kernel's FMA order gives 0 by itself."""
     v, _ = coords.shape
     nq, h, m = qcs.shape
     big = pad_dist_for(out_dtype)
-    d = pairwise_dist(coords, qcs.reshape(nq * h, m)).reshape(v, nq, h)
+    d = pairwise_dist(coords.float(), qcs.reshape(nq * h, m).float(),
+                      b_ids=None if qids is None else qids.reshape(-1)
+                      ).reshape(v, nq, h)
     work = torch.where(qmask[None], d, big)
     col = torch.arange(h, dtype=torch.int32, device=coords.device)
     zs, ss = [], []
@@ -89,7 +100,7 @@ def dist_topk_cuda(coords: torch.Tensor, qcs: torch.Tensor,
         coords.data_ptr(), qcs.data_ptr(), qmask.data_ptr(),
         packed.data_ptr(), count.data_ptr(), bnorm.data_ptr(), z.data_ptr(),
         s.data_ptr(), nq, v, h, m, k, pad_dist_for(out_dtype),
-        int(out_dtype == torch.bfloat16),
+        int(coords.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(coords.device).cuda_stream)
     if err:
         raise RuntimeError(f"dist_topk kernel launch failed: "
@@ -104,7 +115,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("dist_topk")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dist_topk_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                     ctypes.c_float, i, p]
+                                     ctypes.c_float, i, i, p]
     lib.dist_topk_launch.restype = i
     lib.dist_topk_error.argtypes = [i]
     lib.dist_topk_error.restype = ctypes.c_char_p

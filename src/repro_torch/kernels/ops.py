@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from repro_torch.kernels import act_phase2, dist_topk
+from repro_torch.kernels import act_phase2 as act_k
+from repro_torch.kernels import dist_topk as dist_k
 from repro_torch.kernels import cand_pour as cand_k
 
 _LADDER_DTYPES = (torch.float32, torch.bfloat16)
@@ -53,36 +54,63 @@ def _check_ids_range(ids: torch.Tensor, v: int) -> None:
 
 def dist_topk_batched(coords: torch.Tensor, qcs: torch.Tensor,
                       qmask: torch.Tensor, k: int, *,
-                      out_dtype: torch.dtype = torch.float32):
+                      out_dtype: torch.dtype = torch.float32,
+                      qids: torch.Tensor | None = None):
     """Fused distance + row-top-k for a query batch in one launch.
 
-    coords (v, m) float32, qcs (nq, h, m) float32, qmask (nq, h) bool (true
-    = real query bin) -> Z (nq, v, k) ``out_dtype`` (float32 or bfloat16),
-    S (nq, v, k) int32. ``1 <= k <= 16``.
+    coords (v, m) and qcs (nq, h, m), both float32 or both bfloat16 (the
+    ``bf16_agg`` policy's coordinates, upcast to float32 inside), qmask
+    (nq, h) bool (true = real query bin) -> Z (nq, v, k) ``out_dtype``
+    (float32 or bfloat16), S (nq, v, k) int32. ``1 <= k <= 16``.
+
+    ``qids`` (nq, h) integer, optional: the vocabulary ids of the query
+    bins, when qcs = coords[qids]. The plain version pins each bin's
+    distance to its own vocabulary row to exactly 0; the kernel gives that
+    0 by its FMA order and does not read qids.
     """
-    _require(coords.dim() == 2 and coords.dtype == torch.float32,
-             f"coords must be (v, m) float32, got {tuple(coords.shape)} "
-             f"{coords.dtype}")
-    _require(qcs.dim() == 3 and qcs.dtype == torch.float32
+    _require(coords.dim() == 2 and coords.dtype in _LADDER_DTYPES,
+             f"coords must be (v, m) float32 or bfloat16, got "
+             f"{tuple(coords.shape)} {coords.dtype}")
+    _require(qcs.dim() == 3 and qcs.dtype == coords.dtype
              and qcs.shape[2] == coords.shape[1],
-             f"qcs must be (nq, h, {coords.shape[1]}) float32, got "
+             f"qcs must be (nq, h, {coords.shape[1]}) {coords.dtype}, got "
              f"{tuple(qcs.shape)} {qcs.dtype}")
     _require(qmask.dtype == torch.bool and qmask.shape == qcs.shape[:2],
              f"qmask must be {tuple(qcs.shape[:2])} bool, got "
              f"{tuple(qmask.shape)} {qmask.dtype}")
+    _require(qids is None or (qids.shape == qmask.shape
+                              and not qids.dtype.is_floating_point
+                              and qids.dtype != torch.bool),
+             f"qids must be {tuple(qmask.shape)} integer ids, got "
+             f"{None if qids is None else (tuple(qids.shape), qids.dtype)}")
     _require(min(coords.shape) >= 1 and min(qcs.shape) >= 1,
              "coords and qcs must be non-empty")
-    _require(1 <= k <= dist_topk.MAX_K,
-             f"k must be in [1, {dist_topk.MAX_K}], got {k}")
+    _require(1 <= k <= dist_k.MAX_K,
+             f"k must be in [1, {dist_k.MAX_K}], got {k}")
     _require(qcs.shape[0] <= 65535, f"at most 65535 queries, got "
              f"{qcs.shape[0]}")
     _require(out_dtype in _LADDER_DTYPES,
              f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     _require(all(t.is_contiguous() for t in (coords, qcs, qmask)),
              "coords, qcs and qmask must be contiguous")
-    fn = (dist_topk.dist_topk_plain if _on_cpu(coords, qcs, qmask)
-          else dist_topk.dist_topk_cuda)
-    return fn(coords, qcs, qmask, k, out_dtype)
+    tensors = (coords, qcs, qmask) + (() if qids is None else (qids,))
+    if _on_cpu(*tensors):
+        return dist_k.dist_topk_plain(coords, qcs, qmask, k, out_dtype,
+                                         qids)
+    return dist_k.dist_topk_cuda(coords, qcs, qmask, k, out_dtype)
+
+
+def dist_topk(coords: torch.Tensor, qc: torch.Tensor, qmask: torch.Tensor,
+              k: int, *, out_dtype: torch.dtype = torch.float32,
+              qids: torch.Tensor | None = None):
+    """Fused distance + row-top-k for one query: coords (v, m), qc (h, m),
+    qmask (h,) bool, qids (h,) optional -> Z (v, k), S (v, k). The
+    single-query view of :func:`dist_topk_batched` (a batch of one, one
+    launch), with its checks."""
+    z, s = dist_topk_batched(coords, qc[None], qmask[None], k,
+                             out_dtype=out_dtype,
+                             qids=None if qids is None else qids[None])
+    return z[0], s[0]
 
 
 def act_phase2_batched(x: torch.Tensor, zg: torch.Tensor,
@@ -107,9 +135,18 @@ def act_phase2_batched(x: torch.Tensor, zg: torch.Tensor,
              f"{zg.dtype} / {wg.dtype}")
     _require(all(t.is_contiguous() for t in (x, zg, wg)),
              "x, zg and wg must be contiguous")
-    fn = (act_phase2.act_phase2_plain if _on_cpu(x, zg, wg)
-          else act_phase2.act_phase2_cuda)
+    fn = (act_k.act_phase2_plain if _on_cpu(x, zg, wg)
+          else act_k.act_phase2_cuda)
     return fn(x, zg, wg)
+
+
+def act_phase2(x: torch.Tensor, zg: torch.Tensor,
+               wg: torch.Tensor) -> torch.Tensor:
+    """Fused Phase-2/3 pour for one query: x (n, hmax), zg (n, hmax,
+    iters+1), wg (n, hmax, iters) -> t (n,). The single-query view of
+    :func:`act_phase2_batched` (a batch of one, one launch), with its
+    checks."""
+    return act_phase2_batched(x, zg[None], wg[None])[0]
 
 
 def act_phase2_gather(x: torch.Tensor, ids: torch.Tensor, Z: torch.Tensor,
@@ -142,8 +179,8 @@ def act_phase2_gather(x: torch.Tensor, ids: torch.Tensor, Z: torch.Tensor,
              "x, ids, Z and W must be contiguous")
     on_cpu = _on_cpu(x, ids, Z, W)
     _check_ids_range(ids, Z.shape[1])
-    fn = (act_phase2.act_phase2_gather_plain if on_cpu
-          else act_phase2.act_phase2_gather_cuda)
+    fn = (act_k.act_phase2_gather_plain if on_cpu
+          else act_k.act_phase2_gather_cuda)
     return fn(x, ids, Z, W)
 
 
@@ -170,8 +207,8 @@ def act_phase2_cand(xg: torch.Tensor, zg: torch.Tensor,
              f"{zg.dtype} / {wg.dtype}")
     _require(all(t.is_contiguous() for t in (xg, zg, wg)),
              "xg, zg and wg must be contiguous")
-    fn = (act_phase2.act_phase2_cand_plain if _on_cpu(xg, zg, wg)
-          else act_phase2.act_phase2_cand_cuda)
+    fn = (act_k.act_phase2_cand_plain if _on_cpu(xg, zg, wg)
+          else act_k.act_phase2_cand_cuda)
     return fn(xg, zg, wg)
 
 

@@ -96,19 +96,28 @@ def test_scores_and_search_match_jax(corpus, port_backend, jax_backend,
 
 @pytest.mark.parametrize("backend", ["cuda", "reference"])
 def test_single_query_is_a_batch_of_one(corpus, backend):
+    # A single query takes the single-query engine (query_scores), as in
+    # the JAX package; it agrees with its row of the batch, and the scan
+    # engine's batch is bitwise a loop of it.
     q_ids, q_w = _queries(corpus)
     index = _port_index(corpus, iters=3, backend=backend)
     batch = index.scores(q_ids, q_w)
+    scan = index.with_config(batch_engine="scan").scores(q_ids, q_w)
+    tc = index.corpus
     for r in (0, 3):
         one = index.scores(q_ids[r], q_w[r])
         assert one.shape == (corpus.ids.shape[0],)
-        assert torch.equal(one, batch[r])
+        assert torch.equal(one, retrieval.query_scores(
+            tc, torch.tensor(q_ids[r]), torch.tensor(q_w[r]),
+            **index.config.score_kwargs()))
+        assert torch.equal(one, scan[r])
+        torch.testing.assert_close(one, batch[r], **F32_TOL)
         s, idx = index.search(q_ids[r], q_w[r])
         assert s.shape == idx.shape == (5,)
-    # the JAX single-query engine agrees with the port's batch of one
+    # the JAX single-query engine agrees with the port's
     jax_one = np.asarray(JIndex.build(corpus, JConfig(iters=3)).scores(
         q_ids[0], q_w[0]))
-    np.testing.assert_allclose(batch[0].numpy(),
+    np.testing.assert_allclose(index.scores(q_ids[0], q_w[0]).numpy(),
                                jax_one, **F32_TOL)
 
 
@@ -142,8 +151,7 @@ def test_config_has_the_jax_fields():
 
 @pytest.mark.parametrize("field,value", [
     ("backend", "pallas"),
-    ("backend", "distributed"), ("precision", "bf16_agg"),
-    ("batch_engine", "scan"),
+    ("backend", "distributed"),
     ("autotune", "force"), ("autotune", "cached"), ("tune_cache", "t.json"),
     ("block_v", 128), ("block_h", 128), ("block_n", 128), ("rev_block", 64),
     ("pad_multiple", 16),
@@ -156,6 +164,7 @@ def test_unported_config_raises(field, value):
 @pytest.mark.parametrize("field,value", [
     ("method", "omr"), ("method", "rwmd_rev"), ("method", "ict"),
     ("method", "bow"), ("method", "wcd"), ("cascade", "fast"),
+    ("precision", "bf16_agg"), ("batch_engine", "scan"),
 ])
 def test_formerly_unported_config_values_build(field, value):
     assert getattr(EngineConfig(**{field: value}), field) == value
@@ -163,7 +172,7 @@ def test_formerly_unported_config_values_build(field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("method", "nope"), ("backend", "tpu"), ("precision", "fp8"),
-    ("iters", -1), ("top_l", 0), ("block_q", 0),
+    ("iters", -1), ("top_l", 0), ("block_q", 0), ("batch_engine", "dist"),
 ])
 def test_bad_config_raises(field, value):
     with pytest.raises(ValueError, match=field.replace("_", ".")):

@@ -1,5 +1,5 @@
 """The port's precision policies against the JAX package's: sentinels bitwise
-equal, the same presets, the unported preset refused by name."""
+equal, the same presets, an unknown preset refused by name."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,9 +33,10 @@ def test_policies_match_jax(name):
 
 
 def test_every_jax_policy_is_ported_or_refused_by_name():
-    assert set(tprec.POLICIES) | set(tprec.UNPORTED_POLICIES) == \
-        set(jprec.POLICIES)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tprec.resolve("bf16_agg")
+    # Every JAX preset is ported now (bf16_agg last); a name neither
+    # package knows is still refused by name.
+    assert set(tprec.POLICIES) == set(jprec.POLICIES)
+    assert tprec.resolve("bf16_agg").compute_dtype == torch.bfloat16
+    assert tprec.resolve("bf16").compute_dtype is None
     with pytest.raises(ValueError, match="unknown precision"):
         tprec.resolve("fp8")
