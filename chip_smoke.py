@@ -79,18 +79,40 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
    rwmd, omr, chain, tight) on both backends against f32 and K1 on
    bfloat16 coordinates; the prefix's rwmd and rwmd_rev self-distances
    exactly 0 on both backends; the per-pair relaxations and the exact LP
-   against the engines, and ``wmd_search``.
+   against the engines, and ``wmd_search``;
+10. the serving path: (a) cascades fed by candidate sources (a k-means
+   LSH and a cluster tree, ~> rwmd(256) -> act-3, and the LSH ~> rwmd(256)
+   -> act(64, 3) -> ict) built at 20 Newsgroups width, on both backends:
+   build seconds and host peak, width, dropped rows, the candidate step's
+   time, search times and peaks, recall@16 against the full-scan ladder
+   wcd(1024) -> rwmd(256) -> act-3 and against ``chain``, the source's
+   (ids, mask) equal on both backends, cuda's top-16 the reference's where
+   separated, a full_scan-sourced ``chain`` bitwise the unsourced one;
+   (b) ``EmdServer`` over act-7 under seeded open-loop traffic (256
+   requests at 200 and 800 requests/s, bench_serve's policy), no launch
+   failure, every primary answer bitwise the batched search's row and
+   within tolerance of the one-query search; (c) a seeded chaos schedule
+   replayed twice, identical, every launch bitwise its tier's own index on
+   the same padded batch; (d) append, delete, snapshot and restore,
+   bitwise, the fallback past a corrupt snapshot, and an LSH-sourced
+   primary restored without a refit.
 
 Any failed check exits non-zero before the last line. The last lines are the
 card's name and power limit, a JSON line of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
+import asyncio
+import dataclasses
+import gc
 import json
 import os
+import resource
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import tracemalloc
 
 import numpy as np
 import torch
@@ -99,8 +121,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.api import EmdIndex, EngineConfig  # noqa: E402
+from repro_torch.candidates import (CentroidLSHSpec,  # noqa: E402
+                                    ClusterTreeSpec)
 from repro_torch.cascade import (CascadeSpec, CascadeStage,  # noqa: E402
-                                 resolve_spec, topk_recall, topk_smallest)
+                                 resolve_spec, stage_rows, topk_recall,
+                                 topk_smallest)
 from repro_torch.cascade import search as cascade_search  # noqa: E402
 from repro_torch.core import (histogram, lc, relaxations,  # noqa: E402
                               retrieval, wmd)
@@ -113,6 +138,10 @@ from repro_torch.data.synth import (make_clustered_text,  # noqa: E402
                                     make_image_like)
 from repro_torch.kernels import (_build, act_phase2, cand_pour,  # noqa: E402
                                  dist_topk, ops)
+from repro_torch.serving import (ChaosInjector, ChaosSchedule,  # noqa: E402
+                                 EmdServer, ServerOverloaded, ServeResult,
+                                 ServingPolicy, corrupt_checkpoint,
+                                 restore_latest, restore_server, snapshot)
 
 # 20 Newsgroups width: the port's configs/emd_20news.py.
 N_DOCS, VOCAB, DIM, HMAX, ITERS = (NEWS.n_db, NEWS.vocab, NEWS.dim,
@@ -227,6 +256,36 @@ AGG_SEARCHES = ("act", "rwmd", "omr", "chain", "tight")
 #: relaxations and the exact LP; wmd_search's queries and top_l.
 ORACLE_QUERIES, ORACLE_TOP, WMD_QUERIES, WMD_TOP = 4, 4, 2, 4
 ORACLE_RTOL = 1e-5
+
+
+# Slice 8 (phase 10): the serving path. The sourced cascades follow
+# benchmarks/bench_cascade.py's sizing at n=18,828: ~12 % of the buckets
+# probed, caps ~2x the mean occupancy (147 rows a bucket, 74 a leaf), and a
+# refine equal to the reference ladder's wcd budget.
+LSH_SPEC = CentroidLSHSpec(n_buckets=128, probes=16, bucket_cap=320,
+                           refine=1024)
+TREE_SPEC = ClusterTreeSpec(branching=16, depth=2, beam=16, probes=16,
+                            leaf_cap=160, refine=1024)
+SOURCED = {
+    "lsh": CascadeSpec(stages=(CascadeStage("rwmd", 256),), rescorer="act",
+                       rescorer_iters=ACT3, source=LSH_SPEC),
+    "tree": CascadeSpec(stages=(CascadeStage("rwmd", 256),),
+                        rescorer="act", rescorer_iters=ACT3,
+                        source=TREE_SPEC),
+    # tight-shaped: reaches K4 through its ict rescorer
+    "lsh_tight": CascadeSpec(stages=(CascadeStage("rwmd", 256),
+                                     CascadeStage("act", 64, iters=ACT3)),
+                             rescorer="ict", source=LSH_SPEC),
+}
+#: bench_cascade's full-scan reference ladder at this n.
+FULL_SCAN_SPEC = CascadeSpec(stages=(CascadeStage("wcd", 1024),
+                                     CascadeStage("rwmd", 256)),
+                             rescorer="act", rescorer_iters=ACT3)
+#: Serving traffic: requests (seeded corpus rows), the open-loop loads in
+#: requests/s, the chaos replay's concurrent group; the lifecycle's
+#: mutations.
+SERVE_REQUESTS, SERVE_LOADS, CHAOS_GROUP = 256, (200.0, 800.0), 2
+LIFE_APPEND, LIFE_DELETE = 64, 32
 
 
 def check(cond, msg):
@@ -621,7 +680,7 @@ def admissible_recall(spec, corpus, q_ids, q_w, i_c, full):
     edge = s_top[:, TOP_L:]
     firm = edge - s_top[:, :TOP_L] > 2 * (ATOL + RTOL * edge.abs())
     full_top = full_top[:, :TOP_L]
-    surv = cascade_search._prune(corpus, q_ids, q_w, spec,
+    surv, _ = cascade_search._prune(corpus, q_ids, q_w, spec,
                                  spec.resolve_budgets(corpus.n, TOP_L),
                                  n_valid=None, topk_blocks=1,
                                  engine="batched", use_kernels=True,
@@ -1879,6 +1938,483 @@ def phase9(host_corpus, corpus, q_ids, q_w, rows, dev):
     return results, kernels, runs
 
 
+# -------------------------------------------------------------- phase 10
+
+
+def sourced_build(host_corpus, spec, dev):
+    """An index whose cascade ``spec`` is sourced, built on the card: host
+    seconds of the build (the source's fit on the host and the placement),
+    the host's peak numpy allocation during it (tracemalloc) and the
+    process's peak RSS after it."""
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    index = EmdIndex.build(host_corpus, EngineConfig(
+        cascade=spec, top_l=TOP_L, block_q=BLOCK_Q), device=dev)
+    secs = time.perf_counter() - t0
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return index, dict(build_s=secs, host_peak_gib=peak / 2**30,
+                       max_rss_gib=rss / 2**30)
+
+
+def phase10_sourced(host_corpus, corpus, q_ids, q_w, rows, dev, runs):
+    """Phase 10 (a): the sourced cascades on both backends, the counts set
+    to 0 before each cuda search and read after."""
+    gib = 2**30
+    out, indexes = {}, {}
+    cuda_index = EmdIndex.build(host_corpus, EngineConfig(
+        top_l=TOP_L, block_q=BLOCK_Q), device=dev)
+    _, ref_scan = cuda_index.search(q_ids, q_w, cascade=FULL_SCAN_SPEC)
+    _, ref_chain = cuda_index.search(q_ids, q_w, cascade="chain")
+    for name, spec in SOURCED.items():
+        if spec.source in indexes:         # the same spec: reuse its fit
+            index = indexes[spec.source].with_config(cascade=spec)
+            build = dict(build_s=0.0, reused=True)
+        else:
+            index, build = sourced_build(host_corpus, spec, dev)
+            indexes[spec.source] = index
+        ref = index.with_config(backend="reference")
+        src = index.source
+        check(ref.source.leaves()[0] is src.leaves()[0],
+              f"sourced {name}: the reference index refit the source")
+        cand_c = src.candidates(index.corpus, q_ids, q_w)
+        cand_r = ref.source.candidates(ref.corpus, q_ids, q_w)
+        check(all(torch.equal(a, b) for a, b in zip(cand_c, cand_r)),
+              f"sourced {name}: the source's (ids, mask) differ between "
+              "the backends")
+        live = cand_c[1].sum(dim=1)
+        step_ms = cuda_ms(lambda: src.candidates(index.corpus, q_ids, q_w))
+        zero_counts()
+        s_c, i_c = index.search(q_ids, q_w)
+        torch.cuda.synchronize()
+        runs[f"sourced.{name}"] = counts = read_counts()
+        want = ["dist_topk", "cand_pour_rows.pour_iters0",
+                "cand_pour_rows.pour"] + (["cand_dist_valid.ict"]
+                                          if spec.rescorer == "ict" else [])
+        check(all(counts[k] > 0 for k in want)
+              and sum(rows_of(counts).values()) == sum(
+                  counts[f"cand_pour_rows.{k}"] for k in
+                  ("pour", "pour_iters0")),
+              f"sourced {name}: launches {nonzero(counts)}, wanted {want}")
+        zero_counts()
+        s_r, i_r = ref.search(q_ids, q_w, top_l=TOP_L + 1)
+        torch.cuda.synchronize()
+        check(not nonzero(read_counts()),
+              f"sourced {name}: the reference backend launched "
+              f"{nonzero(read_counts())}")
+        next_r, s_r, i_r = s_r[:, TOP_L], s_r[:, :TOP_L], i_r[:, :TOP_L]
+        err = (s_c - s_r).abs().max().item()
+        check(torch.allclose(s_c, s_r, rtol=RTOL, atol=ATOL),
+              f"sourced {name}: cuda vs reference max |d| {err}")
+        check(bool(torch.isfinite(s_c).all()) and s_c.max().item() < 1e3,
+              f"sourced {name}: a score reached the sentinel scale")
+        firm = firm_ranks(s_r, next_r)
+        check(bool((i_c == i_r)[firm].all()),
+              f"sourced {name}: top-{TOP_L} indices differ where the "
+              "reference is separated")
+        rec_scan = topk_recall(i_c, ref_scan)
+        rec_chain = topk_recall(i_c, ref_chain)
+        t_c, m_c = search_seconds(lambda: index.search(q_ids, q_w))
+        t_r, m_r = search_seconds(lambda: ref.search(q_ids, q_w))
+        stage = stage_rows(spec, corpus.n, TOP_L)
+        out[name] = dict(
+            spec=spec.describe(), **build, width=src.width,
+            dropped_rows=src.dropped_rows, live_min=int(live.min()),
+            stage_rows=stage, candidate_step_ms=step_ms, search_s=dict(
+                cuda=t_c, reference=t_r), peak_gib=dict(
+                cuda=m_c / gib, reference=m_r / gib),
+            recall_vs_full_scan=rec_scan, recall_vs_chain=rec_chain,
+            max_abs_err=err, firm=int(firm.sum()),
+            launches=nonzero(counts))
+        print(f"phase 10: sourced {spec.describe()}: build "
+              f"{build['build_s']:.2f} s"
+              + ("" if build.get("reused") else
+                 f" (host peak {build['host_peak_gib']:.3f} GiB numpy, "
+                 f"max RSS {build['max_rss_gib']:.2f} GiB)")
+              + f"; width {src.width}, dropped rows {src.dropped_rows}, "
+              f"live candidates per query >= {int(live.min())}; stage rows "
+              f"{stage}; candidate step {step_ms:.4f} ms; search cuda "
+              f"{t_c:.4f} s, reference {t_r:.4f} s; peak above the "
+              f"resident cuda {m_c / gib:.3f} GiB, reference "
+              f"{m_r / gib:.3f} GiB; cuda vs reference max|d|={err:.3g}, "
+              f"top-{TOP_L} equal at {int(firm.sum())} separated ranks of "
+              f"{firm.numel()}; recall@{TOP_L} vs {FULL_SCAN_SPEC.describe()} "
+              f"{rec_scan}, vs chain {rec_chain}; launches {nonzero(counts)}",
+              flush=True)
+    # A full_scan-sourced chain is the unsourced chain, bitwise.
+    chain = resolve_spec("chain")
+    full = dataclasses.replace(chain, source="full_scan")
+    a = cuda_index.search(q_ids, q_w, cascade=chain)
+    b = cuda_index.search(q_ids, q_w, cascade=full)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "a full_scan-sourced chain is not bitwise the unsourced chain")
+    print("phase 10: a full_scan-sourced chain is bitwise the unsourced "
+          "chain on cuda", flush=True)
+    return out, indexes[SOURCED["lsh"].source]
+
+
+def serve_policy():
+    """bench_serve's policy (``benchmarks/bench_serve.py:54-56``)."""
+    return ServingPolicy(ladder=("primary", "fast", "wcd"), max_batch=16,
+                         flush_ms=2.0, deadline_ms=500.0, max_retries=1,
+                         backoff_ms=0.5)
+
+
+async def open_loop(server, host_ids, host_w, req_rows, qps, seed):
+    """Seeded open-loop arrivals at ``qps``: each request is sent at its
+    arrival time whatever the server does, and its latency runs from that
+    time. Returns the results (ServeResult or ServerOverloaded) and the
+    latencies in ms."""
+    gaps = np.random.default_rng(seed).exponential(1.0 / qps, len(req_rows))
+    at = np.cumsum(gaps)
+    lat = np.zeros(len(req_rows))
+    t0 = time.perf_counter()
+
+    async def one(k):
+        await asyncio.sleep(max(0.0, t0 + at[k] - time.perf_counter()))
+        row = int(req_rows[k])
+        try:
+            res = await server.search(host_ids[row], host_w[row])
+        except ServerOverloaded as e:
+            res = e
+        lat[k] = 1e3 * (time.perf_counter() - t0 - at[k])
+        return res
+
+    results = await asyncio.gather(*[one(k) for k in range(len(req_rows))])
+    return results, lat
+
+
+def gc_timer(pauses):
+    """A ``gc.callbacks`` entry appending each collection's pause in ms to
+    ``pauses``."""
+    start = []
+
+    def callback(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            pauses.append(1e3 * (time.perf_counter() - start.pop()))
+    return callback
+
+
+def batched_rows(index, host_ids, host_w, rows):
+    """Each row's top-l from a batched ``index.search`` of the rows, 16 a
+    batch: {row: (scores, indices)} as numpy."""
+    out = {}
+    for s in range(0, len(rows), NQ):
+        chunk = rows[s:s + NQ]
+        sc, ix = index.search(host_ids[chunk], host_w[chunk])
+        for r, a, b in zip(chunk, sc.cpu().numpy(), ix.cpu().numpy()):
+            out[int(r)] = (a, b)
+    return out
+
+
+def phase10_serve(host_corpus, dev, runs):
+    """Phase 10 (b): EmdServer over act-7 on the card under open-loop
+    traffic at each load of SERVE_LOADS, no hook; every primary answer
+    bitwise the batched search's row and within tolerance of the one-query
+    search."""
+    index = EmdIndex.build(host_corpus, EngineConfig(
+        method="act", iters=ITERS, top_l=TOP_L, block_q=BLOCK_Q), device=dev)
+    host_ids, host_w = host_corpus.ids.numpy(), host_corpus.w.numpy()
+    req_rows = np.random.default_rng(SEED + 10).integers(0, N_DOCS,
+                                                         SERVE_REQUESTS)
+    uniq = np.unique(req_rows)
+    batched = batched_rows(index, host_ids, host_w, uniq)
+    single = {int(r): tuple(t.cpu().numpy() for t in index.search(
+        host_ids[r], host_w[r])) for r in uniq}
+    for b in (1, 2, 4, 8, 16):              # every bucket's shape, once
+        index.search(host_ids[:b], host_w[:b])
+    out = {}
+    for qps in SERVE_LOADS:
+        server = EmdServer(index, serve_policy())
+
+        async def go():
+            async with server:
+                return await open_loop(server, host_ids, host_w, req_rows,
+                                       qps, SEED + int(qps))
+        # The earlier phases' garbage is collected before the load, and the
+        # collector's pauses during it are recorded: they stall the event
+        # loop like a launch does.
+        gc.collect()
+        pauses = []
+        gc.callbacks.append(gc_timer(pauses))
+        zero_counts()
+        try:
+            results, lat = asyncio.run(go())
+        finally:
+            gc.callbacks.pop()
+        torch.cuda.synchronize()
+        runs[f"serve.{int(qps)}"] = counts = read_counts()
+        st = server.stats
+        check(st.launch_failures == 0 and st.device_faults == 0,
+              f"serve {qps}/s: {st.launch_failures} launch failures without "
+              "a hook")
+        check(counts["dist_topk"] > 0 and counts["act_phase2_gather"] > 0,
+              f"serve {qps}/s: launches {nonzero(counts)}")
+        served = [r for r in results if isinstance(r, ServeResult)]
+        bitwise_single = 0
+        for row, res in zip(req_rows, results):
+            if not isinstance(res, ServeResult):
+                continue
+            check(res.tier == "primary" or res.degraded,
+                  f"serve {qps}/s: an unlabelled {res.tier} answer")
+            if res.tier != "primary":
+                continue
+            b_s, b_i = batched[int(row)]
+            check(np.array_equal(res.scores, b_s)
+                  and np.array_equal(res.indices, b_i),
+                  f"serve {qps}/s: row {row}'s answer is not bitwise the "
+                  "batched search's row")
+            s_s, s_i = single[int(row)]
+            check(np.allclose(res.scores, s_s, rtol=RTOL, atol=ATOL),
+                  f"serve {qps}/s: row {row} beyond tolerance of its one-"
+                  f"query search (max |d| {np.abs(res.scores - s_s).max()})")
+            bitwise_single += int(np.array_equal(res.scores, s_s)
+                                  and np.array_equal(res.indices, s_i))
+        mix = {}
+        for r in served:
+            mix[r.tier] = mix.get(r.tier, 0) + 1
+        n_primary = mix.get("primary", 0)
+        # In the server: enqueue to answer. Before it: the event loop was
+        # busy (a launch, a collection) when the request was due.
+        in_server = np.array([r.latency_ms for r in results
+                              if isinstance(r, ServeResult)])
+        late = lat[[isinstance(r, ServeResult) for r in results]] - in_server
+        out[f"{int(qps)}"] = dict(
+            p50_ms=float(np.percentile(lat, 50)),
+            p99_ms=float(np.percentile(lat, 99)), launches=st.launches,
+            flushes=st.flushes, buckets=dict(sorted(
+                st.bucket_launches.items())), tier_mix=mix, shed=st.shed,
+            primary_bitwise_batched=n_primary,
+            primary_bitwise_single=bitwise_single,
+            in_server_p99_ms=float(np.percentile(in_server, 99)),
+            enqueue_delay_max_ms=float(late.max()),
+            gc_pauses=len(pauses), gc_max_ms=max(pauses, default=0.0),
+            kernel_launches=nonzero(counts))
+        print(f"phase 10: serve {SERVE_REQUESTS} requests open-loop at "
+              f"{qps:g}/s: latency p50 {np.percentile(lat, 50):.3f} ms, "
+              f"p99 {np.percentile(lat, 99):.3f} ms (in the server: p99 "
+              f"{np.percentile(in_server, 99):.3f} ms; enqueued late by up "
+              f"to {late.max():.3f} ms); launches {st.launches}, "
+              f"flushes {st.flushes}, buckets "
+              f"{dict(sorted(st.bucket_launches.items()))}, tiers {mix}, "
+              f"shed {st.shed}; {len(pauses)} garbage-collector pauses, the "
+              f"longest {max(pauses, default=0.0):.3f} ms; the {n_primary} "
+              "primary answers bitwise the "
+              f"batched search's rows, {bitwise_single} of them bitwise "
+              f"the one-query search too (all within rtol {RTOL} atol "
+              f"{ATOL}); kernel launches {nonzero(counts)}", flush=True)
+    return out, index
+
+
+class LaunchRecorder:
+    """A launch hook around another (the chaos injector): records each
+    launch that returns, with its tier, padded batch and result."""
+
+    def __init__(self, inner):
+        self.inner, self.launches = inner, []
+
+    def __call__(self, launch_fn, tier, q_ids, q_w):
+        out = self.inner(launch_fn, tier, q_ids, q_w)
+        self.launches.append((tier.name, q_ids.copy(), q_w.copy(), out))
+        return out
+
+
+def phase10_chaos(index, host_corpus, runs):
+    """Phase 10 (c): the seeded schedule replayed twice on the same
+    deterministic traffic (groups of CHAOS_GROUP concurrent requests, one
+    group at a time): the same tiers and the same bits; every launch's
+    rows bitwise its tier's own index on the same padded batch."""
+    host_ids, host_w = host_corpus.ids.numpy(), host_corpus.w.numpy()
+    req_rows = np.random.default_rng(SEED + 10).integers(0, N_DOCS,
+                                                         SERVE_REQUESTS)
+    schedule = ChaosSchedule.from_seed(0, horizon=512, p_fail=0.1)
+    replays = []
+    for rep in range(2):
+        chaos = ChaosInjector(schedule)
+        hook = LaunchRecorder(chaos)
+        server = EmdServer(index, serve_policy(), launch_hook=hook)
+
+        async def go():
+            async with server:
+                res = []
+                for s in range(0, len(req_rows), CHAOS_GROUP):
+                    res += await asyncio.gather(*[
+                        server.search(host_ids[r], host_w[r])
+                        for r in req_rows[s:s + CHAOS_GROUP]],
+                        return_exceptions=True)
+                return res
+        zero_counts()
+        results = asyncio.run(go())
+        torch.cuda.synchronize()
+        runs[f"chaos.{rep}"] = counts = read_counts()
+        replays.append((results, chaos.log, hook.launches, server))
+    (res_a, log_a, launches, server), (res_b, log_b, _, _) = replays
+    check(log_a == log_b, "chaos: the two replays' attempt logs differ")
+    tiers = []
+    for a, b in zip(res_a, res_b):
+        check(type(a) is type(b), "chaos: a request served once, shed once")
+        if isinstance(a, ServeResult):
+            check(a.tier == b.tier and np.array_equal(a.scores, b.scores)
+                  and np.array_equal(a.indices, b.indices),
+                  "chaos: the two replays answered a request differently")
+            tiers.append(a.tier)
+        else:
+            check(isinstance(a, ServerOverloaded), f"chaos: {a!r}")
+            tiers.append("SHED")
+    own = {b.tier.name: b.index for b in server._gen.tiers}
+    for name, q_ids, q_w, (scores, idx) in launches:
+        s, i = own[name].search(q_ids, q_w)
+        check(np.array_equal(scores, s.cpu().numpy())
+              and np.array_equal(idx, i.cpu().numpy()),
+              f"chaos: a {name} launch is not bitwise its tier's own index "
+              "on the same padded batch")
+    mix = {t: tiers.count(t) for t in sorted(set(tiers))}
+    st = server.stats
+    counts = runs["chaos.0"]
+    check(counts["dist_topk"] > 0 and counts["act_phase2_gather"] > 0,
+          f"chaos: launches {nonzero(counts)}")
+    if "fast" in mix:
+        check(counts["cand_pour_rows.pour_iters0"] > 0
+              and counts["cand_pour_rows.pour"] > 0,
+              f"chaos: the fast tier's launches {nonzero(counts)}")
+    injected = sum(1 for e in log_a if e[2] == "fail")
+    print(f"phase 10: chaos from_seed(0, horizon=512, p_fail=0.1), "
+          f"{len(req_rows)} requests in groups of {CHAOS_GROUP}, twice: "
+          f"identical tiers and bits; tiers {mix}; {injected} injected "
+          f"failures, {st.launch_failures} launch failures, {st.launches} "
+          f"launches, shed {st.shed}; every one of the {len(launches)} "
+          f"launches bitwise its tier's own index on the same batch; "
+          f"kernel launches {nonzero(counts)}", flush=True)
+    return dict(tier_mix=mix, injected=injected,
+                launch_failures=st.launch_failures, launches=st.launches,
+                shed=st.shed, deterministic=True)
+
+
+def serve_queries(server, q_host_ids, q_host_w):
+    """The 16 queries through a fresh run of ``server``, one batch."""
+    async def go():
+        async with server:
+            return await asyncio.gather(*[
+                server.search(a, b) for a, b in zip(q_host_ids, q_host_w)])
+    return asyncio.run(go())
+
+
+def same_answers(a, b):
+    return all(x.generation == y.generation and x.tier == y.tier
+               and np.array_equal(x.scores, y.scores)
+               and np.array_equal(x.indices, y.indices)
+               for x, y in zip(a, b, strict=True))
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def phase10_lifecycle(index, lsh_index, host_corpus, rows, dev, runs):
+    """Phase 10 (d): mutations, snapshot and restore on the card; a
+    corrupt newest snapshot falls back; a sourced primary restores its
+    tables bitwise without a refit."""
+    host_ids, host_w = host_corpus.ids.numpy(), host_corpus.w.numpy()
+    qi, qw = host_ids[rows], host_w[rows]
+    rng = np.random.default_rng(SEED + 20)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        server = EmdServer(index, serve_policy())
+        add = rng.choice(N_DOCS, LIFE_APPEND, replace=False)
+        new_ids = server.append(host_ids[add], host_w[add])
+        p1 = snapshot(server, d)                               # gen 1
+        drop = rng.choice(np.concatenate([np.arange(N_DOCS), new_ids]),
+                          LIFE_DELETE, replace=False)
+        check(server.delete(drop) == LIFE_DELETE, "delete miscounted")
+        t0 = time.perf_counter()
+        p2 = snapshot(server, d)                               # gen 2
+        save_s = time.perf_counter() - t0
+        zero_counts()
+        before = serve_queries(server, qi, qw)
+        torch.cuda.synchronize()
+        runs["lifecycle"] = counts = read_counts()
+        check(counts["dist_topk"] > 0 and counts["act_phase2_gather"] > 0,
+              f"lifecycle: launches {nonzero(counts)}")
+        t0 = time.perf_counter()
+        restored = restore_server(d, serve_policy(), device=dev)
+        restore_s = time.perf_counter() - t0
+        check(restored.generation == server.generation == 2
+              and np.array_equal(restored.doc_ids, server.doc_ids),
+              "lifecycle: the restored server's generation or ids differ")
+        after = serve_queries(restored, qi, qw)
+        check(same_answers(before, after),
+              "lifecycle: the restored server's answers are not bitwise")
+        corrupt_checkpoint(p2, leaves=("ids",), seed=1)
+        fallback = restore_latest(d)
+        check(fallback.generation == 1
+              and fallback.corpus.n == N_DOCS + LIFE_APPEND,
+              f"lifecycle: a corrupt newest snapshot fell back to "
+              f"generation {fallback.generation}")
+        out.update(snapshot_bytes=dir_bytes(p2), save_s=save_s,
+                   restore_s=restore_s, generation=2, fallback=1)
+        del p1
+        # A sourced primary: its tables restore bitwise, with no refit.
+        lsh_server = EmdServer(lsh_index, serve_policy())
+        d2 = os.path.join(d, "lsh")
+        t0 = time.perf_counter()
+        p = snapshot(lsh_server, d2)
+        lsh_save = time.perf_counter() - t0
+        lsh_before = serve_queries(lsh_server, qi, qw)
+        spec_cls = type(lsh_index.source.spec)
+        fit = spec_cls.build
+
+        def refit(*a, **kw):
+            raise AssertionError("restore refit the candidate source")
+        spec_cls.build = refit
+        try:
+            t0 = time.perf_counter()
+            lsh_restored = restore_server(d2, serve_policy(), device=dev)
+            lsh_restore = time.perf_counter() - t0
+        finally:
+            spec_cls.build = fit
+        src = lsh_restored._gen.tiers[0].index.source
+        check(all(torch.equal(a, b) for a, b in zip(
+            src.leaves(), lsh_index.source.leaves(), strict=True)),
+              "lifecycle: the restored source's tables are not bitwise")
+        check(same_answers(lsh_before, serve_queries(lsh_restored, qi, qw)),
+              "lifecycle: the restored sourced server's answers differ")
+        out["lsh"] = dict(snapshot_bytes=dir_bytes(p), save_s=lsh_save,
+                          restore_s=lsh_restore,
+                          source_leaves=len(src.leaves()))
+    print(f"phase 10: lifecycle: appended {LIFE_APPEND}, deleted "
+          f"{LIFE_DELETE} by external id; snapshot of generation 2 "
+          f"{out['snapshot_bytes'] / 1e6:.1f} MB in {save_s:.3f} s, "
+          f"restore_server {restore_s:.3f} s, the {NQ} queries bitwise the "
+          "same at the same generation; the newest snapshot corrupted, "
+          "restore_latest fell back to generation 1; the LSH-sourced "
+          f"primary: snapshot {out['lsh']['snapshot_bytes'] / 1e6:.1f} MB "
+          f"in {lsh_save:.3f} s, restore {lsh_restore:.3f} s with no refit, "
+          f"its {out['lsh']['source_leaves']} tables bitwise, answers "
+          "bitwise", flush=True)
+    return out
+
+
+def phase10(host_corpus, corpus, q_ids, q_w, rows, dev):
+    """Phase 10: the serving path: sourced cascades, EmdServer under load
+    and under chaos, snapshots. Returns its numbers and the launch counts
+    of its runs."""
+    t_start = time.perf_counter()
+    runs, results = {}, {}
+    results["sourced"], lsh_index = phase10_sourced(
+        host_corpus, corpus, q_ids, q_w, rows, dev, runs)
+    results["serve"], index = phase10_serve(host_corpus, dev, runs)
+    results["chaos"] = phase10_chaos(index, host_corpus, runs)
+    results["lifecycle"] = phase10_lifecycle(index, lsh_index, host_corpus,
+                                             rows, dev, runs)
+    results["seconds"] = time.perf_counter() - t_start
+    print(f"phase 10: done in {results['seconds']:.1f} s", flush=True)
+    return results, runs
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
 
@@ -2262,6 +2798,13 @@ def main():
     p9, p9_kernels, p9_runs = phase9(host_corpus, corpus, q_ids, q_w, rows,
                                      dev)
 
+    # Phase 10: the serving path.
+    p10, p10_runs = phase10(host_corpus, corpus, q_ids, q_w, rows, dev)
+
+    def p10_launches(kname):
+        """The kernel's launches in each run of phase 10 that made any."""
+        return {r: c[kname] for r, c in p10_runs.items() if c[kname]}
+
     def chunk_times(kname):
         """The kernel's times at the first all-pairs chunk of each
         corpus."""
@@ -2272,7 +2815,10 @@ def main():
         {"name": "dist_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/dist_topk.cu",
          "replaces": "src/repro/kernels/dist_topk.py:121",
-         "launches": launches["act"]["dist_topk"], "max_abs_err": k1_err,
+         "launches": launches["act"]["dist_topk"]
+         + sum(p10_launches("dist_topk").values()),
+         "launches_phase10": p10_launches("dist_topk"),
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1_lib,
          "ms_all_valid": k1_all_ms, "bound_ms_all_valid": k1_all_bound,
@@ -2289,14 +2835,16 @@ def main():
         {"name": "act_phase2_gather", "route": "cuda",
          "source": "src/repro_torch/csrc/act_phase2.cu",
          "replaces": "src/repro/kernels/act_phase2.py:73",
-         "launches": launches["act"]["act_phase2_gather"],
+         "launches": launches["act"]["act_phase2_gather"]
+         + sum(p10_launches("act_phase2_gather").values()),
+         "launches_phase10": p10_launches("act_phase2_gather"),
          "max_abs_err": kg_err, "ms": kg_ms, "plain_ms": kg_plain,
          "bound_ms": kg_bound, "bound_by": kg_by, "library_ms": None,
          "all_pairs_chunk": chunk_times("act_phase2_gather")},
     ]
-    # The main path's runs: the phase-3 searches, the cascades and the
-    # phase-8 all-pairs and searches.
-    runs = {**launches, **cascade_counts, **p8_runs}
+    # The main path's runs: the phase-3 searches, the cascades, the
+    # phase-8 all-pairs and searches and the phase-10 serving path.
+    runs = {**launches, **cascade_counts, **p8_runs, **p10_runs}
     for name, (k_ms, p_ms, b_ms, b_by, l_ms) in cand_times.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -2341,6 +2889,7 @@ def main():
             "launches": p9_launches[name], **t})
     print(json.dumps({"phase8": p8}))
     print(json.dumps({"phase9": p9}))
+    print(json.dumps({"phase10": p10}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -128,6 +128,14 @@ class EngineConfig:
         return None if self.cascade is None else resolve_spec(self.cascade)
 
     @property
+    def source_spec(self):
+        """The cascade's candidate-source spec (``repro_torch.candidates``),
+        or ``None`` when unsourced or without a cascade: the build
+        parameters ``EmdIndex.build`` builds the stage-1 index from."""
+        cspec = self.cascade_spec
+        return None if cspec is None else cspec.source
+
+    @property
     def effective_iters(self) -> int:
         """Phase-2 rounds actually run (0 for methods other than act)."""
         return self.iters if self.spec.uses_iters else 0

@@ -8,6 +8,10 @@ batches, on one device.
     S = index.all_pairs()                      # n x n symmetric matrix
     p = index.precision_at_l(labels, 8)        # corpus-as-queries
 
+When the config's cascade names a sublinear candidate source
+(``repro_torch.candidates``), ``build`` fits its index on the host once and
+``search`` passes the built source to the cascade.
+
 The index lives on a CUDA device unless the caller asks for the CPU. A
 single query runs through the single-query engine
 (``retrieval.query_scores``, float32 whatever the precision policy), a
@@ -18,12 +22,13 @@ single-query engine), as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.api.config import EngineConfig
-from repro_torch.cascade import cascade_search
+from repro_torch.cascade import cascade_search, resolve_spec
 from repro_torch.core import retrieval
 from repro_torch.core.lc import Corpus
 
@@ -44,12 +49,29 @@ def _to_tensor(x, dtype, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+def _placed_source(config: EngineConfig, corpus: Corpus, source, device):
+    """The built candidate source of ``config``'s cascade on ``device``:
+    ``source`` when given (it must match the config's source spec), else
+    fitted over ``corpus`` on the host; ``None`` when the cascade is
+    unsourced or full-scan."""
+    src_spec = config.source_spec
+    if src_spec is None or src_spec.full_scan:
+        return None
+    if source is None:
+        source = src_spec.build(corpus)
+    elif source.spec != src_spec:
+        raise ValueError(f"injected source {source.spec.describe()} does "
+                         f"not match config's {src_spec.describe()}")
+    return source.to(device)
+
+
 @dataclasses.dataclass(frozen=True, repr=False)
 class EmdIndex:
     """Immutable handle over a corpus placed on its device. Construct via
     :meth:`build`."""
     corpus: Corpus
     config: EngineConfig
+    _source: Any = None
 
     def __repr__(self) -> str:
         c = self.corpus
@@ -59,11 +81,21 @@ class EmdIndex:
 
     @classmethod
     def build(cls, corpus: Corpus, config: EngineConfig | None = None,
-              device=None) -> "EmdIndex":
+              device=None, *, mesh=None, source=None) -> "EmdIndex":
         """Place ``corpus`` on ``device`` (default ``"cuda"``). Without a
         CUDA device the caller must ask for ``device="cpu"``, which runs
-        the kernels' plain PyTorch versions."""
+        the kernels' plain PyTorch versions.
+
+        When the config's cascade names a sublinear candidate source, its
+        index is built here from ``corpus`` (the host-side fit runs once
+        per build) and placed on ``device`` beside the corpus. ``source``
+        injects an already-built source instead (a snapshot restore); it
+        must match ``config.source_spec``. ``mesh`` (the JAX package's
+        distributed backend) is not yet ported (ROADMAP Queue 1 item 6)."""
         config = EngineConfig() if config is None else config
+        if mesh is not None:
+            raise ValueError("EmdIndex.build(mesh=...) is not yet ported: "
+                             "the mesh is ROADMAP Queue 1 item 6")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("EmdIndex.build places the index on "
@@ -71,12 +103,19 @@ class EmdIndex:
                                    "available; pass device='cpu' to run on "
                                    "the CPU")
             device = "cuda"
-        return cls(corpus=corpus.to(device), config=config)
+        return cls(corpus=corpus.to(device), config=config,
+                   _source=_placed_source(config, corpus, source, device))
 
     @property
     def n(self) -> int:
         """Number of database histograms."""
         return self.corpus.n
+
+    @property
+    def source(self):
+        """The built candidate source feeding cascade stage 1 (``None``
+        when the config's cascade is unsourced or full-scan)."""
+        return self._source
 
     def _check_queries(self, q_ids, q_w):
         """Validate query input and bring it to a ``(nq, h)`` batch on the
@@ -135,6 +174,9 @@ class EmdIndex:
         qi, qw, single = self._check_queries(q_ids, q_w)
         res = cascade_search(self.corpus, qi, qw, cascade, top_l,
                              engine=self.config.batch_engine,
+                             source=(self._source
+                                     if resolve_spec(cascade).sourced
+                                     else None),
                              **self.config.cascade_knobs())
         if single:
             return res.scores[0], res.indices[0]
@@ -178,6 +220,13 @@ class EmdIndex:
 
     def with_config(self, **changes) -> "EmdIndex":
         """This index's corpus, already placed, under a config with
-        ``changes`` applied (``dataclasses.replace``)."""
-        return EmdIndex(corpus=self.corpus,
-                        config=dataclasses.replace(self.config, **changes))
+        ``changes`` applied (``dataclasses.replace``). An already-built
+        candidate source is reused when the new config keeps the same
+        source spec (the host-side fit does not rerun for an unrelated knob
+        change)."""
+        config = dataclasses.replace(self.config, **changes)
+        reuse = (self._source if self._source is not None
+                 and config.source_spec == self._source.spec else None)
+        return EmdIndex(corpus=self.corpus, config=config,
+                        _source=_placed_source(config, self.corpus, reuse,
+                                               self.corpus.device))

@@ -1,17 +1,20 @@
 """Cascaded search: prune with cheap bounds, rescore the survivors.
 
 One search is a ladder of ``(method, budget)`` stages (``CascadeSpec``):
-stage 1 scores the FULL corpus through the registry's batched engine and
-keeps its ``budget`` best rows per query; every later stage scores only
-the surviving candidates through the method's candidate-compacted engine
-(``retrieval.cand_scores``: Phase 1 unchanged, Phase 2/3 gathered from a
-``(nq, budget)`` sub-corpus); the final rescorer ranks the last survivors
-and the top-l comes from ITS scores, mapped back to global row ids.
+stage 1 scores the FULL corpus through the registry's batched engine (or,
+when the spec names a sublinear candidate source, ``repro_torch.
+candidates``, only the rows the built source emits, through the candidate
+engines) and keeps its ``budget`` best rows per query; every later stage
+scores only the surviving candidates through the method's
+candidate-compacted engine (``retrieval.cand_scores``: Phase 1 unchanged,
+Phase 2/3 gathered from a ``(nq, budget)`` sub-corpus); the final rescorer
+ranks the last survivors and the top-l comes from ITS scores, mapped back
+to global row ids.
 
 The port's own copy of the JAX package's ``cascade/search.py``. Stages run
 eagerly, one after the other; the exact ``emd`` rescorer prunes on the
-device and rescores on the host. Candidate sources and the shard-blocked
-top-budget of the mesh (``topk_blocks > 1``) are not yet ported and raise.
+device and rescores on the host. The shard-blocked top-budget of the mesh
+(``topk_blocks > 1``) is not yet ported and raises.
 """
 from __future__ import annotations
 
@@ -46,12 +49,38 @@ def topk_smallest(scores: torch.Tensor, k: int, blocks: int = 1):
     return values[..., :k], idx[..., :k]
 
 
+def _source_budgets(spec: CascadeSpec, budgets: tuple[int, ...],
+                    width: int, top_l: int) -> tuple[int, ...]:
+    """Clamp the resolved budget ladder to a sourced stage 1's candidate
+    ``width``: the source already pruned below any larger budget."""
+    if width < top_l:
+        raise ValueError(
+            f"candidate source emits {width} rows per query, fewer than "
+            f"top_l={top_l} ({spec.describe()})")
+    return tuple(min(b, width) for b in budgets)
+
+
+def _resolved_budgets(spec: CascadeSpec, source, n: int,
+                      top_l: int) -> tuple[int, ...]:
+    """Budget ladder for one search: fraction resolution, and sourced
+    clamping to the built source's candidate width."""
+    budgets = spec.resolve_budgets(n, top_l)
+    if source is not None and not source.spec.full_scan:
+        budgets = _source_budgets(spec, budgets, source.width, top_l)
+    return budgets
+
+
 def stage_rows(spec: CascadeSpec, n: int, top_l: int) -> dict[str, int]:
     """Rows scored per query by each stage of ``spec`` on an ``n``-row
-    corpus: stage 1 reads the full corpus, later stages and the rescorer
-    read the previous stage's survivors (the budget ladder)."""
+    corpus: stage 1 reads the full corpus (or, sourced, only the source's
+    candidate width), later stages and the rescorer read the previous
+    stage's survivors (the budget ladder)."""
     budgets = spec.resolve_budgets(n, top_l)
-    rows, prev = {}, n
+    prev = n
+    if spec.sourced and spec.source.width is not None:
+        prev = min(spec.source.width, n)
+        budgets = _source_budgets(spec, budgets, prev, top_l)
+    rows = {}
     for i, s in enumerate(spec.stages):
         rows[f"stage{i + 1}.{s.method}"] = prev
         prev = budgets[i]
@@ -59,31 +88,57 @@ def stage_rows(spec: CascadeSpec, n: int, top_l: int) -> dict[str, int]:
     return rows
 
 
+def _masked(scores: torch.Tensor, cmask) -> torch.Tensor:
+    """Push the scores of dead candidate slots to the sentinel, so they
+    rank last (``cmask`` None: every slot is a real row)."""
+    return scores if cmask is None else torch.where(cmask, scores,
+                                                    lc.PAD_DIST)
+
+
 def _prune(corpus: lc.Corpus, Q_ids: torch.Tensor, Q_w: torch.Tensor,
            spec: CascadeSpec, budgets: tuple[int, ...], *, n_valid,
-           topk_blocks, engine, **knobs) -> torch.Tensor:
-    """Run the pruning ladder; returns the (nq, budgets[-1]) global row
-    ids surviving every stage. Stage 1 scores the full corpus with the
-    ``engine`` of ``retrieval.batch_scores``."""
+           topk_blocks, engine, source=None, **knobs):
+    """Run the pruning ladder; returns ``(cand, cmask)``: the
+    (nq, budgets[-1]) global row ids surviving every stage, and their
+    validity mask when stage 1 was fed by a sublinear source (``None`` on
+    the full-scan path, where every survivor is a real row).
+
+    Full scan: stage 1 scores the full corpus with the ``engine`` of
+    ``retrieval.batch_scores``. A sourced stage 1 scores only the source's
+    candidate rows through the candidate engine, with the dead slots (rows
+    of under-full buckets, which the tables fill with row 0) pushed to the
+    sentinel so they rank last; the mask rides along the ladder, because a
+    later stage can still keep one when a query's probed buckets hold fewer
+    real rows than its budget."""
     first = spec.stages[0]
-    s = retrieval.batch_scores(corpus, Q_ids, Q_w, method=first.method,
-                               iters=first.iters, engine=engine, **knobs)
-    _, cand = topk_smallest(lc.mask_pad_rows(s, n_valid), budgets[0],
-                            topk_blocks)
-    for stage, b in zip(spec.stages[1:], budgets[1:], strict=True):
+    if source is None or source.spec.full_scan:
+        s = retrieval.batch_scores(corpus, Q_ids, Q_w, method=first.method,
+                                   iters=first.iters, engine=engine,
+                                   **knobs)
+        _, cand = topk_smallest(lc.mask_pad_rows(s, n_valid), budgets[0],
+                                topk_blocks)
+        cmask, stages = None, zip(spec.stages[1:], budgets[1:], strict=True)
+    else:
+        cand, cmask = source.candidates(corpus, Q_ids, Q_w)
+        cand = cand.long()
+        stages = zip(spec.stages, budgets, strict=True)
+    for stage, b in stages:
         sc = retrieval.cand_scores(corpus, Q_ids, Q_w, cand,
                                    method=stage.method, iters=stage.iters,
                                    **knobs)
-        _, pos = topk_smallest(sc, b)
+        _, pos = topk_smallest(_masked(sc, cmask), b)
         cand = torch.gather(cand, 1, pos)
-    return cand
+        if cmask is not None:
+            cmask = torch.gather(cmask, 1, pos)
+    return cand, cmask
 
 
 def cascade_search(corpus: lc.Corpus, Q_ids: torch.Tensor,
                    Q_w: torch.Tensor, spec: CascadeSpec | str, top_l: int,
                    *, n_valid: int | None = None, topk_blocks: int = 1,
                    engine: str = "batched", use_kernels: bool = False,
-                   block_q: int = 8, precision: str = "f32") -> CascadeResult:
+                   block_q: int = 8, precision: str = "f32",
+                   source=None) -> CascadeResult:
     """Cascaded top-l search of a ``(nq, h)`` query batch.
 
     ``spec`` is a :class:`~repro_torch.cascade.spec.CascadeSpec` or a
@@ -96,25 +151,48 @@ def cascade_search(corpus: lc.Corpus, Q_ids: torch.Tensor,
     (``kernels/cand_pour``). ``precision`` reaches every stage and device
     rescorer (under ``bf16_agg`` the kernels' coordinates are bfloat16 and
     the distance handoffs' products have bfloat16 operands).
+
+    ``source`` is a BUILT candidate source (``spec.source.build(corpus)``,
+    or the one ``EmdIndex.build`` keeps), required when ``spec.sourced``:
+    stage 1 then scores only the sourced candidates, at the price of
+    measured recall.
     """
     spec = resolve_spec(spec)
+    if spec.sourced:
+        if source is None:
+            raise ValueError(
+                f"cascade {spec.describe()} is sourced but no built "
+                "candidate source was passed; build one with "
+                "spec.source.build(corpus) (EmdIndex does this for you)")
+        if source.spec != spec.source:
+            raise ValueError(
+                f"built source {source.spec.describe()} does not match "
+                f"the cascade's source spec {spec.source.describe()}")
+    elif source is not None and not source.spec.full_scan:
+        raise ValueError(
+            f"a {source.spec.describe()} source was passed but cascade "
+            f"{spec.describe()} does not declare one (set "
+            "CascadeSpec.source so admissibility accounting sees it)")
     knobs = dict(use_kernels=use_kernels, block_q=block_q,
                  precision=precision)
     if top_l < 1:
         raise ValueError(f"top_l must be >= 1, got {top_l}")
     n = n_valid if n_valid is not None else corpus.n
-    budgets = spec.resolve_budgets(n, top_l)
-    cand = _prune(corpus, Q_ids, Q_w, spec, budgets, n_valid=n_valid,
-                  topk_blocks=topk_blocks, engine=engine, **knobs)
+    budgets = _resolved_budgets(spec, source, n, top_l)
+    cand, cmask = _prune(corpus, Q_ids, Q_w, spec, budgets, n_valid=n_valid,
+                         topk_blocks=topk_blocks, engine=engine,
+                         source=source, **knobs)
     resc = rescore.resolve(spec.rescorer)
     if resc.jittable:
         rescored = resc.fn(corpus, Q_ids, Q_w, cand,
                            iters=spec.rescorer_iters, **knobs)
-        vals, pos = topk_smallest(rescored, top_l)
+        vals, pos = topk_smallest(_masked(rescored, cmask), top_l)
         return CascadeResult(vals, torch.gather(cand, 1, pos))
     # Host rescorer (exact emd): device pruning, numpy rescoring.
     cand = cand.cpu().numpy()
     rescored = resc.host_fn(corpus, Q_ids, Q_w, cand)
+    if cmask is not None:
+        rescored = np.where(cmask.cpu().numpy(), rescored, lc.PAD_DIST)
     pos = np.argsort(rescored, axis=1, kind="stable")[:, :top_l]
     device = corpus.device
     return CascadeResult(

@@ -20,13 +20,14 @@ with full scoring is an empirical recall number, which the API surfaces
 ``benchmarks/bench_cascade.py``; here ``cascade.topk_recall``).
 
 This is the port's own copy of the JAX package's ``cascade/spec.py``,
-validated against the port's ``METHODS`` and rescorers. Candidate sources
-(``CascadeSpec.source``) are not yet ported: a spec that names one raises.
+validated against the port's ``METHODS``, rescorers and candidate sources
+(``repro_torch.candidates``).
 """
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.candidates import SourceSpec, resolve_source
 from repro_torch.core.retrieval import METHODS
 
 #: The paper's directional bound chain, loosest to tightest (Theorem 2:
@@ -126,33 +127,40 @@ class CascadeSpec:
                     ``repro_torch.cascade.rescore`` (``sinkhorn``, exact
                     ``emd``; the latter runs host-side).
     rescorer_iters: LC-ACT rounds when the rescorer is ``act``.
-    source:         where stage 1's candidates come from. Only ``None``
-                    (the whole corpus) is ported; candidate sources
-                    raise ``ValueError`` "not yet ported".
+    source:         where stage 1's candidates come from: ``None`` or a
+                    full-scan source = the whole corpus (the O(n) path,
+                    bitwise unchanged); a sublinear ``SourceSpec``
+                    (``repro_torch.candidates``; registered names like
+                    ``"centroid_lsh"`` resolve with their defaults) =
+                    stage 1 scores only the rows the built index emits,
+                    which forces measured-recall reporting.
 
     Hashable, so it rides inside ``repro_torch.api.EngineConfig``.
     """
     stages: tuple[CascadeStage, ...]
     rescorer: str = "act"
     rescorer_iters: int = 1
-    source: object = None
+    source: SourceSpec | str | None = None
 
     def __post_init__(self) -> None:
         from repro_torch.cascade import rescore  # late: avoids import cycle
         if self.source is not None:
-            raise ValueError(f"CascadeSpec.source={self.source!r} is not "
-                             "yet ported: candidate sources are not in "
-                             "this package; stage 1 scores the full corpus")
+            object.__setattr__(self, "source", resolve_source(self.source))
         if not self.stages:
             raise ValueError("a cascade needs at least one pruning stage")
         # Stage 1 scores the full corpus through batch_scores; only the
-        # later stages run candidate-compacted.
-        for s in self.stages[1:]:
+        # later stages run candidate-compacted, unless a sublinear source
+        # feeds stage 1, which then compacts too.
+        sourced = self.sourced
+        for s in self.stages[1:] if not sourced else self.stages:
             if METHODS[s.method].cand_fn is None:
                 raise ValueError(
                     f"stage method {s.method!r} has no candidate-compacted "
                     "scorer (MethodSpec.cand_fn); it cannot prune "
-                    "survivors (only the first stage scores full-corpus)")
+                    + ("sourced candidates (a sublinear source makes "
+                       "EVERY stage candidate-compacted)" if sourced else
+                       "survivors (only the first stage scores "
+                       "full-corpus)"))
         rescore.resolve(self.rescorer)         # raises on unknown rescorer
         if self.rescorer_iters < 0:
             raise ValueError("rescorer_iters must be >= 0, "
@@ -167,10 +175,21 @@ class CascadeSpec:
                     f"prunes), got {[s.budget for s in self.stages]}")
 
     @property
+    def sourced(self) -> bool:
+        """True when stage 1 consumes a sublinear candidate source
+        instead of scanning the corpus."""
+        return self.source is not None and not self.source.full_scan
+
+    @property
     def admissible(self) -> bool:
         """True when EVERY stage provably lower-bounds the rescorer —
         the precondition for the exact-top-l guarantee (budgets
-        permitting); False means recall must be measured, not assumed."""
+        permitting); False means recall must be measured, not assumed.
+        A sublinear source can drop a true neighbour before any stage
+        scores it, so only full-scan (or unsourced) cascades can be
+        admissible."""
+        if self.source is not None and not self.source.admissible:
+            return False
         return all(is_lower_bound(s.method, s.iters, self.rescorer,
                                   self.rescorer_iters)
                    for s in self.stages)
@@ -219,13 +238,17 @@ class CascadeSpec:
         self.resolve_budgets(n, top_l)
 
     def describe(self) -> str:
-        """``wcd(20%) -> rwmd(5%) -> act-3`` style one-liner."""
+        """``wcd(20%) -> rwmd(5%) -> act-3`` style one-liner; sourced
+        cascades prefix the source, e.g. ``centroid_lsh[...] ~> ...``."""
         def fmt(b):
             return f"{100 * b:g}%" if isinstance(b, float) else str(b)
         parts = [f"{s.method}({fmt(s.budget)})" for s in self.stages]
         final = self.rescorer + (f"-{self.rescorer_iters}"
                                  if self.rescorer == "act" else "")
-        return " -> ".join(parts + [final])
+        chain = " -> ".join(parts + [final])
+        if self.sourced:
+            return f"{self.source.describe()} ~> {chain}"
+        return chain
 
 
 #: Named cascade presets (``EngineConfig.cascade`` accepts these keys).

@@ -28,10 +28,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build (``nvcc``) or to launch. Typed so callers
+    that retry other errors (the serving runtime) can tell a fault of the
+    program from a transient one."""
+
+
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda; "
+        raise KernelError("nvcc not found on PATH or in /usr/local/cuda; "
                            "the CUDA kernels are built at first use")
     return nvcc
 
@@ -68,7 +74,7 @@ def build(names=SOURCES) -> dict[str, str]:
         else:
             os.replace(tmp, out)    # atomic: concurrent builds agree
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+        raise KernelError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
 

@@ -83,7 +83,7 @@ def act_phase2_cuda(x: torch.Tensor, zg: torch.Tensor,
         hmax, iters, int(zg.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"act_phase2 kernel launch failed: "
+        raise _build.KernelError(f"act_phase2 kernel launch failed: "
                            f"{lib.act_phase2_error(err).decode()}")
     launches += 1
     return t
@@ -110,7 +110,7 @@ def act_phase2_cand_cuda(xg: torch.Tensor, zg: torch.Tensor,
         hmax, iters, int(zg.dtype == torch.bfloat16),
         torch.cuda.current_stream(xg.device).cuda_stream)
     if err:
-        raise RuntimeError(f"act_phase2_cand kernel launch failed: "
+        raise _build.KernelError(f"act_phase2_cand kernel launch failed: "
                            f"{lib.act_phase2_error(err).decode()}")
     cand_launches += 1
     return t
@@ -144,7 +144,7 @@ def act_phase2_gather_cuda(x: torch.Tensor, ids: torch.Tensor,
         int(Z.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"act_phase2_gather kernel launch failed: "
+        raise _build.KernelError(f"act_phase2_gather kernel launch failed: "
                            f"{lib.act_phase2_error(err).decode()}")
     gather_launches += 1
     return t

@@ -219,7 +219,7 @@ def cand_pour_cuda(idsg: torch.Tensor, xg: torch.Tensor, Z: torch.Tensor,
         0 if W is None else W.data_ptr(), t.data_ptr(), nq, b, hmax, v, kz,
         kw, iters, _MODES[mode], int(Z.dtype == torch.bfloat16), _stream(xg))
     if err:
-        raise RuntimeError(f"cand_pour kernel launch failed: "
+        raise _build.KernelError(f"cand_pour kernel launch failed: "
                            f"{lib.cand_pour_error(err).decode()}")
     launches["pour0" if mode == "pour" and iters == 0 else mode] += 1
     return t
@@ -239,7 +239,7 @@ def cand_dist_cuda(idsg: torch.Tensor, xg: torch.Tensor, dq: torch.Tensor,
         t.data_ptr(), nq, b, hmax, v, h, pad_dist_for(torch.float32),
         _MODES[mode], int(dq.dtype == torch.bfloat16), _stream(xg))
     if err:
-        raise RuntimeError(f"cand_dist kernel launch failed: "
+        raise _build.KernelError(f"cand_dist kernel launch failed: "
                            f"{lib.cand_dist_error(err).decode()}")
     launches[mode] += 1
     return t
@@ -264,7 +264,7 @@ def cand_dist_valid_cuda(ids: torch.Tensor, w: torch.Tensor,
         ids.shape[1], dv.stride(0), pad_dist_for(torch.float32),
         _MODES[mode], int(dv.dtype == torch.bfloat16), _stream(w))
     if err:
-        raise RuntimeError(f"cand_dist_valid kernel launch failed: "
+        raise _build.KernelError(f"cand_dist_valid kernel launch failed: "
                            f"{lib.cand_dist_valid_error(err).decode()}")
     valid_launches[mode if cand is not None else f"all_{mode}"] += 1
     return t
@@ -303,7 +303,7 @@ def cand_pour_rows_cuda(ids: torch.Tensor, w: torch.Tensor,
         0 if wk is None else wk.stride(1), t.data_ptr(), nq, cols, hmax,
         iters, _MODES[mode], int(Z.dtype == torch.bfloat16), _stream(w))
     if err:
-        raise RuntimeError(f"cand_pour_rows kernel launch failed: "
+        raise _build.KernelError(f"cand_pour_rows kernel launch failed: "
                            f"{lib.cand_pour_rows_error(err).decode()}")
     key = "pour0" if mode == "pour" and iters == 0 else mode
     rows_launches[key if cand is not None else f"all_{key}"] += 1

@@ -103,7 +103,7 @@ def dist_topk_cuda(coords: torch.Tensor, qcs: torch.Tensor,
         int(coords.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(coords.device).cuda_stream)
     if err:
-        raise RuntimeError(f"dist_topk kernel launch failed: "
+        raise _build.KernelError(f"dist_topk kernel launch failed: "
                            f"{lib.dist_topk_error(err).decode()}")
     launches += 1
     return z, s

@@ -1,0 +1,231 @@
+"""Crash-safe index lifecycle: snapshot / restore / recover.
+
+A serving snapshot is one checkpoint step written through
+``checkpoint/store``'s atomic manifest protocol (tmp + rename, SHA-256 per
+leaf), keyed by the server's GENERATION counter, holding:
+
+* the corpus tables ``ids``, ``w``, ``coords``: nothing else is needed to
+  rebuild every engine;
+* the corpus manifest: the external ``doc_ids`` row map and the next id to
+  assign, so append/delete history survives a restart;
+* the primary tier's built candidate source, as ``source/0``,
+  ``source/1``, ... in its ``leaves()`` order, so a restore skips the
+  host-side fit;
+* the frozen ``EngineConfig`` (cascade spec and source spec included),
+  JSON-encoded in the checkpoint's ``extra`` block.
+
+The format is the JAX package's (``repro/serving/lifecycle.py``), so a
+snapshot written by either package restores in the other: the store's
+files are the same bytes, the source leaves come in the same order, and
+the config codec writes the JAX package's backend names (the port's
+``cuda`` is the JAX package's ``pallas``).
+
+``restore_server`` rebuilds a serving runtime from the newest snapshot
+that passes integrity verification: a corrupt or torn newest snapshot
+(``CheckpointCorrupt``) falls back to the previous generation instead of
+refusing to serve.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.api.config import EngineConfig
+from repro_torch.api.index import EmdIndex
+from repro_torch.candidates import SOURCES, SourceSpec
+from repro_torch.cascade.spec import CascadeSpec, CascadeStage
+from repro_torch.checkpoint import store
+from repro_torch.checkpoint.store import CheckpointCorrupt
+from repro_torch.core.lc import Corpus
+from repro_torch.serving.policy import ServingPolicy
+from repro_torch.serving.server import EmdServer
+
+#: Leaf names of a serving snapshot (the ``like`` tree for store.restore is
+#: reconstructed from the manifest, so restore needs no prior shapes).
+SNAPSHOT_LEAVES = ("ids", "w", "coords", "doc_ids")
+
+#: The port's backend names as the JAX package writes them.
+_BACKEND_ON_DISK = {"cuda": "pallas", "reference": "reference"}
+
+
+# ------------------------------------------------------------- config codec
+def config_to_dict(config: EngineConfig) -> dict:
+    """JSON-encodable dict in the JAX package's codec, round-tripping
+    through :func:`config_from_dict` (a CascadeSpec encoded structurally;
+    preset names stay strings)."""
+    d = {f.name: getattr(config, f.name)
+         for f in dataclasses.fields(config)}
+    d["backend"] = _BACKEND_ON_DISK[d["backend"]]
+    c = d["cascade"]
+    if isinstance(c, CascadeSpec):
+        source = None
+        if isinstance(c.source, SourceSpec):
+            source = dict(kind=c.source.kind,
+                          **dataclasses.asdict(c.source))
+        d["cascade"] = {
+            "stages": [{"method": s.method, "budget": s.budget,
+                        "iters": s.iters} for s in c.stages],
+            "rescorer": c.rescorer,
+            "rescorer_iters": c.rescorer_iters,
+            "source": source,
+        }
+    return d
+
+
+def config_from_dict(d: dict) -> EngineConfig:
+    d = dict(d)
+    on_disk = {v: k for k, v in _BACKEND_ON_DISK.items()}
+    d["backend"] = on_disk.get(d["backend"], d["backend"])
+    c = d.get("cascade")
+    if isinstance(c, dict):
+        source = c.get("source")
+        if isinstance(source, dict):
+            source = dict(source)
+            source = SOURCES[source.pop("kind")](**source)
+        d["cascade"] = CascadeSpec(
+            stages=tuple(CascadeStage(**s) for s in c["stages"]),
+            rescorer=c["rescorer"],
+            rescorer_iters=c["rescorer_iters"],
+            source=source)
+    return EngineConfig(**d)
+
+
+# ---------------------------------------------------------------- snapshot
+def snapshot(server: EmdServer, ckpt_dir: str) -> str:
+    """Write the server's CURRENT generation as checkpoint step
+    ``generation`` under ``ckpt_dir``; returns the snapshot path.
+    Atomic: a crash mid-save leaves the previous snapshot live."""
+    gen = server._gen
+    tree = {"ids": gen.corpus.ids, "w": gen.corpus.w,
+            "coords": gen.corpus.coords, "doc_ids": gen.doc_ids}
+    # The primary tier's built candidate-source state checkpoints too:
+    # restore then skips the host-side index fit.
+    source_leaves = 0
+    primary = next((t.index for t in gen.tiers
+                    if t.tier.name == "primary"), None)
+    if primary is not None and primary.source is not None:
+        leaves = primary.source.leaves()
+        for i, leaf in enumerate(leaves):
+            tree[f"source/{i}"] = leaf
+        source_leaves = len(leaves)
+    extra = {
+        "kind": "emd-serving-snapshot",
+        "generation": gen.gen,
+        "next_doc_id": server._next_doc_id,
+        "config": config_to_dict(server.config),
+        "corpus_manifest": {"n": gen.corpus.n, "hmax": gen.corpus.hmax,
+                            "v": gen.corpus.v, "m": gen.corpus.m},
+        "source_leaves": source_leaves,
+    }
+    return store.save(ckpt_dir, gen.gen, tree, extra=extra)
+
+
+@dataclasses.dataclass(frozen=True)
+class RestoredSnapshot:
+    """One verified snapshot, ready to build a server from (tables on the
+    CPU)."""
+    corpus: Corpus
+    doc_ids: np.ndarray
+    config: EngineConfig
+    generation: int
+    next_doc_id: int
+    #: The built candidate source checkpointed with the primary tier,
+    #: ``None`` for unsourced configs: feed it to
+    #: ``EmdIndex.build(source=...)`` so restore skips the host-side fit.
+    source: Any = None
+
+
+def _like_from_manifest(manifest: dict) -> dict[str, Any]:
+    """Zero-storage tensors of each leaf's stored shape and dtype (bfloat16
+    through torch: no ``ml_dtypes``), the restore targets."""
+    like = {}
+    n_src = int(manifest.get("extra", {}).get("source_leaves", 0))
+    names = SNAPSHOT_LEAVES + tuple(f"source/{i}" for i in range(n_src))
+    for name in names:
+        try:
+            meta = manifest["leaves"][name]
+            dtype = store.TORCH_DTYPES[meta["dtype"]]
+        except KeyError as e:
+            raise CheckpointCorrupt(
+                f"serving snapshot missing leaf {name!r} or its dtype"
+            ) from e
+        like[name] = torch.empty((), dtype=dtype).expand(meta["shape"])
+    return like
+
+
+def restore_snapshot(ckpt_dir: str,
+                     generation: int | None = None) -> RestoredSnapshot:
+    """Load + verify snapshot ``generation`` (default: newest complete).
+    Raises :class:`~repro_torch.checkpoint.store.CheckpointCorrupt` on torn
+    or corrupt data; see :func:`restore_latest` for the falling-back
+    variant."""
+    if generation is None:
+        generation = store.latest_step(ckpt_dir)
+        if generation is None:
+            raise FileNotFoundError(
+                f"no complete serving snapshot under {ckpt_dir}")
+    manifest = store.load_manifest(ckpt_dir, generation)
+    extra = manifest.get("extra", {})
+    if extra.get("kind") != "emd-serving-snapshot":
+        raise CheckpointCorrupt(
+            f"step {generation} under {ckpt_dir} is not a serving "
+            f"snapshot (kind={extra.get('kind')!r})")
+    tree = store.restore(ckpt_dir, generation,
+                         _like_from_manifest(manifest))
+    config = config_from_dict(extra["config"])
+    source = None
+    n_src = int(extra.get("source_leaves", 0))
+    if n_src:
+        src_spec = config.source_spec
+        if src_spec is None:
+            raise CheckpointCorrupt(
+                f"step {generation} carries {n_src} candidate-source "
+                "leaves but its config declares no source")
+        source = src_spec.wrap(tuple(tree[f"source/{i}"]
+                                     for i in range(n_src)))
+    return RestoredSnapshot(
+        corpus=Corpus(ids=tree["ids"], w=tree["w"], coords=tree["coords"]),
+        doc_ids=tree["doc_ids"].numpy(),
+        config=config,
+        generation=generation,
+        next_doc_id=int(extra["next_doc_id"]),
+        source=source)
+
+
+def restore_latest(ckpt_dir: str) -> RestoredSnapshot:
+    """Newest snapshot that passes FULL integrity verification, walking
+    backwards over generations past any corrupt/torn ones (a crash
+    mid-save, or chaos-injected corruption, costs at most the mutations
+    since the previous snapshot)."""
+    failures = []
+    for generation in reversed(store.steps(ckpt_dir)):
+        try:
+            return restore_snapshot(ckpt_dir, generation)
+        except CheckpointCorrupt as e:
+            failures.append(f"gen {generation}: {e}")
+    raise CheckpointCorrupt(
+        f"no intact serving snapshot under {ckpt_dir}"
+        + (": " + "; ".join(failures) if failures else ""))
+
+
+def restore_server(ckpt_dir: str, policy: ServingPolicy | None = None, *,
+                   generation: int | None = None, mesh=None,
+                   launch_hook=None, device=None) -> EmdServer:
+    """Snapshot -> ready-to-run :class:`EmdServer` (the caller still
+    ``await start()``s it) on ``device`` (default ``"cuda"``, as
+    ``EmdIndex.build``). ``generation=None`` takes the newest INTACT
+    snapshot (corrupt ones skipped). ``mesh`` (restoring onto another
+    device mesh) is not yet ported (ROADMAP Queue 1 item 6)."""
+    if mesh is not None:
+        raise ValueError("restore_server(mesh=...) is not yet ported: the "
+                         "mesh is ROADMAP Queue 1 item 6")
+    snap = (restore_latest(ckpt_dir) if generation is None
+            else restore_snapshot(ckpt_dir, generation))
+    index = EmdIndex.build(snap.corpus, snap.config, device,
+                           source=snap.source)
+    return EmdServer(index, policy, launch_hook=launch_hook,
+                     doc_ids=snap.doc_ids, generation=snap.generation,
+                     next_doc_id=snap.next_doc_id)

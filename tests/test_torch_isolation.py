@@ -46,7 +46,8 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.api, repro_torch.core.lc, "
             "repro_torch.kernels.ops, repro_torch.data.synth, "
-            "repro_torch.cascade; "
+            "repro_torch.cascade, repro_torch.candidates, "
+            "repro_torch.serving, repro_torch.checkpoint; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
