@@ -95,7 +95,20 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
    replayed twice, identical, every launch bitwise its tier's own index on
    the same padded batch; (d) append, delete, snapshot and restore,
    bitwise, the fallback past a corrupt snapshot, and an LSH-sourced
-   primary restored without a refit.
+   primary restored without a refit;
+11. the tiles: (a) every variant of K1, the fused K2, K3's corpus-row
+   entry and the valid-bin K4 that ``analysis/smem.check_launch`` admits
+   (at most ``autotune.MAX_VARIANTS`` a family, in the tuner's order),
+   built together and launched at the shapes of phases 2-8 under float32
+   and bfloat16 ladders: bitwise the default tile's output, the model's
+   shared-memory bytes exactly ``cudaFuncGetAttributes``' static plus the
+   launch's dynamic bytes, its registers under the model's cap; each
+   variant's median ms of 20 launches, its bound and ``ptxas``' spills;
+   (b) ``EmdIndex.build(autotune="force")`` then ``"cached"`` on one tune
+   cache file for act-7 and ``tight``: the cached build times nothing and
+   picks the same tiles, and both search bitwise like the default config;
+   (c) ``python -m repro_torch.analysis.check --passes registry smem``
+   clean; (d) the phase's seconds.
 
 Any failed check exits non-zero before the last line. The last lines are the
 card's name and power limit, a JSON line of the kernels and
@@ -106,6 +119,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import resource
 import statistics
 import subprocess
@@ -136,8 +150,10 @@ from repro_torch.core.lc import Corpus  # noqa: E402
 from repro_torch.core.precision import pad_dist_for  # noqa: E402
 from repro_torch.data.synth import (make_clustered_text,  # noqa: E402
                                     make_image_like)
-from repro_torch.kernels import (_build, act_phase2, cand_pour,  # noqa: E402
-                                 dist_topk, ops)
+from repro_torch.analysis import check as static_check  # noqa: E402
+from repro_torch.analysis import smem  # noqa: E402
+from repro_torch.kernels import (_build, act_phase2, autotune,  # noqa: E402
+                                 cand_pour, dist_topk, ops, timing)
 from repro_torch.serving import (ChaosInjector, ChaosSchedule,  # noqa: E402
                                  EmdServer, ServerOverloaded, ServeResult,
                                  ServingPolicy, corrupt_checkpoint,
@@ -500,14 +516,15 @@ def cand_cases(corpus, q_ids, q_w, wide, narrow, precision):
             *(lambda nbytes, flops: (nbytes, flops + 2 * h * nb))(
                 *work(ids_n, x_n, h, h, 4 * q_w.numel()))),
         "cand_dist_valid.ict": (
-            lambda: ops.cand_ict_valid(corpus.ids, corpus.w, narrow, *valid),
+            lambda **t: ops.cand_ict_valid(corpus.ids, corpus.w, narrow,
+                                           *valid, **t),
             lambda: cand_pour.cand_ict_valid_plain(corpus.ids, corpus.w,
                                                    narrow, *valid),
             # a max scan and one selection pass over the len_q costs
             *valid_work(narrow, 2, 0)),
         "cand_dist_valid.rev_min": (
-            lambda: ops.cand_rev_min_valid(corpus.ids, corpus.w, narrow,
-                                           *valid),
+            lambda **t: ops.cand_rev_min_valid(corpus.ids, corpus.w, narrow,
+                                               *valid, **t),
             lambda: cand_pour.cand_rev_min_valid_plain(corpus.ids, corpus.w,
                                                        narrow, *valid),
             # a min per cost, then len_q products and sums per row
@@ -519,26 +536,28 @@ def cand_cases(corpus, q_ids, q_w, wide, narrow, precision):
             4 * x_n.numel() + int((x_n > 0).sum()) * (2 * ACT3 + 1) * esz
             + 4 * nb, 5 * (ACT3 + 1) * int((x_n > 0).sum())),
         "cand_pour_rows.pour": (
-            lambda: ops.cand_pour_rows(ids, w, narrow, Z4, W4, ACT3),
+            lambda **t: ops.cand_pour_rows(ids, w, narrow, Z4, W4, ACT3,
+                                           **t),
             lambda: cand_pour.cand_pour_rows_plain(ids, w, narrow, Z4, W4,
                                                    ACT3),
             *rows_work(narrow, 2 * ACT3 + 1, 5 * (ACT3 + 1))),
         "cand_pour_rows.pour_iters0": (
-            lambda: ops.cand_pour_rows(ids, w, narrow, Z1, None, 0),
+            lambda **t: ops.cand_pour_rows(ids, w, narrow, Z1, None, 0,
+                                           **t),
             lambda: cand_pour.cand_pour_rows_plain(ids, w, narrow, Z1, None,
                                                    0),
             *rows_work(narrow, 1, 2)),
         "cand_pour_rows.omr": (
-            lambda: ops.cand_omr_rows(ids, w, wide, Z2, W0),
+            lambda **t: ops.cand_omr_rows(ids, w, wide, Z2, W0, **t),
             lambda: cand_pour.cand_omr_rows_plain(ids, w, wide, Z2, W0),
             *rows_work(wide, 3, 4)),
         "cand_pour_rows.all_pour_iters0": (
-            lambda: ops.cand_pour_rows(ids, w, None, Z1, None, 0),
+            lambda **t: ops.cand_pour_rows(ids, w, None, Z1, None, 0, **t),
             lambda: cand_pour.cand_pour_rows_plain(ids, w, None, Z1, None,
                                                    0),
             *rows_work(None, 1, 2)),
         "cand_pour_rows.all_omr": (
-            lambda: ops.cand_omr_rows(ids, w, None, Z2, W0),
+            lambda **t: ops.cand_omr_rows(ids, w, None, Z2, W0, **t),
             lambda: cand_pour.cand_omr_rows_plain(ids, w, None, Z2, W0),
             *rows_work(None, 3, 4)),
     }, (Z1, Dq, ids_n, valid, Z2, W0)
@@ -1494,6 +1513,44 @@ def check_chunk_k4(name, corpus, rows):
     return out
 
 
+def check_chunk_stacked_k4(name, corpus, rows):
+    """Phase 8 (e): the stacked K4 (``csrc/cand_dist.cu``, mode ict, off
+    the path since PR 16) at the chunk of :func:`check_chunk_k4`, each
+    query against the corpus's first ``rows`` rows through the stacked
+    (nq, v, h) handoff, against its plain version and the plain version's
+    float64 value, within the all-pairs band that the valid-bin K4 is held
+    to there. Its pour and sums run in float32."""
+    nq = retrieval.ALL_PAIRS_QUERIES
+    q_ids, q_w = corpus.ids[:nq].contiguous(), corpus.w[:nq].contiguous()
+    dq = lc._rev_handoff(lc.phase1_stacked_dist(corpus.coords, q_ids, q_w))
+    idsg = corpus.ids[:rows][None].expand(nq, -1, -1).contiguous()
+    xg = corpus.w[:rows][None].expand(nq, -1, -1).contiguous()
+    got = ops.cand_ict(idsg, xg, dq, q_w)
+    want = cand_pour.cand_ict_plain(idsg, xg, dq, q_w)
+    exact = cand_pour.cand_ict_plain(idsg, xg.double(), dq, q_w.double())
+    live = (corpus.w > 0).sum(dim=1)
+    band = sum_band(want, live[:nq], live[:rows])
+    row = dict(max_abs_err=(got - want).abs().max().item(),
+               band_share=((got - want).abs() / band).max().item(),
+               f64_err=(got - exact).abs().max().item(),
+               f64_band_share=((got - exact).abs() / band).max().item(),
+               plain_f64_err=(want - exact).abs().max().item())
+    check(bool(((got - want).abs() <= band).all()),
+          f"{name} chunk: the stacked cand_dist.ict beyond the band of its "
+          f"plain version: {excess(got, want, band)}")
+    check(bool(((got - exact).abs() <= band).all()),
+          f"{name} chunk: the stacked cand_dist.ict beyond the band of the "
+          f"float64 value: {excess(got, exact.float(), band)}")
+    print(f"phase 8: {name} chunk nq={nq}: the stacked K4 ict (float32 "
+          f"pour) over {rows} rows vs its plain version max|d| "
+          f"{row['max_abs_err']:.3g} ({row['band_share']:.3g} of the band), "
+          f"vs the float64 value {row['f64_err']:.3g} "
+          f"({row['f64_band_share']:.3g} of the band), the plain version's "
+          f"{row['plain_f64_err']:.3g}", flush=True)
+    del dq, idsg, xg
+    return row
+
+
 def phase8(host_corpus, labels, corpus, q_ids, q_w, rows, dev):
     """Phase 8, the paper's evaluation path. Returns its numbers, those of
     K4's all-rows form for the kernels line, and the launch counts of its
@@ -1532,9 +1589,12 @@ def phase8(host_corpus, labels, corpus, q_ids, q_w, rows, dev):
         else:
             # No dense all-pairs of rwmd_rev / ict: each pair costs 784 x
             # 784 cost reads. K4's all-rows form is held at one chunk.
-            results[f"rev_chunk.{name}"] = check_chunk_k4(
-                name, prefix_corpus(host, retrieval.ALL_PAIRS_QUERIES).to(dev),
-                K4_F64_ROWS)
+            chunk = prefix_corpus(host, retrieval.ALL_PAIRS_QUERIES).to(dev)
+            results[f"rev_chunk.{name}"] = check_chunk_k4(name, chunk,
+                                                         K4_F64_ROWS)
+            results[f"stacked_ict_chunk.{name}"] = check_chunk_stacked_k4(
+                name, chunk, K4_F64_ROWS)
+            del chunk
         del mats
         results[name] = dict(full=full, recall=recall, prefix=prefix,
                              chunk=chunk_kernel_times(name, host, dev))
@@ -2415,6 +2475,214 @@ def phase10(host_corpus, corpus, q_ids, q_w, rows, dev):
     return results, runs
 
 
+# -------------------------------------------------------------- phase 11
+# Slice 9: the kernels' tile variants, the autotuner, the static checks.
+
+#: Launches timed between CUDA events for each variant.
+TILE_REPS = 20
+#: K3's corpus-row cases: name -> (mode, iters, all-rows form).
+ROWS_CASES = {"cand_pour_rows.pour": ("pour", ACT3, False),
+              "cand_pour_rows.pour_iters0": ("pour", 0, False),
+              "cand_pour_rows.omr": ("omr", 1, False),
+              "cand_pour_rows.all_pour_iters0": ("pour", 0, True),
+              "cand_pour_rows.all_omr": ("omr", 1, True)}
+#: The configs of (b): act-7 (the main path) and the tight cascade.
+TUNED_CONFIGS = {"act7": dict(method="act", iters=ITERS),
+                 "tight": dict(cascade="tight")}
+
+
+def spill_bytes(log):
+    """ptxas' spill stores of a library, bytes summed over its kernels
+    (None when it was not compiled in this run)."""
+    if log is None:
+        return None
+    return sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
+
+
+def tile_cases(corpus, q_ids, q_w, wide, narrow, precision):
+    """The tiled families' launches of phases 2-8 under ``precision``:
+    family -> {case: (call(**tiles), attrs(variant), dims)}, ``dims`` the
+    case's launch for the model (``ops.block_layout``)."""
+    dt = torch.float32 if precision == "f32" else torch.bfloat16
+    n, v = corpus.n, corpus.v
+    coords, qcs, qmask = corpus.coords, corpus.coords[q_ids], q_w > 0
+    Z, W = lc._phase1_batched_dispatch(corpus, q_ids, q_w, ITERS + 1, True,
+                                       precision)
+    cases, (_, _, _, valid, _, _) = cand_cases(corpus, q_ids, q_w, wide,
+                                               narrow, precision)
+    ids, w = corpus.ids, corpus.w
+    out = {"dist_topk": {
+        f"dist_topk.k{k}": (
+            lambda k=k, **t: ops.dist_topk_batched(coords, qcs, qmask, k,
+                                                   out_dtype=dt, **t),
+            lambda var, k=k: dist_topk.attrs(k, torch.float32, dt, var),
+            dict(nq=NQ, v=v, h=HMAX, m=DIM, k=k)) for k in (ITERS + 1, 2, 1)}}
+    out["act_phase2"] = {"act_phase2_gather": (
+        lambda **t: ops.act_phase2_gather(w, ids, Z, W, **t),
+        lambda var: act_phase2.gather_attrs(ITERS + 1, W.shape[2], dt, var),
+        dict(nq=NQ, n=n, h=HMAX, iters=ITERS))}
+    out["cand_pour"] = {
+        name: (cases[name][0],
+               lambda var, m=m, it=it, a=a: cand_pour.rows_attrs(m, it, a, dt,
+                                                                var),
+               dict(nq=NQ, b=n if a else (B_WIDE if m == "omr" else B_NARROW),
+                    h=HMAX, iters=it, mode=m, form="all" if a else "cand"))
+        for name, (m, it, a) in ROWS_CASES.items()}
+    out["cand_dist"] = {}
+    for mode, op in (("ict", ops.cand_ict_valid),
+                     ("rev_min", ops.cand_rev_min_valid)):
+        for form, cand in (("", narrow), ("all_", None)):
+            out["cand_dist"][f"cand_dist_valid.{form}{mode}"] = (
+                lambda op=op, cand=cand, **t: op(ids, w, cand, *valid, **t),
+                lambda var, mode=mode: cand_pour.valid_attrs(mode, dt, var),
+                dict(nq=NQ, b=n if cand is None else B_NARROW, h=HMAX,
+                     mode=mode))
+    return out
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def phase11_variants(corpus, q_ids, q_w, wide, narrow, logs, bounds):
+    """Phase 11 (a): every admitted variant of the four tiled families at
+    the shapes of phases 2-8, built at once, bitwise the default under
+    float32 and bfloat16 ladders, its compiler figures held to the model,
+    timed. Returns {case: [variant rows]}."""
+    dims = {"dist_topk": dict(nq=NQ, v=corpus.v, h=HMAX, m=DIM,
+                              k=ITERS + 1),
+            "act_phase2": dict(nq=NQ, n=corpus.n, h=HMAX, iters=ITERS),
+            "cand_pour": dict(nq=NQ, b=B_NARROW, h=HMAX, iters=ACT3,
+                              mode="pour"),
+            "cand_dist": dict(nq=NQ, b=B_NARROW, h=HMAX, mode="ict")}
+    configs = {f: autotune.admissible_configs(f, d)[:autotune.MAX_VARIANTS]
+               for f, d in dims.items()}
+    t0 = time.perf_counter()
+    vlogs = _build.build_variants([
+        (ops.FAMILY_ENTRIES[f][1], dict(ops.variant(f, **c)))
+        for f, cfgs in configs.items() for c in cfgs])
+    build_s = time.perf_counter() - t0
+    print(f"phase 11: built {len(vlogs)} variants of "
+          f"{ {f: len(c) for f, c in configs.items()} } in {build_s:.1f} s "
+          f"(one nvcc each, at once)", flush=True)
+    rows = {}
+    for precision in ("f32", "bf16"):
+        for family, cases in tile_cases(corpus, q_ids, q_w, wide, narrow,
+                                        precision).items():
+            source = ops.FAMILY_ENTRIES[family][1]
+            for name, (call, attrs, cdims) in cases.items():
+                want = as_tuple(call())
+                for cfg in configs[family]:
+                    got = as_tuple(call(**cfg))
+                    check(all(torch.equal(g, x) for g, x in zip(
+                        got, want, strict=True)),
+                        f"{name} {precision} tile {cfg}: not bitwise the "
+                        "default tile's output")
+                    if precision != "f32":
+                        continue
+                    var = ops.variant(family, **cfg)
+                    a = attrs(var)
+                    layout = ops.block_layout(family, **cdims, **cfg)
+                    cap = smem.reg_cap(layout)
+                    check(a["static_bytes"] + a["dynamic_bytes"]
+                          == layout.smem_bytes,
+                          f"{name} tile {cfg}: the model's {layout.smem_bytes}"
+                          f" B of shared memory, the compiler's {a}")
+                    check(a["regs"] <= cap, f"{name} tile {cfg}: "
+                          f"{a['regs']} registers above the model's cap "
+                          f"{cap}")
+                    ms = cuda_ms(lambda: call(**cfg), reps=TILE_REPS)
+                    log = (vlogs.get((source, var)) if var
+                           else logs.get(source))
+                    rows.setdefault(name, []).append(dict(
+                        tiles=cfg, ms=ms, bound_ms=bounds.get(name),
+                        smem_bytes=layout.smem_bytes,
+                        static_bytes=a["static_bytes"],
+                        dynamic_bytes=a["dynamic_bytes"], regs=a["regs"],
+                        reg_cap=cap, local_bytes=a["local_bytes"],
+                        blocks_per_sm=smem.blocks_per_sm(layout,
+                                                         regs=a["regs"]),
+                        spill_bytes=spill_bytes(log)))
+        torch.cuda.synchronize()
+    for name, vrows in rows.items():
+        for r in vrows:
+            b = r["bound_ms"]
+            print(f"phase 11: {name} {r['tiles']}: {r['ms']:.4f} ms "
+                  f"(bound {'n/a' if b is None else f'{b:.4f}'}), shared "
+                  f"{r['smem_bytes']} B = the compiler's "
+                  f"{r['static_bytes']} + {r['dynamic_bytes']}, "
+                  f"{r['regs']} registers (cap {r['reg_cap']}), "
+                  f"{r['blocks_per_sm']} blocks/SM, spill stores "
+                  f"{r['spill_bytes']} B, local {r['local_bytes']} B; "
+                  f"bitwise the default under f32 and bf16", flush=True)
+    return rows, build_s
+
+
+def phase11_tuner(host_corpus, q_ids, q_w, dev):
+    """Phase 11 (b): ``autotune="force"`` then ``"cached"`` on one tune
+    cache file, for each of TUNED_CONFIGS: the cached build times nothing
+    and picks what the forced one picked; both search bitwise like the
+    default config."""
+    path = os.path.join(tempfile.mkdtemp(prefix="tune-"), "tune.json")
+    out = {}
+    for name, cfg in TUNED_CONFIGS.items():
+        base = dict(top_l=TOP_L, block_q=BLOCK_Q, **cfg)
+        timing.calls = 0
+        t0 = time.perf_counter()
+        forced = EmdIndex.build(host_corpus, EngineConfig(
+            **base, autotune="force", tune_cache=path), device=dev)
+        force_s, bouts = time.perf_counter() - t0, timing.calls
+        check(bouts > 0, f"{name}: autotune='force' timed nothing")
+        timing.calls = 0
+        cached = EmdIndex.build(host_corpus, EngineConfig(
+            **base, autotune="cached", tune_cache=path), device=dev)
+        check(timing.calls == 0, f"{name}: the cached build timed "
+              f"{timing.calls} bouts")
+        check(cached.tuned_blocks == forced.tuned_blocks
+              and dataclasses.replace(cached.config, autotune="force")
+              == forced.config,
+              f"{name}: cached picks {cached.tuned_blocks} / "
+              f"{cached.config}, forced {forced.tuned_blocks} / "
+              f"{forced.config}")
+        default = EmdIndex.build(host_corpus, EngineConfig(**base),
+                                 device=dev)
+        s_d, i_d = default.search(q_ids, q_w)
+        for label, index in (("forced", forced), ("cached", cached)):
+            s, i = index.search(q_ids, q_w)
+            check(torch.equal(s, s_d) and torch.equal(i, i_d),
+                  f"{name}: the {label} tiles' search is not bitwise the "
+                  "default config's")
+        t_d, _ = search_seconds(lambda: default.search(q_ids, q_w))
+        t_c, _ = search_seconds(lambda: cached.search(q_ids, q_w))
+        out[name] = dict(picks=cached.tuned_blocks, force_s=force_s,
+                         bouts=bouts, search_s_default=t_d,
+                         search_s_tuned=t_c)
+        print(f"phase 11: {name}: force build {force_s:.1f} s ({bouts} "
+              f"paired bouts), picks {cached.tuned_blocks}; the cached build "
+              f"timed nothing and picked the same; scores and top-{TOP_L} "
+              f"ids bitwise the default config's; search {t_c:.4f} s tuned, "
+              f"{t_d:.4f} s default (median of 3)", flush=True)
+    return out
+
+
+def phase11(corpus, host_corpus, q_ids, q_w, wide, narrow, logs, bounds,
+            dev):
+    """Phase 11: tile variants, the tuner's round trip, the static
+    checks."""
+    t_start = time.perf_counter()
+    variants, build_s = phase11_variants(corpus, q_ids, q_w, wide, narrow,
+                                         logs, bounds)
+    tuned = phase11_tuner(host_corpus, q_ids, q_w, dev)
+    rc = static_check.main(["--passes", "registry", "smem"])
+    check(rc == 0, "python -m repro_torch.analysis.check --passes registry "
+          "smem found violations")
+    secs = time.perf_counter() - t_start
+    print(f"phase 11: done in {secs:.1f} s ({build_s:.1f} s of builds)",
+          flush=True)
+    return dict(variants=variants, tuned=tuned, build_s=build_s,
+                seconds=secs)
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
 
@@ -2801,6 +3069,16 @@ def main():
     # Phase 10: the serving path.
     p10, p10_runs = phase10(host_corpus, corpus, q_ids, q_w, rows, dev)
 
+    # Phase 11: the tiles (launches compared there are not the main
+    # path's; its tuned builds search outside the counted runs).
+    bounds = {f"dist_topk.k{ITERS + 1}": k1_bound,
+              "act_phase2_gather": kg_bound,
+              **{name: t[2] for name, t in cand_times.items()},
+              **{name: t["bound_ms"] for name, t in k4_rows.items()}}
+    p11 = phase11(corpus, host_corpus, q_ids, q_w, wide, narrow, logs,
+                  bounds, dev)
+    variants = p11["variants"]
+
     def p10_launches(kname):
         """The kernel's launches in each run of phase 10 that made any."""
         return {r: c[kname] for r, c in p10_runs.items() if c[kname]}
@@ -2823,7 +3101,9 @@ def main():
          "bound_by": k1_by, "library_ms": k1_lib,
          "ms_all_valid": k1_all_ms, "bound_ms_all_valid": k1_all_bound,
          "library_full_width_ms": k1_lib_full,
-         "all_pairs_chunk": chunk_times("dist_topk")},
+         "all_pairs_chunk": chunk_times("dist_topk"),
+         "variants": {k: variants[k] for k in variants
+                      if k.startswith("dist_topk.")}},
         {"name": "act_phase2", "route": "cuda",
          "source": "src/repro_torch/csrc/act_phase2.cu",
          "replaces": "src/repro/kernels/act_phase2.py:73",
@@ -2840,7 +3120,8 @@ def main():
          "launches_phase10": p10_launches("act_phase2_gather"),
          "max_abs_err": kg_err, "ms": kg_ms, "plain_ms": kg_plain,
          "bound_ms": kg_bound, "bound_by": kg_by, "library_ms": None,
-         "all_pairs_chunk": chunk_times("act_phase2_gather")},
+         "all_pairs_chunk": chunk_times("act_phase2_gather"),
+         "variants": variants["act_phase2_gather"]},
     ]
     # The main path's runs: the phase-3 searches, the cascades, the
     # phase-8 all-pairs and searches and the phase-10 serving path.
@@ -2857,7 +3138,8 @@ def main():
             **{k: t for k, t in rows_times.get(name, {}).items()
                if k != "ms"},
             **({"all_pairs_chunk": chunk_times(name)}
-               if name in p8["20news"]["chunk"] else {})})
+               if name in p8["20news"]["chunk"] else {}),
+            **({"variants": variants[name]} if name in variants else {})})
     for name, t in k4_rows.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -2866,7 +3148,8 @@ def main():
             "launches": sum(c[name] for c in runs.values()),
             "launches_by_search": {p: c[name] for p, c in runs.items()
                                    if c[name]},
-            "library_ms": None, **t})
+            "library_ms": None, **t,
+            **({"variants": variants[name]} if name in variants else {})})
     # Phase 9's kernels: K1 and the unfused K2 at nq=1 on the single-query
     # path, and K1 on bfloat16 coordinates under bf16_agg.
     p9_launches = {
@@ -2890,6 +3173,8 @@ def main():
     print(json.dumps({"phase8": p8}))
     print(json.dumps({"phase9": p9}))
     print(json.dumps({"phase10": p10}))
+    print(json.dumps({"phase11": {k: p11[k] for k in ("tuned", "build_s",
+                                                      "seconds")}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,12 @@
 reads the same in both packages. The fields and values this package does
 not run yet raise ``ValueError`` naming the field and saying so; each of
 them accepts only the JAX default, which leaves its feature off.
+
+The tile knobs ``block_v`` / ``block_h`` / ``block_n`` default to None
+here, where the JAX package's default is 256: None leaves each kernel on
+its own default tile (a tile on the card means something else than a
+TPU tile; ``kernels/ops.py`` says what each knob tiles). The snapshot
+codec (``serving/lifecycle.py``) writes None as the JAX package's 256.
 """
 from __future__ import annotations
 
@@ -22,11 +28,16 @@ _UNPORTED_VALUES = {
     "backend": ("pallas", "distributed"),
 }
 
-#: JAX ``EngineConfig`` fields this package does not run yet: tile knobs
-#: of the Pallas kernels, the mesh and the autotuner. Each keeps its JAX
-#: default.
-_UNPORTED_FIELDS = ("block_v", "block_h", "block_n", "rev_block",
-                    "pad_multiple", "autotune", "tune_cache")
+#: JAX ``EngineConfig`` fields this package does not run yet: the
+#: distributed backend's row padding (the mesh, ROADMAP Queue 1 item 6).
+#: Each keeps its JAX default.
+_UNPORTED_FIELDS = ("pad_multiple",)
+
+#: The kernels' tile knobs.
+TILE_KNOBS = ("block_v", "block_h", "block_n")
+
+#: The autotune policies (``kernels/autotune``).
+AUTOTUNE_MODES = ("off", "cached", "force")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +72,23 @@ class EngineConfig:
     cascade:   ``None`` (full-corpus search), a ``CascadeSpec`` or a preset
                name of ``repro_torch.cascade.CASCADES``: ``search`` then
                runs the prune-and-rescore ladder.
+    block_v/block_h/block_n: the CUDA kernels' tiles: K1's vocabulary
+               rows a block and valid bins a tile, and the rows (warps) a
+               block of the fused K2 and of K3's and K4's corpus-row
+               entries (``kernels/ops.py``). None (default): each kernel's
+               own default tile. No tile changes a score; a value no
+               kernel can take raises here, one a planned launch cannot
+               take at ``EmdIndex.build``. An explicit value always wins
+               over an autotuned pick.
+    rev_block: row block of the reverse (rwmd_rev) reference scorer.
+    autotune:  tile policy applied at ``EmdIndex.build``
+               (``repro_torch.kernels.autotune``): ``off`` (default: the
+               knobs as given), ``cached`` (the ``tune_cache`` winner of
+               each planned launch; a miss keeps the default; never times)
+               or ``force`` (time the admissible tiles on the card now and
+               overwrite the cache). Only knobs left at None are replaced.
+    tune_cache: path of the ``TuneCache`` JSON file behind ``autotune``
+               (None: in memory only).
     """
     method: str = "act"
     iters: int = 1
@@ -70,9 +98,9 @@ class EngineConfig:
     precision: str = "f32"
     symmetric: bool = False
     batch_engine: str = "batched"
-    block_v: int = 256
-    block_h: int = 256
-    block_n: int = 256
+    block_v: int | None = None
+    block_h: int | None = None
+    block_n: int | None = None
     rev_block: int = 256
     pad_multiple: int = 512
     cascade: CascadeSpec | str | None = None
@@ -113,8 +141,43 @@ class EngineConfig:
             raise ValueError(f"top_l must be >= 1, got {self.top_l}")
         if self.block_q < 1:
             raise ValueError(f"block_q must be >= 1, got {self.block_q}")
+        if self.rev_block < 1:
+            raise ValueError(f"rev_block must be >= 1, got {self.rev_block}")
+        if self.autotune not in AUTOTUNE_MODES:
+            raise ValueError(f"unknown autotune mode {self.autotune!r}; "
+                             f"one of {AUTOTUNE_MODES}")
+        self._check_tiles()
         if self.cascade is not None:
             resolve_spec(self.cascade)           # raises on unknown preset
+
+    def _check_tiles(self) -> None:
+        """Each knob set must be an int >= 1 that at least one kernel
+        family taking it can build (``analysis.smem.check_tiles``, whatever
+        the shape)."""
+        from repro_torch.analysis import smem
+        from repro_torch.kernels.autotune import FAMILY_KNOBS
+        for knob in TILE_KNOBS:
+            value = getattr(self, knob)
+            if value is None:
+                continue
+            if isinstance(value, bool) or not isinstance(value, int) \
+                    or value < 1:
+                raise ValueError(f"EngineConfig.{knob} must be None or an "
+                                 f"int >= 1, got {value!r}")
+            reasons = []
+            for family, knobs in FAMILY_KNOBS.items():
+                names = [k for k, _ in knobs]
+                if knob not in names:
+                    continue
+                tiles = {k: getattr(self, k) for k in names
+                         if getattr(self, k) is not None}
+                bad = smem.check_tiles(family, tiles)
+                if not bad:
+                    break
+                reasons.append(f"{family}: {bad[0].message}")
+            else:
+                raise ValueError(f"EngineConfig.{knob}={value} is a tile no "
+                                 f"kernel takes: " + "; ".join(reasons))
 
     @property
     def spec(self):
@@ -146,7 +209,9 @@ class EngineConfig:
         return dict(method=self.method, iters=self.effective_iters,
                     use_kernels=(self.backend == "cuda"
                                  and self.spec.supports_kernels),
-                    block_q=self.block_q, precision=self.precision)
+                    block_q=self.block_q, precision=self.precision,
+                    block_v=self.block_v, block_h=self.block_h,
+                    block_n=self.block_n, rev_block=self.rev_block)
 
     def cascade_knobs(self) -> dict:
         """Keyword arguments of ``cascade.cascade_search``: those of

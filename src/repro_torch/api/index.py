@@ -72,6 +72,7 @@ class EmdIndex:
     corpus: Corpus
     config: EngineConfig
     _source: Any = None
+    _tuned: dict = dataclasses.field(default_factory=dict)
 
     def __repr__(self) -> str:
         c = self.corpus
@@ -91,7 +92,16 @@ class EmdIndex:
         per build) and placed on ``device`` beside the corpus. ``source``
         injects an already-built source instead (a snapshot restore); it
         must match ``config.source_spec``. ``mesh`` (the JAX package's
-        distributed backend) is not yet ported (ROADMAP Queue 1 item 6)."""
+        distributed backend) is not yet ported (ROADMAP Queue 1 item 6).
+
+        The kernels' tiles are resolved here, once, through
+        ``repro_torch.kernels.autotune.resolve_config``: explicit
+        ``block_*`` knobs must fit every launch the index plans (else
+        ``ValueError``); with ``config.autotune != "off"`` the knobs left
+        at None take the cached winners (``"cached"``) or the winners of a
+        timed sweep of the admissible tiles on the card (``"force"``). The
+        picks are on :attr:`tuned_blocks`, the resolved config on
+        ``config``."""
         config = EngineConfig() if config is None else config
         if mesh is not None:
             raise ValueError("EmdIndex.build(mesh=...) is not yet ported: "
@@ -103,13 +113,23 @@ class EmdIndex:
                                    "available; pass device='cpu' to run on "
                                    "the CPU")
             device = "cuda"
-        return cls(corpus=corpus.to(device), config=config,
-                   _source=_placed_source(config, corpus, source, device))
+        from repro_torch.kernels import autotune
+        placed = corpus.to(device)
+        config, tuned = autotune.resolve_config(placed, config)
+        return cls(corpus=placed, config=config,
+                   _source=_placed_source(config, corpus, source, device),
+                   _tuned=tuned)
 
     @property
     def n(self) -> int:
         """Number of database histograms."""
         return self.corpus.n
+
+    @property
+    def tuned_blocks(self) -> dict:
+        """``{family: {knob: tile}}`` the autotuner applied at build (empty
+        with ``autotune="off"`` or when every pick missed)."""
+        return dict(self._tuned)
 
     @property
     def source(self):

@@ -138,6 +138,8 @@ def cascade_search(corpus: lc.Corpus, Q_ids: torch.Tensor,
                    *, n_valid: int | None = None, topk_blocks: int = 1,
                    engine: str = "batched", use_kernels: bool = False,
                    block_q: int = 8, precision: str = "f32",
+                   block_v: int | None = None, block_h: int | None = None,
+                   block_n: int | None = None, rev_block: int = 256,
                    source=None) -> CascadeResult:
     """Cascaded top-l search of a ``(nq, h)`` query batch.
 
@@ -150,7 +152,10 @@ def cascade_search(corpus: lc.Corpus, Q_ids: torch.Tensor,
     rescorer of the LC methods through the candidate kernels
     (``kernels/cand_pour``). ``precision`` reaches every stage and device
     rescorer (under ``bf16_agg`` the kernels' coordinates are bfloat16 and
-    the distance handoffs' products have bfloat16 operands).
+    the distance handoffs' products have bfloat16 operands). The tile
+    knobs ``block_v`` / ``block_h`` (K1) and ``block_n`` (the Phase-2/3 and
+    candidate kernels), and ``rev_block``, reach every stage and device
+    rescorer as in ``retrieval.batch_scores``; no knob changes a score.
 
     ``source`` is a BUILT candidate source (``spec.source.build(corpus)``,
     or the one ``EmdIndex.build`` keeps), required when ``spec.sourced``:
@@ -174,7 +179,8 @@ def cascade_search(corpus: lc.Corpus, Q_ids: torch.Tensor,
             f"{spec.describe()} does not declare one (set "
             "CascadeSpec.source so admissibility accounting sees it)")
     knobs = dict(use_kernels=use_kernels, block_q=block_q,
-                 precision=precision)
+                 precision=precision, block_v=block_v, block_h=block_h,
+                 block_n=block_n, rev_block=rev_block)
     if top_l < 1:
         raise ValueError(f"top_l must be >= 1, got {top_l}")
     n = n_valid if n_valid is not None else corpus.n

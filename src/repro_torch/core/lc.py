@@ -368,18 +368,21 @@ def phase1(coords: torch.Tensor, q_ids: torch.Tensor, q_w: torch.Tensor,
 
 
 def _phase1_one(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
-                k: int, use_kernels: bool):
+                k: int, use_kernels: bool, block_v: int | None = None,
+                block_h: int | None = None):
     """Single-query Phase 1 through the ``dist_topk`` kernel (a batch of
-    one) or :func:`phase1`."""
+    one, in the tile ``block_v`` x ``block_h``) or :func:`phase1`."""
     if use_kernels:
         Z, S = kops.dist_topk(corpus.coords, corpus.coords[q_ids],
-                              q_w > 0.0, k, qids=q_ids)
+                              q_w > 0.0, k, qids=q_ids, block_v=block_v,
+                              block_h=block_h)
         return Z, q_w[S.long()]
     return phase1(corpus.coords, q_ids, q_w, k)
 
 
 def lc_act_scores(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
-                  iters: int = 1, *, use_kernels: bool = False
+                  iters: int = 1, *, use_kernels: bool = False,
+                  block_v: int | None = None, block_h: int | None = None
                   ) -> torch.Tensor:
     """LC-ACT of one query: lower bounds on EMD(x_u, q), the cost of
     moving each corpus row INTO the query, for all n rows -> (n,).
@@ -387,8 +390,9 @@ def lc_act_scores(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
     Phase 2/3 gather the (n, hmax, k) ladders and pour them; under
     ``use_kernels`` the pour is the unfused ``act_phase2`` kernel on those
     ladders. At iters=0 (LC-RWMD) the nearest cost is dumped and no pour
-    runs."""
-    Z, W = _phase1_one(corpus, q_ids, q_w, iters + 1, use_kernels)
+    runs. ``block_v`` / ``block_h``: K1's tile."""
+    Z, W = _phase1_one(corpus, q_ids, q_w, iters + 1, use_kernels, block_v,
+                       block_h)
     Zg = Z[corpus.ids]                                   # (n, hmax, k)
     if iters == 0:
         return torch.sum(corpus.w * Zg[..., 0], dim=-1)
@@ -399,11 +403,13 @@ def lc_act_scores(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
 
 
 def lc_rwmd_scores(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
-                   *, use_kernels: bool = False) -> torch.Tensor:
+                   *, use_kernels: bool = False, block_v: int | None = None,
+                   block_h: int | None = None) -> torch.Tensor:
     """LC-RWMD of one query, direction db -> query (LC-ACT with zero
     Phase-2 rounds)."""
     return lc_act_scores(corpus, q_ids, q_w, iters=0,
-                         use_kernels=use_kernels)
+                         use_kernels=use_kernels, block_v=block_v,
+                         block_h=block_h)
 
 
 def lc_rwmd_scores_rev(corpus: Corpus, q_ids: torch.Tensor,
@@ -413,23 +419,26 @@ def lc_rwmd_scores_rev(corpus: Corpus, q_ids: torch.Tensor,
     over the valid slots s of D[ids[u, s], j], then c[u] . q_w. In blocks
     of ``block`` rows (the last one ragged: no pad rows), each gathering
     its (block, hmax, h) costs. Invalid slots mask to the finite float32
-    sentinel, so an all-padding row scores huge, never NaN."""
+    sentinel, so an all-padding row scores huge, never NaN. The
+    contraction with q_w is a multiply then a sum over h, as the batched
+    engine's (:func:`rev_min_sum`), so no block size changes a bit."""
     D = pairwise_dist(corpus.coords, corpus.coords[q_ids], b_ids=q_ids)
     big = pad_dist_for(D.dtype)
     out = []
     for s in range(0, corpus.n, block):
         Dg = D[corpus.ids[s:s + block]]                  # (b, hmax, h)
         Dg = torch.where((corpus.w[s:s + block] > 0.0)[..., None], Dg, big)
-        out.append(Dg.amin(dim=1) @ q_w)
+        out.append(torch.sum(Dg.amin(dim=1) * q_w, dim=-1))
     return torch.cat(out)
 
 
 def lc_omr_scores(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
-                  *, use_kernels: bool = False) -> torch.Tensor:
+                  *, use_kernels: bool = False, block_v: int | None = None,
+                  block_h: int | None = None) -> torch.Tensor:
     """LC-OMR of one query: Algorithm 1 over every corpus row on the top-2
     Phase-1 ladders (the ``dist_topk`` kernel at k=2 under
     ``use_kernels``)."""
-    Z, W = _phase1_one(corpus, q_ids, q_w, 2, use_kernels)
+    Z, W = _phase1_one(corpus, q_ids, q_w, 2, use_kernels, block_v, block_h)
     return omr_entries(corpus.w, Z[corpus.ids], W[:, 0][corpus.ids])
 
 
@@ -469,7 +478,9 @@ def _map_query_blocks(fn, arrays, block_q: int) -> torch.Tensor:
 
 def _phase1_batched_dispatch(corpus: Corpus, Q_ids: torch.Tensor,
                              Q_w: torch.Tensor, k: int, use_kernels: bool,
-                             precision: str = "f32"):
+                             precision: str = "f32",
+                             block_v: int | None = None,
+                             block_h: int | None = None):
     """Batched Phase 1 through the ``dist_topk`` kernel or the reference
     ops. Returns query-major Z, W (nq, v, k) in the storage dtype.
 
@@ -484,7 +495,8 @@ def _phase1_batched_dispatch(corpus: Corpus, Q_ids: torch.Tensor,
             coords = coords.to(policy.compute_dtype)
         Z, S = kops.dist_topk_batched(coords, coords[Q_ids], Q_w > 0.0, k,
                                       out_dtype=policy.storage_dtype,
-                                      qids=Q_ids)
+                                      qids=Q_ids, block_v=block_v,
+                                      block_h=block_h)
         return Z, gather_capacities(Q_w, S).to(policy.storage_dtype)
     return phase1_batched(corpus.coords, Q_ids, Q_w, k, precision=precision)
 
@@ -498,24 +510,25 @@ def pour_min_blocked(corpus: Corpus, Z0: torch.Tensor,
 
 
 def pour_blocked(corpus: Corpus, Z: torch.Tensor, W: torch.Tensor,
-                 iters: int, block_q: int, *,
-                 use_kernels: bool = False) -> torch.Tensor:
+                 iters: int, block_q: int, *, use_kernels: bool = False,
+                 block_n: int | None = None) -> torch.Tensor:
     """Query-blocked Phase 2/3: (nq, v, iters+1) ladders -> (nq, n)
     bounds. Each block of ``block_q`` queries gathers its (bq, n, hmax, k)
     ladders once and pours them; under ``use_kernels`` the whole batch goes
     to one launch instead, which reads the ladders at the corpus ids itself
     and so holds nothing per block: the fused-gather ``act_phase2`` kernel,
     or at ``iters=0`` (the nearest-cost dump of Phase 3) the all-rows form
-    of ``cand_pour``'s corpus-row entry."""
+    of ``cand_pour``'s corpus-row entry (either in the tile ``block_n``)."""
     x = corpus.w
     if iters == 0 and use_kernels:
-        return kops.cand_pour_rows(corpus.ids, x, None, Z, None, 0)
+        return kops.cand_pour_rows(corpus.ids, x, None, Z, None, 0,
+                                   block_n=block_n)
     if iters == 0:
         def blk0(Zb):                                    # (bq, v, k)
             return torch.sum(x * Zb[..., 0][:, corpus.ids], dim=-1)
         return _map_query_blocks(blk0, (Z,), block_q)
     if use_kernels:
-        return kops.act_phase2_gather(x, corpus.ids, Z, W)
+        return kops.act_phase2_gather(x, corpus.ids, Z, W, block_n=block_n)
     W = W[..., :iters]
 
     def blk(Zb, Wb):
@@ -529,26 +542,33 @@ def pour_blocked(corpus: Corpus, Z: torch.Tensor, W: torch.Tensor,
 def lc_act_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
                           Q_w: torch.Tensor, iters: int = 1, *,
                           use_kernels: bool = False, block_q: int = 8,
-                          precision: str = "f32") -> torch.Tensor:
-    """Batched LC-ACT: (nq, h) query batch -> (nq, n) lower bounds."""
+                          precision: str = "f32", block_v: int | None = None,
+                          block_h: int | None = None,
+                          block_n: int | None = None) -> torch.Tensor:
+    """Batched LC-ACT: (nq, h) query batch -> (nq, n) lower bounds.
+    ``block_v`` / ``block_h`` tile K1, ``block_n`` the Phase-2/3 kernel
+    (None: the kernel's default tile; every tile gives the same bits)."""
     if iters == 0 and not use_kernels:
         Z0 = phase1_min_batched(corpus.coords, Q_ids, Q_w,
                                 precision=precision)
         return pour_min_blocked(corpus, Z0, block_q)
     Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, iters + 1,
-                                    use_kernels, precision=precision)
+                                    use_kernels, precision, block_v, block_h)
     return pour_blocked(corpus, Z, W, iters, block_q,
-                        use_kernels=use_kernels)
+                        use_kernels=use_kernels, block_n=block_n)
 
 
 def lc_rwmd_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
                            Q_w: torch.Tensor, *, use_kernels: bool = False,
-                           block_q: int = 8,
-                           precision: str = "f32") -> torch.Tensor:
+                           block_q: int = 8, precision: str = "f32",
+                           block_v: int | None = None,
+                           block_h: int | None = None,
+                           block_n: int | None = None) -> torch.Tensor:
     """Batched LC-RWMD db -> query (batched LC-ACT with zero rounds)."""
     return lc_act_scores_batched(corpus, Q_ids, Q_w, iters=0,
                                  use_kernels=use_kernels, block_q=block_q,
-                                 precision=precision)
+                                 precision=precision, block_v=block_v,
+                                 block_h=block_h, block_n=block_n)
 
 
 # ---------------------------------------------- distance-handoff engines
@@ -668,14 +688,15 @@ def ict_reduce_blocked(corpus: Corpus, Dq: torch.Tensor, Q_w: torch.Tensor,
 
 
 def omr_reduce_blocked(corpus: Corpus, Z: torch.Tensor, W0: torch.Tensor,
-                       block_q: int, *,
-                       use_kernels: bool = False) -> torch.Tensor:
+                       block_q: int, *, use_kernels: bool = False,
+                       block_n: int | None = None) -> torch.Tensor:
     """Query-blocked Algorithm-1 reduction on the top-2 handoff:
     Z (nq, v, 2), W0 (nq, v) -> (nq, n) LC-OMR bounds; under
     ``use_kernels`` one launch of ``cand_pour``'s all-rows form."""
     x = corpus.w
     if use_kernels:
-        return kops.cand_omr_rows(corpus.ids, x, None, Z, W0.contiguous())
+        return kops.cand_omr_rows(corpus.ids, x, None, Z, W0.contiguous(),
+                                  block_n=block_n)
 
     def blk(Zb, W0b):                                    # (bq, v, 2), (bq, v)
         Zg = Zb[:, corpus.ids]                           # (bq, n, hmax, 2)
@@ -697,15 +718,18 @@ def omr_entries(x, Zg, W0g):
 def lc_rwmd_scores_rev_batched(corpus: Corpus, Q_ids: torch.Tensor,
                                Q_w: torch.Tensor, block: int = 256,
                                block_q: int = 8, precision: str = "f32", *,
-                               use_kernels: bool = False) -> torch.Tensor:
+                               use_kernels: bool = False,
+                               block_n: int | None = None) -> torch.Tensor:
     """Batched LC-RWMD query -> db. ``use_kernels`` takes the valid-bin
-    handoff and one launch of the all-rows form of K4's valid-bin entry;
-    otherwise one stacked distance tensor for the whole batch, through the
-    (row-block, query-block) masked (min,+) reduction."""
+    handoff and one launch of the all-rows form of K4's valid-bin entry
+    (in the tile ``block_n``); otherwise one stacked distance tensor for
+    the whole batch, through the (row-block, query-block) masked (min,+)
+    reduction in blocks of ``block`` rows."""
     if use_kernels:
         return kops.cand_rev_min_valid(
             corpus.ids, corpus.w, None,
-            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision))
+            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision),
+            block_n=block_n)
     Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
                                           precision=precision))
     return rev_min_blocked(corpus, Dq, Q_w, block, block_q)
@@ -713,21 +737,23 @@ def lc_rwmd_scores_rev_batched(corpus: Corpus, Q_ids: torch.Tensor,
 
 def lc_omr_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
                           Q_w: torch.Tensor, *, use_kernels: bool = False,
-                          block_q: int = 8,
-                          precision: str = "f32") -> torch.Tensor:
+                          block_q: int = 8, precision: str = "f32",
+                          block_v: int | None = None,
+                          block_h: int | None = None,
+                          block_n: int | None = None) -> torch.Tensor:
     """Batched LC-OMR: batched Phase 1 with k=2 (the ``dist_topk`` kernel
     when ``use_kernels``), query-blocked Algorithm-1 reduction (one
     ``cand_pour`` launch when ``use_kernels``)."""
     Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, 2, use_kernels,
-                                    precision=precision)
+                                    precision, block_v, block_h)
     return omr_reduce_blocked(corpus, Z, W[..., 0], block_q,
-                              use_kernels=use_kernels)
+                              use_kernels=use_kernels, block_n=block_n)
 
 
 def lc_ict_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
                           Q_w: torch.Tensor, *, use_kernels: bool = False,
-                          block_q: int = 8,
-                          precision: str = "f32") -> torch.Tensor:
+                          block_q: int = 8, precision: str = "f32",
+                          block_n: int | None = None) -> torch.Tensor:
     """Batched LC-ICT. ``use_kernels`` takes the valid-bin handoff and one
     launch of the all-rows form of K4's valid-bin entry; otherwise one
     stacked Phase-1 distance tensor for the whole query batch,
@@ -735,7 +761,8 @@ def lc_ict_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
     if use_kernels:
         return kops.cand_ict_valid(
             corpus.ids, corpus.w, None,
-            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision))
+            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision),
+            block_n=block_n)
     Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
                                           precision=precision))
     return ict_reduce_blocked(corpus, Dq, Q_w, block_q)
@@ -793,13 +820,15 @@ def symmetric_scores(asym: torch.Tensor) -> torch.Tensor:
 
 def pour_min_cand_blocked(corpus: Corpus, Z0: torch.Tensor,
                           cand: torch.Tensor, block_q: int, *,
-                          use_kernels: bool = False) -> torch.Tensor:
+                          use_kernels: bool = False,
+                          block_n: int | None = None) -> torch.Tensor:
     """Candidate-compacted zero-round pour: Z0 (nq, v), cand (nq, b)
     -> (nq, b) scores at the candidate rows."""
     if use_kernels:
         return kops.cand_pour_rows(corpus.ids, corpus.w,
                                    cand.long().contiguous(),
-                                   Z0[..., None].contiguous(), None, 0)
+                                   Z0[..., None].contiguous(), None, 0,
+                                   block_n=block_n)
 
     def blk(Zb, cb):
         Zg = gather_per_query(Zb, corpus.ids[cb])       # (bq, b, hmax)
@@ -809,16 +838,19 @@ def pour_min_cand_blocked(corpus: Corpus, Z0: torch.Tensor,
 
 def pour_cand_blocked(corpus: Corpus, Z: torch.Tensor, W: torch.Tensor,
                       cand: torch.Tensor, iters: int, block_q: int, *,
-                      use_kernels: bool = False) -> torch.Tensor:
+                      use_kernels: bool = False,
+                      block_n: int | None = None) -> torch.Tensor:
     """Candidate-compacted Phase 2/3 pour: (nq, v, k) handoff ladders +
     (nq, b) candidate rows -> (nq, b) lower bounds."""
     if iters == 0:
         return pour_min_cand_blocked(corpus, Z[..., 0], cand, block_q,
-                                     use_kernels=use_kernels)
+                                     use_kernels=use_kernels,
+                                     block_n=block_n)
     if use_kernels:
         # The kernel reads the first iters capacity columns itself.
         return kops.cand_pour_rows(corpus.ids, corpus.w,
-                                   cand.long().contiguous(), Z, W, iters)
+                                   cand.long().contiguous(), Z, W, iters,
+                                   block_n=block_n)
     W = W[..., :iters]
 
     def blk(Zb, Wb, cb):
@@ -832,14 +864,14 @@ def pour_cand_blocked(corpus: Corpus, Z: torch.Tensor, W: torch.Tensor,
 
 def omr_reduce_cand_blocked(corpus: Corpus, Z: torch.Tensor,
                             W0: torch.Tensor, cand: torch.Tensor,
-                            block_q: int, *,
-                            use_kernels: bool = False) -> torch.Tensor:
+                            block_q: int, *, use_kernels: bool = False,
+                            block_n: int | None = None) -> torch.Tensor:
     """Candidate-compacted Algorithm-1 reduction: Z (nq, v, 2), W0 (nq, v),
     cand (nq, b) -> (nq, b) LC-OMR bounds."""
     if use_kernels:
         return kops.cand_omr_rows(corpus.ids, corpus.w,
                                   cand.long().contiguous(), Z,
-                                  W0.contiguous())
+                                  W0.contiguous(), block_n=block_n)
 
     def blk(Zb, W0b, cb):
         ids_g = corpus.ids[cb]
@@ -872,8 +904,9 @@ def ict_reduce_cand_blocked(corpus: Corpus, Dq: torch.Tensor,
 def lc_act_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
                        Q_w: torch.Tensor, cand: torch.Tensor,
                        iters: int = 1, *, use_kernels: bool = False,
-                       block_q: int = 8,
-                       precision: str = "f32") -> torch.Tensor:
+                       block_q: int = 8, precision: str = "f32",
+                       block_v: int | None = None, block_h: int | None = None,
+                       block_n: int | None = None) -> torch.Tensor:
     """Candidate-compacted batched LC-ACT: (nq, h) queries scored against
     each query's own (b,) candidate rows -> (nq, b)."""
     if iters == 0 and not use_kernels:
@@ -881,32 +914,37 @@ def lc_act_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
                                 precision=precision)
         return pour_min_cand_blocked(corpus, Z0, cand, block_q)
     Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, iters + 1,
-                                    use_kernels, precision=precision)
+                                    use_kernels, precision, block_v, block_h)
     return pour_cand_blocked(corpus, Z, W, cand, iters, block_q,
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels, block_n=block_n)
 
 
 def lc_rwmd_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
                         Q_w: torch.Tensor, cand: torch.Tensor, *,
                         use_kernels: bool = False, block_q: int = 8,
-                        precision: str = "f32") -> torch.Tensor:
+                        precision: str = "f32", block_v: int | None = None,
+                        block_h: int | None = None,
+                        block_n: int | None = None) -> torch.Tensor:
     """Candidate-compacted batched LC-RWMD db -> query."""
     return lc_act_scores_cand(corpus, Q_ids, Q_w, cand, iters=0,
                               use_kernels=use_kernels, block_q=block_q,
-                              precision=precision)
+                              precision=precision, block_v=block_v,
+                              block_h=block_h, block_n=block_n)
 
 
 def lc_rwmd_scores_rev_cand(corpus: Corpus, Q_ids: torch.Tensor,
                             Q_w: torch.Tensor, cand: torch.Tensor, *,
                             use_kernels: bool = False, block_q: int = 8,
-                            precision: str = "f32") -> torch.Tensor:
+                            precision: str = "f32",
+                            block_n: int | None = None) -> torch.Tensor:
     """Candidate-compacted batched LC-RWMD query -> db. ``use_kernels``
     takes the valid-bin handoff and K4's valid-bin entry, in one launch;
     otherwise the stacked handoff and the reference reduction."""
     if use_kernels:
         return kops.cand_rev_min_valid(
             corpus.ids, corpus.w, cand.long().contiguous(),
-            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision))
+            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision),
+            block_n=block_n)
     Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
                                           precision=precision))
     return rev_min_cand_blocked(corpus, Dq, Q_w, cand, block_q)
@@ -915,18 +953,21 @@ def lc_rwmd_scores_rev_cand(corpus: Corpus, Q_ids: torch.Tensor,
 def lc_omr_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
                        Q_w: torch.Tensor, cand: torch.Tensor, *,
                        use_kernels: bool = False, block_q: int = 8,
-                       precision: str = "f32") -> torch.Tensor:
+                       precision: str = "f32", block_v: int | None = None,
+                       block_h: int | None = None,
+                       block_n: int | None = None) -> torch.Tensor:
     """Candidate-compacted batched LC-OMR."""
     Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, 2, use_kernels,
-                                    precision=precision)
+                                    precision, block_v, block_h)
     return omr_reduce_cand_blocked(corpus, Z, W[..., 0], cand, block_q,
-                                   use_kernels=use_kernels)
+                                   use_kernels=use_kernels, block_n=block_n)
 
 
 def lc_ict_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
                        Q_w: torch.Tensor, cand: torch.Tensor, *,
                        use_kernels: bool = False, block_q: int = 8,
-                       precision: str = "f32") -> torch.Tensor:
+                       precision: str = "f32",
+                       block_n: int | None = None) -> torch.Tensor:
     """Candidate-compacted batched LC-ICT (the cascade's tight rescorer).
     ``use_kernels`` takes the valid-bin handoff and K4's valid-bin entry,
     in one launch; otherwise the stacked handoff and the reference
@@ -934,7 +975,8 @@ def lc_ict_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
     if use_kernels:
         return kops.cand_ict_valid(
             corpus.ids, corpus.w, cand.long().contiguous(),
-            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision))
+            *phase1_valid_dist(corpus.coords, Q_ids, Q_w, precision),
+            block_n=block_n)
     Dq = _rev_handoff(phase1_stacked_dist(corpus.coords, Q_ids, Q_w,
                                           precision=precision))
     return ict_reduce_cand_blocked(corpus, Dq, Q_w, cand, block_q)

@@ -73,85 +73,104 @@ class MethodSpec:
     cand_fn: Callable | None = None
 
 
-def _act(corpus, q_ids, q_w, *, iters=1, use_kernels=False, **_):
+# The engines below take the kernels' tile knobs as keywords: block_v and
+# block_h tile K1 (``dist_topk``), block_n the Phase-2/3 kernel each engine
+# launches; rev_block is the reverse reference scorer's row block (JAX's
+# ``_STATIC_KW``). None is the kernel's default tile; no knob changes a
+# score.
+_K1 = ("block_v", "block_h")
+_ALL = ("block_v", "block_h", "block_n")
+
+
+def _tiles(kw, names):
+    return {k: kw[k] for k in names if k in kw}
+
+
+def _act(corpus, q_ids, q_w, *, iters=1, use_kernels=False, **kw):
     return lc.lc_act_scores(corpus, q_ids, q_w, iters=iters,
-                            use_kernels=use_kernels)
+                            use_kernels=use_kernels, **_tiles(kw, _K1))
 
 
 def _act_batch(corpus, q_ids, q_w, *, iters=1, use_kernels=False,
-               block_q=8, precision="f32", **_):
+               block_q=8, precision="f32", **kw):
     return lc.lc_act_scores_batched(corpus, q_ids, q_w, iters=iters,
                                     use_kernels=use_kernels, block_q=block_q,
-                                    precision=precision)
+                                    precision=precision, **_tiles(kw, _ALL))
 
 
 def _act_cand(corpus, q_ids, q_w, cand, *, iters=1, use_kernels=False,
-              block_q=8, precision="f32", **_):
+              block_q=8, precision="f32", **kw):
     return lc.lc_act_scores_cand(corpus, q_ids, q_w, cand, iters=iters,
                                  use_kernels=use_kernels, block_q=block_q,
-                                 precision=precision)
+                                 precision=precision, **_tiles(kw, _ALL))
 
 
-def _rwmd(corpus, q_ids, q_w, *, use_kernels=False, **_):
-    return lc.lc_rwmd_scores(corpus, q_ids, q_w, use_kernels=use_kernels)
+def _rwmd(corpus, q_ids, q_w, *, use_kernels=False, **kw):
+    return lc.lc_rwmd_scores(corpus, q_ids, q_w, use_kernels=use_kernels,
+                             **_tiles(kw, _K1))
 
 
-def _rwmd_rev(corpus, q_ids, q_w, **_):
-    return lc.lc_rwmd_scores_rev(corpus, q_ids, q_w)
+def _rwmd_rev(corpus, q_ids, q_w, *, rev_block=256, **_):
+    return lc.lc_rwmd_scores_rev(corpus, q_ids, q_w, block=rev_block)
 
 
 def _rwmd_batch(corpus, q_ids, q_w, *, use_kernels=False, block_q=8,
-                precision="f32", **_):
+                precision="f32", **kw):
     return lc.lc_rwmd_scores_batched(corpus, q_ids, q_w,
                                      use_kernels=use_kernels,
-                                     block_q=block_q, precision=precision)
+                                     block_q=block_q, precision=precision,
+                                     **_tiles(kw, _ALL))
 
 
 def _rwmd_cand(corpus, q_ids, q_w, cand, *, use_kernels=False, block_q=8,
-               precision="f32", **_):
+               precision="f32", **kw):
     return lc.lc_rwmd_scores_cand(corpus, q_ids, q_w, cand,
                                   use_kernels=use_kernels, block_q=block_q,
-                                  precision=precision)
+                                  precision=precision, **_tiles(kw, _ALL))
 
 
 def _rwmd_rev_batch(corpus, q_ids, q_w, *, use_kernels=False, block_q=8,
-                    precision="f32", **_):
+                    precision="f32", rev_block=256, **kw):
     return lc.lc_rwmd_scores_rev_batched(corpus, q_ids, q_w,
-                                         block_q=block_q,
+                                         block=rev_block, block_q=block_q,
                                          precision=precision,
-                                         use_kernels=use_kernels)
+                                         use_kernels=use_kernels,
+                                         **_tiles(kw, ("block_n",)))
 
 
 def _rwmd_symmetric_batch(corpus, q_ids, q_w, *, block_q=8, precision="f32",
-                          **_):
+                          rev_block=256, **_):
     return lc.lc_rwmd_symmetric_scores_batched(corpus, q_ids, q_w,
+                                               block=rev_block,
                                                block_q=block_q,
                                                precision=precision)
 
 
 def _rwmd_rev_cand(corpus, q_ids, q_w, cand, *, use_kernels=False,
-                   block_q=8, precision="f32", **_):
+                   block_q=8, precision="f32", **kw):
     return lc.lc_rwmd_scores_rev_cand(corpus, q_ids, q_w, cand,
                                       use_kernels=use_kernels,
-                                      block_q=block_q, precision=precision)
+                                      block_q=block_q, precision=precision,
+                                      **_tiles(kw, ("block_n",)))
 
 
-def _omr(corpus, q_ids, q_w, *, use_kernels=False, **_):
-    return lc.lc_omr_scores(corpus, q_ids, q_w, use_kernels=use_kernels)
+def _omr(corpus, q_ids, q_w, *, use_kernels=False, **kw):
+    return lc.lc_omr_scores(corpus, q_ids, q_w, use_kernels=use_kernels,
+                            **_tiles(kw, _K1))
 
 
 def _omr_batch(corpus, q_ids, q_w, *, use_kernels=False, block_q=8,
-               precision="f32", **_):
+               precision="f32", **kw):
     return lc.lc_omr_scores_batched(corpus, q_ids, q_w,
                                     use_kernels=use_kernels, block_q=block_q,
-                                    precision=precision)
+                                    precision=precision, **_tiles(kw, _ALL))
 
 
 def _omr_cand(corpus, q_ids, q_w, cand, *, use_kernels=False, block_q=8,
-              precision="f32", **_):
+              precision="f32", **kw):
     return lc.lc_omr_scores_cand(corpus, q_ids, q_w, cand,
                                  use_kernels=use_kernels, block_q=block_q,
-                                 precision=precision)
+                                 precision=precision, **_tiles(kw, _ALL))
 
 
 def _ict(corpus, q_ids, q_w, **_):
@@ -161,17 +180,19 @@ def _ict(corpus, q_ids, q_w, **_):
 
 
 def _ict_batch(corpus, q_ids, q_w, *, use_kernels=False, block_q=8,
-               precision="f32", **_):
+               precision="f32", **kw):
     return lc.lc_ict_scores_batched(corpus, q_ids, q_w,
                                     use_kernels=use_kernels, block_q=block_q,
-                                    precision=precision)
+                                    precision=precision,
+                                    **_tiles(kw, ("block_n",)))
 
 
 def _ict_cand(corpus, q_ids, q_w, cand, *, use_kernels=False, block_q=8,
-              precision="f32", **_):
+              precision="f32", **kw):
     return lc.lc_ict_scores_cand(corpus, q_ids, q_w, cand,
                                  use_kernels=use_kernels, block_q=block_q,
-                                 precision=precision)
+                                 precision=precision,
+                                 **_tiles(kw, ("block_n",)))
 
 
 def _query_vectors(corpus, q_ids, q_w) -> torch.Tensor:
@@ -291,7 +312,9 @@ ENGINES = ("batched", "scan")
 def query_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
                  *, method: str = "act", symmetric: bool = False,
                  iters: int = 1, use_kernels: bool = False, block_q: int = 8,
-                 precision: str = "f32") -> torch.Tensor:
+                 precision: str = "f32", block_v: int | None = None,
+                 block_h: int | None = None, block_n: int | None = None,
+                 rev_block: int = 256) -> torch.Tensor:
     """One query ``(h,)`` against the whole corpus -> ``(n,)`` scores,
     through ``METHODS[method].fn``.
 
@@ -299,9 +322,12 @@ def query_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
     the two directional bounds (a method with a reverse direction: rwmd /
     rwmd_rev). ``block_q`` and ``precision`` are accepted for parity with
     :func:`batch_scores` and have no effect: the single-query engines are
-    the full-precision oracle and always run float32."""
+    the full-precision oracle and always run float32. ``block_v`` /
+    ``block_h`` tile K1, ``rev_block`` is rwmd_rev's row block; no knob
+    changes a score."""
     spec = _spec(method)
-    kw = dict(iters=iters, use_kernels=use_kernels)
+    kw = dict(iters=iters, use_kernels=use_kernels, block_v=block_v,
+              block_h=block_h, block_n=block_n, rev_block=rev_block)
     fwd = spec.fn(corpus, q_ids, q_w, **kw)
     if not symmetric or spec.symmetric:
         return fwd
@@ -317,7 +343,9 @@ def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
                  *, method: str = "act", symmetric: bool = False,
                  engine: str = "batched", iters: int = 1,
                  use_kernels: bool = False, block_q: int = 8,
-                 precision: str = "f32") -> torch.Tensor:
+                 precision: str = "f32", block_v: int | None = None,
+                 block_h: int | None = None, block_n: int | None = None,
+                 rev_block: int = 256) -> torch.Tensor:
     """Query batch ``(nq, h)`` -> ``(nq, n)`` scores.
 
     ``engine="batched"`` (default) runs the method's batched engine: Phase 1
@@ -333,7 +361,11 @@ def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
     (rwmd / rwmd_rev), and symmetric methods (bow, wcd) pass through. The
     batched reference path takes the shared-work ``symmetric_batch_fn``;
     under ``use_kernels`` the two directional engines run, each on its
-    kernels, and their elementwise max is returned."""
+    kernels, and their elementwise max is returned.
+
+    ``block_v`` / ``block_h`` tile K1 and ``block_n`` the Phase-2/3
+    kernels (None: each kernel's default tile); ``rev_block`` is the
+    reverse reference scorer's row block. No knob changes a score."""
     if engine == "dist":
         raise ValueError("batch_scores(engine='dist'), the JAX package's "
                          "mesh engine, is not yet ported")
@@ -341,7 +373,8 @@ def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
     spec = _spec(method)
     kw = dict(iters=iters, use_kernels=use_kernels, block_q=block_q,
-              precision=precision)
+              precision=precision, block_v=block_v, block_h=block_h,
+              block_n=block_n, rev_block=rev_block)
     if engine == "scan":
         if q_ids.shape[0] == 0:
             return torch.empty((0, corpus.n), dtype=torch.float32,
@@ -366,17 +399,22 @@ def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
 def cand_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
                 cand: torch.Tensor, *, method: str = "act", iters: int = 1,
                 use_kernels: bool = False, block_q: int = 8,
-                precision: str = "f32") -> torch.Tensor:
+                precision: str = "f32", block_v: int | None = None,
+                block_h: int | None = None, block_n: int | None = None,
+                rev_block: int = 256) -> torch.Tensor:
     """Candidate-compacted scoring: ``(nq, h)`` queries against each
     query's own ``(b,)`` candidate rows ``cand`` -> ``(nq, b)`` scores,
-    through ``MethodSpec.cand_fn`` (the cascade's stage primitive)."""
+    through ``MethodSpec.cand_fn`` (the cascade's stage primitive); the
+    tile knobs as for :func:`batch_scores`."""
     spec = _spec(method)
     if spec.cand_fn is None:
         raise ValueError(f"method {method!r} has no candidate-compacted "
                          "scorer registered (MethodSpec.cand_fn)")
     return spec.cand_fn(corpus, q_ids, q_w, cand, iters=iters,
                         use_kernels=use_kernels, block_q=block_q,
-                        precision=precision)
+                        precision=precision, block_v=block_v,
+                        block_h=block_h, block_n=block_n,
+                        rev_block=rev_block)
 
 
 def top_l_smallest(scores: torch.Tensor, top_l: int):
@@ -399,13 +437,17 @@ def search(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
            top_l: int, method: str = "act", iters: int = 1, *,
            symmetric: bool = False, engine: str = "batched",
            use_kernels: bool = False, block_q: int = 8,
-           precision: str = "f32"):
+           precision: str = "f32", block_v: int | None = None,
+           block_h: int | None = None, block_n: int | None = None,
+           rev_block: int = 256):
     """(scores, indices) of the top-l most similar database rows: for one
     ``(h,)`` query through :func:`query_scores` (the JAX package's
     ``search``), ``(top_l,)`` each; for a ``(nq, h)`` batch through
     :func:`batch_scores`, ``(nq, top_l)`` each."""
     kw = dict(method=method, symmetric=symmetric, iters=iters,
-              use_kernels=use_kernels, block_q=block_q, precision=precision)
+              use_kernels=use_kernels, block_q=block_q, precision=precision,
+              block_v=block_v, block_h=block_h, block_n=block_n,
+              rev_block=rev_block)
     if q_ids.dim() == 1:
         scores = query_scores(corpus, q_ids, q_w, **kw)
     else:
@@ -437,8 +479,10 @@ def all_pairs_chunk(corpus: lc.Corpus, use_kernels: bool) -> int:
 
 def all_pairs_scores(corpus: lc.Corpus, method: str = "act", iters: int = 1,
                      *, engine: str = "batched", use_kernels: bool = False,
-                     block_q: int = 8,
-                     precision: str = "f32") -> torch.Tensor:
+                     block_q: int = 8, precision: str = "f32",
+                     block_v: int | None = None, block_h: int | None = None,
+                     block_n: int | None = None,
+                     rev_block: int = 256) -> torch.Tensor:
     """n x n symmetric bound matrix over the corpus (the paper's evaluation
     mode), float32 on the corpus's device.
 
@@ -458,7 +502,9 @@ def all_pairs_scores(corpus: lc.Corpus, method: str = "act", iters: int = 1,
         asym[s:s + chunk] = batch_scores(
             corpus, corpus.ids[s:s + chunk], corpus.w[s:s + chunk],
             method=method, engine=engine, iters=iters,
-            use_kernels=use_kernels, block_q=block_q, precision=precision)
+            use_kernels=use_kernels, block_q=block_q, precision=precision,
+            block_v=block_v, block_h=block_h, block_n=block_n,
+            rev_block=rev_block)
     return lc.symmetric_scores(asym)
 
 

@@ -59,8 +59,19 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;       // K2 and K5
 constexpr int WARPS = THREADS / 32;
+
+// The fused-gather entry's tile knob: warps (rows) per block, built with
+// -DACT_PHASE2_GATHER_WARPS=... (kernels/_build.py). A warp pours one
+// (query, row) whatever the block, so every variant is bitwise the
+// default; the lane stride over hmax (32) is not a knob, it orders the sum.
+#ifndef ACT_PHASE2_GATHER_WARPS
+#define ACT_PHASE2_GATHER_WARPS 8
+#endif
+constexpr int GATHER_WARPS = ACT_PHASE2_GATHER_WARPS;
+constexpr int GATHER_THREADS = 32 * GATHER_WARPS;
+static_assert(GATHER_WARPS >= 1 && GATHER_THREADS <= 1024, "");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -175,13 +186,14 @@ act_phase2_kernel(const float* __restrict__ x, const T* __restrict__ zg,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GATHER_THREADS)
 act_phase2_gather_kernel(const float* __restrict__ x,
                          const int* __restrict__ ids,
                          const T* __restrict__ Z, const T* __restrict__ W,
                          float* __restrict__ t, int nq, int n, int v,
                          int hmax, int iters, int ws) {
-  const long long warp = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  const long long warp =
+      (long long)blockIdx.x * GATHER_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= (long long)nq * n) return;   // uniform across the warp
   const int q = (int)(warp / n), u = (int)(warp % n);
@@ -195,13 +207,14 @@ act_phase2_gather_kernel(const float* __restrict__ x,
 // The fused entry for k = iters + 1 = K with W's rows K wide: each ladder
 // row in vector loads; the arithmetic of pour_row.
 template <typename T, int K>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GATHER_THREADS)
 act_phase2_gather_vec_kernel(const float* __restrict__ x,
                              const int* __restrict__ ids,
                              const T* __restrict__ Z, const T* __restrict__ W,
                              float* __restrict__ t, int nq, int n, int v,
                              int hmax) {
-  const long long warp = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  const long long warp =
+      (long long)blockIdx.x * GATHER_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= (long long)nq * n) return;   // uniform across the warp
   const int q = (int)(warp / n), u = (int)(warp % n);
@@ -247,7 +260,7 @@ bool launch_gather_vec(const float* x, const int* ids, const void* Z,
       reinterpret_cast<uintptr_t>(Z) % ALIGN ||
       reinterpret_cast<uintptr_t>(W) % ALIGN)
     return false;
-  act_phase2_gather_vec_kernel<T, K><<<blocks, THREADS, 0, stream>>>(
+  act_phase2_gather_vec_kernel<T, K><<<blocks, GATHER_THREADS, 0, stream>>>(
       x, ids, static_cast<const T*>(Z), static_cast<const T*>(W), t, nq, n,
       v, hmax);
   return true;
@@ -258,7 +271,8 @@ cudaError_t launch_gather(const float* x, const int* ids, const void* Z,
                           const void* W, float* t, int nq, int n, int v,
                           int hmax, int iters, int ws, cudaStream_t stream) {
   const long long warps = (long long)nq * n;
-  const unsigned blocks = (unsigned)((warps + WARPS - 1) / WARPS);
+  const unsigned blocks =
+      (unsigned)((warps + GATHER_WARPS - 1) / GATHER_WARPS);
   if (launch_gather_vec<T, 2>(x, ids, Z, W, t, nq, n, v, hmax, iters, ws,
                               blocks, stream) ||
       launch_gather_vec<T, 4>(x, ids, Z, W, t, nq, n, v, hmax, iters, ws,
@@ -268,7 +282,7 @@ cudaError_t launch_gather(const float* x, const int* ids, const void* Z,
       launch_gather_vec<T, 16>(x, ids, Z, W, t, nq, n, v, hmax, iters, ws,
                                blocks, stream))
     return cudaGetLastError();
-  act_phase2_gather_kernel<T><<<blocks, THREADS, 0, stream>>>(
+  act_phase2_gather_kernel<T><<<blocks, GATHER_THREADS, 0, stream>>>(
       x, ids, static_cast<const T*>(Z), static_cast<const T*>(W), t, nq, n,
       v, hmax, iters, ws);
   return cudaGetLastError();
@@ -323,6 +337,40 @@ extern "C" int act_phase2_gather_launch(const void* x, const void* ids,
                                         iters, ws, st);
   return launch_gather<float>(xf, id, Z, W, tf, nq, n, v, hmax, iters, ws,
                               st);
+}
+
+// The compiler's figures for the fused-gather kernel that
+// act_phase2_gather_launch runs at k = iters + 1 with W rows ws wide (the
+// vector form where k is 2, 4, 8 or 16 and ws == k, given aligned
+// ladders): out = {static shared bytes, dynamic shared bytes the launch
+// requests, registers a thread, local (spill) bytes a thread, most threads
+// a block}. Returns the cudaError_t (0 on success).
+template <typename T>
+int gather_attrs(int k, int ws, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err;
+  if (ws == k && k == 2)
+    err = cudaFuncGetAttributes(&a, act_phase2_gather_vec_kernel<T, 2>);
+  else if (ws == k && k == 4)
+    err = cudaFuncGetAttributes(&a, act_phase2_gather_vec_kernel<T, 4>);
+  else if (ws == k && k == 8)
+    err = cudaFuncGetAttributes(&a, act_phase2_gather_vec_kernel<T, 8>);
+  else if (ws == k && k == 16)
+    err = cudaFuncGetAttributes(&a, act_phase2_gather_vec_kernel<T, 16>);
+  else
+    err = cudaFuncGetAttributes(&a, act_phase2_gather_kernel<T>);
+  if (err != cudaSuccess) return err;
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = 0;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = a.maxThreadsPerBlock;
+  return 0;
+}
+
+extern "C" int act_phase2_gather_attrs(int k, int ws, int bf16, int* out) {
+  return bf16 ? gather_attrs<__nv_bfloat16>(k, ws, out)
+              : gather_attrs<float>(k, ws, out);
 }
 
 extern "C" const char* act_phase2_error(int code) {

@@ -83,14 +83,22 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
+// The tile knob: warps (rows) per block, built with
+// -DCAND_DIST_VALID_WARPS=... (kernels/_build.py). A warp scores one output
+// whatever the block, so every variant is bitwise the default; QPL and CH
+// are not knobs: they decide which lanes sum which columns and entries.
+#ifndef CAND_DIST_VALID_WARPS
+#define CAND_DIST_VALID_WARPS 4
+#endif
+constexpr int WARPS = CAND_DIST_VALID_WARPS;
+constexpr int THREADS = 32 * WARPS;
 constexpr int QPL = 8;         // aligned quads of an entry a lane holds
 constexpr int K = 4 * QPL;     // costs of an entry a lane holds
 constexpr int CH = 8;          // slots of the row a lane reads at once
 constexpr int MODE_REV_MIN = 0;
 constexpr int MODE_ICT = 1;
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(WARPS >= 1 && THREADS <= 1024, "");
 
 template <typename F>
 __device__ __forceinline__ F warp_sum(F x) {
@@ -393,6 +401,33 @@ extern "C" int cand_dist_valid_launch(const void* ids, const void* w,
                             mode, st);
   return launch<float>(i, x, c, dv, o, qw, tf, nq, b, hmax, ld, big, mode,
                        st);
+}
+
+// The compiler's figures for the kernel that cand_dist_valid_launch runs in
+// this mode (0 rev_min, 1 ict): out = {static shared bytes, dynamic shared
+// bytes the launch requests, registers a thread, local (spill) bytes a
+// thread, most threads a block}. Returns the cudaError_t (0 on success).
+extern "C" int cand_dist_valid_attrs(int mode, int bf16, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err;
+  if (bf16 && mode == MODE_ICT)
+    err = cudaFuncGetAttributes(&a,
+                                cand_dist_valid_kernel<uint16_t, MODE_ICT>);
+  else if (bf16)
+    err = cudaFuncGetAttributes(
+        &a, cand_dist_valid_kernel<uint16_t, MODE_REV_MIN>);
+  else if (mode == MODE_ICT)
+    err = cudaFuncGetAttributes(&a, cand_dist_valid_kernel<float, MODE_ICT>);
+  else
+    err = cudaFuncGetAttributes(&a,
+                                cand_dist_valid_kernel<float, MODE_REV_MIN>);
+  if (err != cudaSuccess) return err;
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = 0;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = a.maxThreadsPerBlock;
+  return 0;
 }
 
 extern "C" const char* cand_dist_valid_error(int code) {

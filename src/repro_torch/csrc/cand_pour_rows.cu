@@ -60,8 +60,15 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
+// The tile knob: warps (rows) per block, built with
+// -DCAND_POUR_ROWS_WARPS=... (kernels/_build.py). A warp scores one output
+// whatever the block, so every variant is bitwise the default; CH and QB_ALL
+// are not knobs: they decide which lane sums which entries.
+#ifndef CAND_POUR_ROWS_WARPS
+#define CAND_POUR_ROWS_WARPS 4
+#endif
+constexpr int WARPS = CAND_POUR_ROWS_WARPS;
+constexpr int THREADS = 32 * WARPS;
 constexpr int CH = 16;         // slots of the row a lane reads at once
 constexpr int MAXL = 16;       // most ladder columns a pour reads (iters+1)
 constexpr int MODE_POUR = 0;   // iters >= 1
@@ -69,6 +76,7 @@ constexpr int MODE_OMR = 1;
 constexpr int MODE_POUR0 = 2;  // pour at iters == 0
 constexpr int QB_ALL = 16;     // queries of a warp in the all-rows form
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(WARPS >= 1 && THREADS <= 1024, "");
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ld(const uint16_t* p) {
@@ -266,6 +274,43 @@ extern "C" int cand_pour_rows_launch(const void* ids, const void* w,
                             hmax, iters, mode, st);
   return launch<float>(i, x, c, z, wl, zq, zv, wq, wv, tf, nq, cols, hmax,
                        iters, mode, st);
+}
+
+// The compiler's figures for the kernel that cand_pour_rows_launch runs in
+// this mode (0 pour, 1 omr) at this iters, in the candidate form or, with
+// all_rows, the all-rows form: out = {static shared bytes, dynamic shared
+// bytes the launch requests, registers a thread, local (spill) bytes a
+// thread, most threads a block}. Returns the cudaError_t (0 on success).
+template <typename T, int MODE>
+int rows_attrs(int all_rows, cudaFuncAttributes* a) {
+  if (all_rows) {
+    if constexpr (MODE == MODE_POUR)
+      return cudaErrorInvalidValue;
+    else
+      return cudaFuncGetAttributes(a, cand_pour_rows_kernel<T, MODE, QB_ALL>);
+  }
+  return cudaFuncGetAttributes(a, cand_pour_rows_kernel<T, MODE, 1>);
+}
+
+template <typename T>
+int rows_attrs_mode(int mode, int iters, int all_rows, cudaFuncAttributes* a) {
+  if (mode == MODE_OMR) return rows_attrs<T, MODE_OMR>(all_rows, a);
+  if (iters == 0) return rows_attrs<T, MODE_POUR0>(all_rows, a);
+  return rows_attrs<T, MODE_POUR>(all_rows, a);
+}
+
+extern "C" int cand_pour_rows_attrs(int mode, int iters, int all_rows,
+                                    int bf16, int* out) {
+  cudaFuncAttributes a;
+  const int err = bf16 ? rows_attrs_mode<uint16_t>(mode, iters, all_rows, &a)
+                       : rows_attrs_mode<float>(mode, iters, all_rows, &a);
+  if (err) return err;
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = 0;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = a.maxThreadsPerBlock;
+  return 0;
 }
 
 extern "C" const char* cand_pour_rows_error(int code) {

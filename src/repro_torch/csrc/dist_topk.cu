@@ -22,19 +22,20 @@
 //    queries share a tile with those of the next query and no invalid bin
 //    is computed (only the last tile is padded, with zero columns it never
 //    selects). The queries are split into groups only as far as needed to
-//    fill one wave of 3 blocks per SM: at 20 Newsgroups width the 545
-//    vocabulary tiles do that alone (one group), at MNIST width (v = 784)
-//    the 7 tiles do not, and the query axis must fill the card. A query's
-//    slots come out the same whatever its group (a one-query launch is
-//    always one group). Each tile is a register-tiled SGEMM: the
+//    fill one wave of MIN_BLOCKS (3) blocks per SM: at 20 Newsgroups width
+//    the 545 vocabulary tiles do that alone (one group), at MNIST width
+//    (v = 784) the 7 tiles do not, and the query axis must fill the card.
+//    A query's slots come out the same whatever its group (a one-query
+//    launch is always one group). Each tile is a register-tiled SGEMM: the
 //    embedding dimension streams through shared memory in chunks of BK, by
 //    cp.async STAGES - 1 chunks ahead of the arithmetic and on across tile
 //    boundaries (the next tile's copies overlap this tile's selection),
-//    and every thread accumulates an 8 x 8 micro-tile in float32 FMA, in
-//    ascending order of the dimension. The squared norms (|a|^2 once per
-//    block, |b|^2 once per launch) are summed by the same fmaf chain in the
-//    same order, so identical coordinates produce bitwise-equal |a|^2,
-//    |b|^2 and a.b and their distance is exactly 0. The tile's distances
+//    and every thread accumulates an 8 x BH/8 micro-tile (8 x 8 by
+//    default) in float32 FMA, in ascending order of the dimension. The
+//    squared norms (|a|^2 once per block, |b|^2 once per launch) are
+//    summed by the same fmaf chain in the same order, so identical
+//    coordinates produce bitwise-equal |a|^2, |b|^2 and a.b and their
+//    distance is exactly 0. The tile's distances
 //    go to shared memory; thread r then scans row r's columns in packed
 //    order, inserting into KMAX running (value, column) registers with a
 //    strict '<' -- the packed order is ascending within a query, so the
@@ -69,11 +70,27 @@
 
 namespace {
 
-constexpr int BV = 128;            // vocabulary rows per block
-constexpr int BH = 64;             // packed valid bins per tile
+// The tile knobs: a variant is built with -DDIST_TOPK_BV=... and
+// -DDIST_TOPK_BH=... (kernels/_build.py); kernels/ops.py models each
+// variant's shared memory and register cap. Neither changes the order of
+// any sum: a.b runs over the dimension in ascending order in every micro-
+// tile, and the selection scans the packed columns in order whatever the
+// tile edges, so every variant's output is bitwise the default's.
+#ifndef DIST_TOPK_BV
+#define DIST_TOPK_BV 128
+#endif
+#ifndef DIST_TOPK_BH
+#define DIST_TOPK_BH 64
+#endif
+constexpr int BV = DIST_TOPK_BV;   // vocabulary rows per block
+constexpr int BH = DIST_TOPK_BH;   // packed valid bins per tile
 constexpr int BK = 8;              // embedding dims staged per chunk
 constexpr int STAGES = 4;          // chunks in flight (cp.async ring)
-constexpr int THREADS = 128;       // 16 x 8 threads, an 8 x 8 micro-tile each
+constexpr int THREADS = BV;        // (BV/8) x 8 threads, 8 x TN outputs each
+constexpr int TN = BH / 8;         // micro-tile columns
+// Blocks an SM should hold (__launch_bounds__): 384 threads, 3 blocks of
+// the default 128, so the register cap stays at 168 a thread down to BV=64.
+constexpr int MIN_BLOCKS = 384 / THREADS > 1 ? 384 / THREADS : 1;
 constexpr int AP = BV + 4;         // padded strides: conflict-free stores,
 constexpr int BP = BH + 4;         // 16-byte aligned float4 loads
 constexpr int DP = BH + 1;
@@ -83,6 +100,8 @@ constexpr int LB = BH / RS;             // bin elements a thread stages
 constexpr int COMPACT_THREADS = 1024;
 
 static_assert(THREADS == BV, "thread r selects for row r");
+static_assert(BV % 32 == 0 && BV <= 1024, "whole warps, at most 1024");
+static_assert(BH % 32 == 0, "float4 column groups 32 apart");
 static_assert(THREADS % BK == 0 && BV % RS == 0 && BH % RS == 0, "");
 
 struct Smem {
@@ -233,9 +252,9 @@ __device__ __forceinline__ void flush(float (&zr)[KMAX], int (&sr)[KMAX],
   for (int i = 0; i < KMAX; ++i) { zr[i] = CUDART_INF_F; sr[i] = INT_MAX; }
 }
 
-// Three blocks on an SM: 170 registers a thread at most.
+// MIN_BLOCKS blocks on an SM: 168 registers a thread at most by default.
 template <int KMAX, typename TIn, typename OutT>
-__global__ void __launch_bounds__(THREADS, 3)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 dist_topk_kernel(const TIn* __restrict__ coords,
                  const TIn* __restrict__ qc,
                  const bool* __restrict__ qmask,
@@ -333,11 +352,11 @@ dist_topk_kernel(const TIn* __restrict__ coords,
   for (int i = 0; i < KMAX; ++i) { zr[i] = CUDART_INF_F; sr[i] = INT_MAX; }
   int cur_q = q_lo, taken = 0;
 
-  float acc[8][8];
+  float acc[8][TN];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) copy_next();
   {
@@ -361,43 +380,45 @@ dist_topk_kernel(const TIn* __restrict__ coords,
       copy_next();
 #pragma unroll
       for (int kk = 0; kk < BK; ++kk) {
-        float a[8], b[8];
+        // Rows ty*4.. and BV/2 + ty*4..; columns g*32 + tx*4.. per group g.
+        float a[8], b[TN];
         const float4 a0 =
             *reinterpret_cast<const float4*>(&sm.a[buf][kk][ty * 4]);
         const float4 a1 =
-            *reinterpret_cast<const float4*>(&sm.a[buf][kk][64 + ty * 4]);
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(&sm.b[buf][kk][tx * 4]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&sm.b[buf][kk][32 + tx * 4]);
+            *reinterpret_cast<const float4*>(&sm.a[buf][kk][BV / 2 + ty * 4]);
         a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
         a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-        b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-        b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+        for (int g = 0; g < TN / 4; ++g) {
+          const float4 bg = *reinterpret_cast<const float4*>(
+              &sm.b[buf][kk][g * 32 + tx * 4]);
+          b[4 * g] = bg.x; b[4 * g + 1] = bg.y;
+          b[4 * g + 2] = bg.z; b[4 * g + 3] = bg.w;
+        }
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
       buf = buf + 1 == STAGES ? 0 : buf + 1;
     }
 
     // The tile is complete (the next tile's chunks are in flight).
     const int t0 = tile * BH;
-    if (tid < BH) {
-      const int j = t0 + tid;
+    for (int c = tid; c < BH; c += THREADS) {
+      const int j = t0 + c;
       const int p = j < nvalid ? packed[j] : 0;
-      sm.sb2[tid] = j < nvalid ? bnorm[j] : 0.f;
-      sm.tq[tid] = p / h;
-      sm.tc[tid] = p - (p / h) * h;
+      sm.sb2[c] = j < nvalid ? bnorm[j] : 0.f;
+      sm.tq[c] = p / h;
+      sm.tc[c] = p - (p / h) * h;
     }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int r = (i < 4 ? 0 : 64) + ty * 4 + (i % 4);
+      const int r = (i < 4 ? 0 : BV / 2) + ty * 4 + (i % 4);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = (j < 4 ? 0 : 32) + tx * 4 + (j % 4);
+      for (int j = 0; j < TN; ++j) {
+        const int c = (j / 4) * 32 + tx * 4 + (j % 4);
         const float n2 = __fadd_rn(sm.sa2[r], sm.sb2[c]);
         float d = __fsub_rn(n2, __fmul_rn(2.f, acc[i][j]));
         d = fmaxf(d, 0.f);
@@ -444,12 +465,12 @@ cudaError_t launch_main(const TIn* coords, const TIn* qc,
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     device)) != cudaSuccess)
     return err;
-  // Query groups: as few as fill one wave of 3 blocks per SM with the
+  // Query groups: as few as fill one wave of MIN_BLOCKS blocks per SM with the
   // vocabulary tiles, at most one per query. (Two groups of the 16-query
   // 20 Newsgroups batch, 2.75 waves, took 7% longer than one group, 1.4
   // waves, on an H100.)
   const int gx = (v + BV - 1) / BV;
-  const int groups = min(nq, max(1, (3 * sms + gx - 1) / gx));
+  const int groups = min(nq, max(1, (MIN_BLOCKS * sms + gx - 1) / gx));
   const int qpb = (nq + groups - 1) / groups;
   const dim3 grid(gx, (nq + qpb - 1) / qpb);
   dist_topk_kernel<KMAX, TIn, OutT><<<grid, THREADS, sizeof(Smem), stream>>>(
@@ -511,6 +532,41 @@ extern "C" int dist_topk_launch(const void* coords, const void* qc,
   DIST_TOPK_BY_K(float)
 #undef DIST_TOPK_BY_K
 #undef DIST_TOPK_LAUNCH
+}
+
+// The compiler's figures for the kernel that dist_topk_launch runs at this
+// k and these dtypes: out = {static shared bytes, dynamic shared bytes the
+// launch requests, registers a thread, local (spill) bytes a thread, most
+// threads a block}. Returns the cudaError_t (0 on success).
+template <int KMAX, typename TIn, typename OutT>
+int attrs_of(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, dist_topk_kernel<KMAX, TIn, OutT>);
+  if (err != cudaSuccess) return err;
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = (int)sizeof(Smem);
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = a.maxThreadsPerBlock;
+  return 0;
+}
+
+template <int KMAX>
+int attrs_k(int in_bf16, int out_bf16, int* out) {
+  if (in_bf16)
+    return out_bf16 ? attrs_of<KMAX, __nv_bfloat16, __nv_bfloat16>(out)
+                    : attrs_of<KMAX, __nv_bfloat16, float>(out);
+  return out_bf16 ? attrs_of<KMAX, float, __nv_bfloat16>(out)
+                  : attrs_of<KMAX, float, float>(out);
+}
+
+extern "C" int dist_topk_attrs(int k, int in_bf16, int out_bf16, int* out) {
+  if (k <= 1) return attrs_k<1>(in_bf16, out_bf16, out);
+  if (k <= 2) return attrs_k<2>(in_bf16, out_bf16, out);
+  if (k <= 4) return attrs_k<4>(in_bf16, out_bf16, out);
+  if (k <= 8) return attrs_k<8>(in_bf16, out_bf16, out);
+  return attrs_k<16>(in_bf16, out_bf16, out);
 }
 
 extern "C" const char* dist_topk_error(int code) {

@@ -5,8 +5,13 @@ library, compiled for ``sm_90a`` at first use into ``build/kernels/`` at
 the root of the checkout (git-ignored), under a name keyed by a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one
 is reused. Nothing here includes PyTorch's headers, so a build takes
-seconds. :func:`build` compiles several sources at once, one ``nvcc``
+seconds. :func:`build` compiles several libraries at once, one ``nvcc``
 process each.
+
+A tile variant of a kernel is the same source built with ``-D`` defines
+(``{"DIST_TOPK_BV": 256}``): its own library, keyed by the source and all
+its flags. No defines is the default variant, the library the source
+always built.
 """
 from __future__ import annotations
 
@@ -42,45 +47,83 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built to: keyed by source and flags."""
+def define_flags(defines=None) -> tuple[str, ...]:
+    """``-DNAME=VALUE`` flags of a variant, sorted by name."""
+    return tuple(f"-D{k}={int(v)}" for k, v in sorted((defines or {}).items()))
+
+
+def library_path(name: str, defines=None) -> Path:
+    """Where ``csrc/<name>.cu`` is built to with ``defines``: keyed by the
+    source and every flag."""
+    flags = NVCC_FLAGS + define_flags(defines)
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names=SOURCES) -> dict[str, str]:
-    """Compile every source of ``names`` not yet built, with one ``nvcc``
-    process per source, all started together. Returns {name: compiler
-    output} for the sources compiled now (``-Xptxas -v`` reports each
-    kernel's registers, shared memory and spills). Raises with the
-    compiler's output if any build fails."""
+def build_variants(variants) -> dict[tuple, str]:
+    """Compile every ``(name, defines)`` of ``variants`` not yet built,
+    with one ``nvcc`` process each, all started together. Returns
+    {(name, sorted define items): compiler output} for the libraries
+    compiled now (``-Xptxas -v`` reports each kernel's registers, shared
+    memory and spills). Raises :class:`KernelError` with the compiler's
+    output if any build fails; nothing falls back to another variant."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
+    for name, defines in variants:
+        key = (name, tuple(sorted((defines or {}).items())))
+        out = library_path(name, defines)
+        if key in procs or out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (out, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        procs[key] = (out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, *define_flags(defines), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
-    for name, (out, tmp, proc) in procs.items():
-        logs[name] = proc.communicate()[0]
+    for key, (out, tmp, proc) in procs.items():
+        logs[key] = proc.communicate()[0]
         if proc.returncode:
-            failed.append(name)
+            failed.append(key)
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)    # atomic: concurrent builds agree
     if failed:
-        raise KernelError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
+        raise KernelError("nvcc failed for " + ", ".join(
+            f"{n}{dict(d) or ''}" for n, d in failed) + ":\n"
+            + "\n".join(logs[k] for k in failed))
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The shared library of ``csrc/<name>.cu``, built first if needed."""
-    build((name,))
-    return ctypes.CDLL(str(library_path(name)))
+def build(names=SOURCES, defines=None) -> dict[str, str]:
+    """Compile every source of ``names`` not yet built, with ``defines``
+    (none: the default variants). Returns {name: compiler output} for the
+    sources compiled now; raises :class:`KernelError` if any build
+    fails."""
+    logs = build_variants([(name, defines) for name in names])
+    return {name: log for (name, _), log in logs.items()}
 
+
+def load(name: str, defines=None) -> ctypes.CDLL:
+    """The shared library of ``csrc/<name>.cu`` with ``defines``, built
+    first if needed."""
+    build_variants([(name, defines)])
+    return ctypes.CDLL(str(library_path(name, defines)))
+
+
+#: The figures a kernel's ``<name>_attrs`` C function reports, in order:
+#: ``cudaFuncGetAttributes``' static shared bytes, the dynamic shared bytes
+#: the launch requests, registers a thread, local (spill) bytes a thread
+#: and most threads a block.
+ATTR_KEYS = ("static_bytes", "dynamic_bytes", "regs", "local_bytes",
+             "max_threads")
+
+
+def func_attrs(fn, *args) -> dict[str, int]:
+    """Call a kernel library's ``<name>_attrs(*args, int out[5])`` and
+    return its figures by :data:`ATTR_KEYS`."""
+    out = (ctypes.c_int * len(ATTR_KEYS))()
+    err = fn(*args, out)
+    if err:
+        raise KernelError(f"cudaFuncGetAttributes failed with error {err}")
+    return dict(zip(ATTR_KEYS, out))

@@ -129,12 +129,14 @@ def act_phase2_gather_plain(x: torch.Tensor, ids: torch.Tensor,
 
 
 def act_phase2_gather_cuda(x: torch.Tensor, ids: torch.Tensor,
-                           Z: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+                           Z: torch.Tensor, W: torch.Tensor,
+                           variant=()) -> torch.Tensor:
     """Launch the fused-gather kernel on the current stream. The caller
     (``ops.act_phase2_gather``) has checked devices, dtypes, shapes, the
-    range of the ids and contiguity."""
+    range of the ids and contiguity, and picked the tile ``variant``
+    (``ops.variant``; () for the default tile)."""
     global gather_launches
-    lib = _lib()
+    lib = _lib(variant)
     n, hmax = x.shape
     nq, v, k = Z.shape
     t = torch.empty((nq, n), dtype=torch.float32, device=x.device)
@@ -150,10 +152,21 @@ def act_phase2_gather_cuda(x: torch.Tensor, ids: torch.Tensor,
     return t
 
 
+def gather_attrs(k: int, ws: int, dtype: torch.dtype = torch.float32,
+                 variant=()) -> dict:
+    """The compiler's figures (``_build.ATTR_KEYS``) for the fused-gather
+    kernel a launch with Z rows k = iters + 1 wide and W rows ws wide
+    runs, in the tile ``variant``."""
+    lib = _lib(variant)
+    return _build.func_attrs(lib.act_phase2_gather_attrs, k, ws,
+                             int(dtype == torch.bfloat16))
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/act_phase2.cu``."""
-    lib = _build.load("act_phase2")
+def _lib(variant=()) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/act_phase2.cu`` with the tile
+    ``variant``'s defines."""
+    lib = _build.load("act_phase2", dict(variant))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.act_phase2_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.act_phase2_launch.restype = i
@@ -162,6 +175,8 @@ def _lib() -> ctypes.CDLL:
     lib.act_phase2_gather_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                              i, p]
     lib.act_phase2_gather_launch.restype = i
+    lib.act_phase2_gather_attrs.argtypes = [i, i, i, p]
+    lib.act_phase2_gather_attrs.restype = i
     lib.act_phase2_error.argtypes = [i]
     lib.act_phase2_error.restype = ctypes.c_char_p
     return lib

@@ -248,13 +248,14 @@ def cand_dist_cuda(idsg: torch.Tensor, xg: torch.Tensor, dq: torch.Tensor,
 def cand_dist_valid_cuda(ids: torch.Tensor, w: torch.Tensor,
                          cand: torch.Tensor, dv: torch.Tensor,
                          qoff: torch.Tensor, qwv: torch.Tensor,
-                         mode: str) -> torch.Tensor:
+                         mode: str, variant=()) -> torch.Tensor:
     """Launch the valid-bin K4 on the current stream, at the candidate rows
     cand or, with cand None, at every corpus row. The caller
     (``ops.cand_rev_min_valid`` / ``ops.cand_ict_valid``) has checked
     devices, dtypes, shapes, strides, the range of cand and qoff, and
-    that no query has more than MAX_LEN valid bins."""
-    lib = _lib("cand_dist_valid")
+    that no query has more than MAX_LEN valid bins, and picked the tile
+    ``variant`` (``ops.variant``; () for the default tile)."""
+    lib = _lib("cand_dist_valid", variant)
     nq = qoff.shape[0] - 1
     b = ids.shape[0] if cand is None else cand.shape[1]
     t = torch.empty((nq, b), dtype=torch.float32, device=w.device)
@@ -273,7 +274,7 @@ def cand_dist_valid_cuda(ids: torch.Tensor, w: torch.Tensor,
 def cand_pour_rows_cuda(ids: torch.Tensor, w: torch.Tensor,
                         cand: torch.Tensor | None, Z: torch.Tensor,
                         W: torch.Tensor | None, iters: int,
-                        mode: str = "pour") -> torch.Tensor:
+                        mode: str = "pour", variant=()) -> torch.Tensor:
     """Launch K3's corpus-row entry on the current stream. ``mode="omr"``
     takes W = W0 (nq, v). The all-rows form reads the ladders from a
     vocabulary-major (v, nq, k) copy made here: one id's values for the
@@ -282,8 +283,9 @@ def cand_pour_rows_cuda(ids: torch.Tensor, w: torch.Tensor,
     given, PERF.md); the candidate form reads them as given. The caller
     (``ops.cand_pour_rows`` / ``ops.cand_omr_rows``) has checked devices,
     dtypes, shapes, contiguity, the ranges of ids and cand, and that the
-    all-rows form gets no pour at iters >= 1."""
-    lib = _lib("cand_pour_rows")
+    all-rows form gets no pour at iters >= 1, and picked the tile
+    ``variant`` (``ops.variant``; () for the default tile)."""
+    lib = _lib("cand_pour_rows", variant)
     omr = mode == "omr"
     nq, n, hmax = Z.shape[0], ids.shape[0], ids.shape[1]
     # The kernel reads element (q, id, l) at q * stride(0) + id * stride(1)
@@ -310,10 +312,30 @@ def cand_pour_rows_cuda(ids: torch.Tensor, w: torch.Tensor,
     return t
 
 
+def rows_attrs(mode: str, iters: int, all_rows: bool,
+               dtype: torch.dtype = torch.float32, variant=()) -> dict:
+    """The compiler's figures (``_build.ATTR_KEYS``) for the kernel that
+    K3's corpus-row entry runs in this mode at this iters, in the
+    candidate or the all-rows form, in the tile ``variant``."""
+    lib = _lib("cand_pour_rows", variant)
+    return _build.func_attrs(lib.cand_pour_rows_attrs, _MODES[mode], iters,
+                             int(all_rows), int(dtype == torch.bfloat16))
+
+
+def valid_attrs(mode: str, dtype: torch.dtype = torch.float32,
+                variant=()) -> dict:
+    """The compiler's figures (``_build.ATTR_KEYS``) for the kernel that
+    K4's valid-bin entry runs in this mode, in the tile ``variant``."""
+    lib = _lib("cand_dist_valid", variant)
+    return _build.func_attrs(lib.cand_dist_valid_attrs, _MODES[mode],
+                             int(dtype == torch.bfloat16))
+
+
 @functools.cache
-def _lib(name: str) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/<name>.cu``."""
-    lib = _build.load(name)
+def _lib(name: str, variant=()) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<name>.cu`` with the tile
+    ``variant``'s defines."""
+    lib = _build.load(name, dict(variant))
     p, i = ctypes.c_void_p, ctypes.c_int
     launch, error = getattr(lib, f"{name}_launch"), getattr(lib,
                                                             f"{name}_error")
@@ -328,6 +350,12 @@ def _lib(name: str) -> ctypes.CDLL:
         launch.argtypes = [p, p, p, p, p] + [i] * 5 + [ctypes.c_float, i, i,
                                                        p]
     launch.restype = i
+    if name == "cand_pour_rows":
+        lib.cand_pour_rows_attrs.argtypes = [i, i, i, i, p]
+        lib.cand_pour_rows_attrs.restype = i
+    elif name == "cand_dist_valid":
+        lib.cand_dist_valid_attrs.argtypes = [i, i, p]
+        lib.cand_dist_valid_attrs.restype = i
     error.argtypes = [i]
     error.restype = ctypes.c_char_p
     return lib

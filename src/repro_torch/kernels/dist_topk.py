@@ -76,19 +76,20 @@ def dist_topk_plain(coords: torch.Tensor, qcs: torch.Tensor,
 
 def dist_topk_cuda(coords: torch.Tensor, qcs: torch.Tensor,
                    qmask: torch.Tensor, k: int,
-                   out_dtype: torch.dtype = torch.float32):
+                   out_dtype: torch.dtype = torch.float32, variant=()):
     """Launch the CUDA kernel on the current stream: a compaction of the
     valid bins, then the distances and selection over those bins only, in
     blocks of vocabulary rows by groups of queries (the kernel picks the
     groups; a query's output does not depend on its group). The
     caller (``ops.dist_topk_batched``) has checked devices, dtypes, shapes
-    and contiguity."""
+    and contiguity, and picked the tile ``variant`` (``ops.variant``: its
+    ``-D`` defines; () for the default tile)."""
     global launches
     v, m = coords.shape
     nq, h, _ = qcs.shape
     if nq * h >= 2**31:
         raise ValueError(f"nq * h must be below 2^31, got {nq} * {h}")
-    lib = _lib()
+    lib = _lib(variant)
     z = torch.empty((nq, v, k), dtype=out_dtype, device=coords.device)
     s = torch.empty((nq, v, k), dtype=torch.int32, device=coords.device)
     # Scratch: the flat indices q*h + c of the valid bins, their count and
@@ -109,14 +110,27 @@ def dist_topk_cuda(coords: torch.Tensor, qcs: torch.Tensor,
     return z, s
 
 
+def attrs(k: int, in_dtype: torch.dtype = torch.float32,
+          out_dtype: torch.dtype = torch.float32, variant=()) -> dict:
+    """The compiler's figures (``_build.ATTR_KEYS``) for the kernel that a
+    launch at this k and these dtypes runs, in the tile ``variant``."""
+    lib = _lib(variant)
+    return _build.func_attrs(lib.dist_topk_attrs, k,
+                             int(in_dtype == torch.bfloat16),
+                             int(out_dtype == torch.bfloat16))
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/dist_topk.cu``."""
-    lib = _build.load("dist_topk")
+def _lib(variant=()) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/dist_topk.cu`` with the tile
+    ``variant``'s defines."""
+    lib = _build.load("dist_topk", dict(variant))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dist_topk_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                      ctypes.c_float, i, i, p]
     lib.dist_topk_launch.restype = i
+    lib.dist_topk_attrs.argtypes = [i, i, i, p]
+    lib.dist_topk_attrs.restype = i
     lib.dist_topk_error.argtypes = [i]
     lib.dist_topk_error.restype = ctypes.c_char_p
     return lib

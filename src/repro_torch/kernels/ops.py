@@ -8,6 +8,10 @@ other path.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
+
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
@@ -55,7 +59,9 @@ def _check_ids_range(ids: torch.Tensor, v: int) -> None:
 def dist_topk_batched(coords: torch.Tensor, qcs: torch.Tensor,
                       qmask: torch.Tensor, k: int, *,
                       out_dtype: torch.dtype = torch.float32,
-                      qids: torch.Tensor | None = None):
+                      qids: torch.Tensor | None = None,
+                      block_v: int | None = None,
+                      block_h: int | None = None):
     """Fused distance + row-top-k for a query batch in one launch.
 
     coords (v, m) and qcs (nq, h, m), both float32 or both bfloat16 (the
@@ -67,6 +73,10 @@ def dist_topk_batched(coords: torch.Tensor, qcs: torch.Tensor,
     bins, when qcs = coords[qids]. The plain version pins each bin's
     distance to its own vocabulary row to exactly 0; the kernel gives that
     0 by its FMA order and does not read qids.
+
+    ``block_v`` / ``block_h``: the kernel's tile (vocabulary rows a block,
+    valid bins a tile; None: the default tile). Every admitted tile gives
+    the same bits; the plain version ignores them.
     """
     _require(coords.dim() == 2 and coords.dtype in _LADDER_DTYPES,
              f"coords must be (v, m) float32 or bfloat16, got "
@@ -93,23 +103,26 @@ def dist_topk_batched(coords: torch.Tensor, qcs: torch.Tensor,
              f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     _require(all(t.is_contiguous() for t in (coords, qcs, qmask)),
              "coords, qcs and qmask must be contiguous")
+    var = variant("dist_topk", block_v=block_v, block_h=block_h)
     tensors = (coords, qcs, qmask) + (() if qids is None else (qids,))
     if _on_cpu(*tensors):
         return dist_k.dist_topk_plain(coords, qcs, qmask, k, out_dtype,
                                          qids)
-    return dist_k.dist_topk_cuda(coords, qcs, qmask, k, out_dtype)
+    return dist_k.dist_topk_cuda(coords, qcs, qmask, k, out_dtype, var)
 
 
 def dist_topk(coords: torch.Tensor, qc: torch.Tensor, qmask: torch.Tensor,
               k: int, *, out_dtype: torch.dtype = torch.float32,
-              qids: torch.Tensor | None = None):
+              qids: torch.Tensor | None = None, block_v: int | None = None,
+              block_h: int | None = None):
     """Fused distance + row-top-k for one query: coords (v, m), qc (h, m),
     qmask (h,) bool, qids (h,) optional -> Z (v, k), S (v, k). The
     single-query view of :func:`dist_topk_batched` (a batch of one, one
     launch), with its checks."""
     z, s = dist_topk_batched(coords, qc[None], qmask[None], k,
                              out_dtype=out_dtype,
-                             qids=None if qids is None else qids[None])
+                             qids=None if qids is None else qids[None],
+                             block_v=block_v, block_h=block_h)
     return z[0], s[0]
 
 
@@ -150,13 +163,16 @@ def act_phase2(x: torch.Tensor, zg: torch.Tensor,
 
 
 def act_phase2_gather(x: torch.Tensor, ids: torch.Tensor, Z: torch.Tensor,
-                      W: torch.Tensor) -> torch.Tensor:
+                      W: torch.Tensor, *,
+                      block_n: int | None = None) -> torch.Tensor:
     """K2 with the gather fused in: the pour of :func:`act_phase2_batched`
     on ``Z[:, ids]`` and ``W[:, ids, :iters]``, without either tensor.
 
     x (n, hmax) float32 shared residual weights; ids (n, hmax) int32 in
     [0, v); Z (nq, v, iters+1) and W (nq, v, >= iters) Phase-1 ladders,
     both float32 or both bfloat16, ``iters >= 1`` -> t (nq, n) float32.
+    ``block_n``: rows (warps) a block (None: the default tile); every
+    admitted tile gives the same bits, the plain version ignores it.
     """
     _require(x.dim() == 2 and x.dtype == torch.float32,
              f"x must be (n, hmax) float32, got {tuple(x.shape)} {x.dtype}")
@@ -177,11 +193,12 @@ def act_phase2_gather(x: torch.Tensor, ids: torch.Tensor, Z: torch.Tensor,
              "x, ids, Z and W must be non-empty")
     _require(all(t.is_contiguous() for t in (x, ids, Z, W)),
              "x, ids, Z and W must be contiguous")
+    var = variant("act_phase2", block_n=block_n)
     on_cpu = _on_cpu(x, ids, Z, W)
     _check_ids_range(ids, Z.shape[1])
-    fn = (act_k.act_phase2_gather_plain if on_cpu
-          else act_k.act_phase2_gather_cuda)
-    return fn(x, ids, Z, W)
+    if on_cpu:
+        return act_k.act_phase2_gather_plain(x, ids, Z, W)
+    return act_k.act_phase2_gather_cuda(x, ids, Z, W, var)
 
 
 def act_phase2_cand(xg: torch.Tensor, zg: torch.Tensor,
@@ -332,7 +349,8 @@ def cand_ict(idsg: torch.Tensor, xg: torch.Tensor, Dq: torch.Tensor,
 # [0, v): the kernel loads at them unchecked, as the stacked entries do.
 
 
-def _cand_dist_valid(ids, w, cand, dv, qoff, qwv, mode, plain):
+def _cand_dist_valid(ids, w, cand, dv, qoff, qwv, mode, plain, block_n):
+    var = variant("cand_dist", block_n=block_n)
     _require(ids.dim() == 2 and ids.dtype == torch.int32
              and min(ids.shape) >= 1,
              f"ids must be non-empty (n, hmax) int32, got "
@@ -381,29 +399,34 @@ def _cand_dist_valid(ids, w, cand, dv, qoff, qwv, mode, plain):
              f"at most {cand_k.MAX_LEN}")
     if on_cpu:
         return plain(ids, w, cand, dv, qoff, qwv)
-    return cand_k.cand_dist_valid_cuda(ids, w, cand, dv, qoff, qwv, mode)
+    return cand_k.cand_dist_valid_cuda(ids, w, cand, dv, qoff, qwv, mode,
+                                       var)
 
 
 def cand_rev_min_valid(ids: torch.Tensor, w: torch.Tensor,
                        cand: torch.Tensor | None, dv: torch.Tensor,
-                       qoff: torch.Tensor, qwv: torch.Tensor) -> torch.Tensor:
+                       qoff: torch.Tensor, qwv: torch.Tensor, *,
+                       block_n: int | None = None) -> torch.Tensor:
     """K4 mode ``rev_min`` on the valid-bin handoff: the reverse-RWMD
     masked (min,+) reduction of :func:`cand_rev_min` at the candidate rows
     cand, reading each query's valid bins only -> (nq, b) float32; with
-    cand None, at every corpus row -> (nq, n). An empty query scores 0."""
+    cand None, at every corpus row -> (nq, n). An empty query scores 0.
+    ``block_n``: rows (warps) a block (None: the default tile)."""
     return _cand_dist_valid(ids, w, cand, dv, qoff, qwv, "rev_min",
-                            cand_k.cand_rev_min_valid_plain)
+                            cand_k.cand_rev_min_valid_plain, block_n)
 
 
 def cand_ict_valid(ids: torch.Tensor, w: torch.Tensor,
                    cand: torch.Tensor | None, dv: torch.Tensor,
-                   qoff: torch.Tensor, qwv: torch.Tensor) -> torch.Tensor:
+                   qoff: torch.Tensor, qwv: torch.Tensor, *,
+                   block_n: int | None = None) -> torch.Tensor:
     """K4 mode ``ict`` on the valid-bin handoff: the LC-ICT full-ladder
     pour of :func:`cand_ict` at the candidate rows cand -> (nq, b)
     float32; with cand None, at every corpus row -> (nq, n). An empty
-    query scores 0."""
+    query scores 0. ``block_n``: rows (warps) a block (None: the default
+    tile)."""
     return _cand_dist_valid(ids, w, cand, dv, qoff, qwv, "ict",
-                            cand_k.cand_ict_valid_plain)
+                            cand_k.cand_ict_valid_plain, block_n)
 
 
 # ------------------------------------------- K3 on the corpus rows
@@ -440,7 +463,8 @@ def _check_rows(ids, w, cand, tables):
 
 def cand_pour_rows(ids: torch.Tensor, w: torch.Tensor,
                    cand: torch.Tensor | None, Z: torch.Tensor,
-                   W: torch.Tensor | None, iters: int) -> torch.Tensor:
+                   W: torch.Tensor | None, iters: int, *,
+                   block_n: int | None = None) -> torch.Tensor:
     """K3 mode ``pour`` reading the candidate rows from the corpus: the
     value of :func:`cand_pour` on ``ids[cand]``, ``w[cand]``, in one launch
     and without either tensor; with cand None, on every corpus row at
@@ -450,8 +474,10 @@ def cand_pour_rows(ids: torch.Tensor, w: torch.Tensor,
     Z (nq, v, >= iters+1) cost ladder; W (nq, v, >= iters) capacity ladder
     of Z's dtype (``None`` when iters == 0), both float32 or bfloat16,
     ``0 <= iters <= cand_pour.MAX_ITERS`` -> (nq, b) float32, or (nq, n)
-    when cand is None.
+    when cand is None. ``block_n``: rows (warps) a block (None: the
+    default tile); every admitted tile gives the same bits.
     """
+    var = variant("cand_pour", block_n=block_n)
     _require(0 <= iters <= cand_k.MAX_ITERS,
              f"iters must be in [0, {cand_k.MAX_ITERS}], got {iters}")
     _require(Z.dim() == 3 and min(Z.shape[:2]) >= 1
@@ -472,17 +498,21 @@ def cand_pour_rows(ids: torch.Tensor, w: torch.Tensor,
         tables += (W,)
     if _check_rows(ids, w, cand, tables):
         return cand_k.cand_pour_rows_plain(ids, w, cand, Z, W, iters)
-    return cand_k.cand_pour_rows_cuda(ids, w, cand, Z, W, iters)
+    return cand_k.cand_pour_rows_cuda(ids, w, cand, Z, W, iters,
+                                      variant=var)
 
 
 def cand_omr_rows(ids: torch.Tensor, w: torch.Tensor,
                   cand: torch.Tensor | None, Z: torch.Tensor,
-                  W0: torch.Tensor) -> torch.Tensor:
+                  W0: torch.Tensor, *,
+                  block_n: int | None = None) -> torch.Tensor:
     """K3 mode ``omr`` reading the candidate rows from the corpus: the
     value of :func:`cand_omr` on ``ids[cand]``, ``w[cand]``; with cand
     None, on every corpus row (full-corpus LC-OMR). Z (nq, v, >= 2) top-2
     costs; W0 (nq, v) first capacities of Z's dtype -> (nq, b) float32, or
-    (nq, n) when cand is None."""
+    (nq, n) when cand is None. ``block_n`` as for :func:`cand_pour_rows`.
+    """
+    var = variant("cand_pour", block_n=block_n)
     _require(Z.dim() == 3 and min(Z.shape[:2]) >= 1 and Z.shape[2] >= 2
              and Z.dtype in _LADDER_DTYPES,
              f"Z must be non-empty (nq, v, >=2) float32 or bfloat16, got "
@@ -492,4 +522,302 @@ def cand_omr_rows(ids: torch.Tensor, w: torch.Tensor,
              f"{tuple(W0.shape)} {W0.dtype}")
     if _check_rows(ids, w, cand, (Z, W0)):
         return cand_k.cand_omr_rows_plain(ids, w, cand, Z, W0)
-    return cand_k.cand_pour_rows_cuda(ids, w, cand, Z, W0, 1, mode="omr")
+    return cand_k.cand_pour_rows_cuda(ids, w, cand, Z, W0, 1, mode="omr",
+                                      variant=var)
+
+
+# ------------------------------------------------------ the launch model
+#
+# Each kernel family's launch as DATA, evaluated without launching: the
+# grid, the threads a block, the shared memory a block holds (by the same
+# arithmetic as the kernel's ``Smem`` struct or ``__shared__`` arrays) and
+# the ``__launch_bounds__`` it is compiled under. ``repro_torch.analysis.smem``
+# turns a layout into sm_90's budget (bytes, registers, threads, blocks on
+# an SM), and the tile autotuner (``kernels/autotune``) times only variants
+# it admits. A change to a kernel's tiles or shared arrays MUST be
+# mirrored here: ``chip_smoke.py`` holds every variant's bytes to
+# ``cudaFuncGetAttributes`` on the card.
+
+#: SMs of an H100 SXM: K1 sizes its query groups by the card's count at
+#: launch; the model uses this one.
+SMS = 132
+
+#: Per family: the entry the engines launch and its source, the tile knobs
+#: it takes (``EngineConfig`` knob -> the source's ``-D`` macro) and its
+#: default tile (the values the source has without defines). A knob absent
+#: from a family has no safe meaning there: a tile may only change which
+#: thread or block computes an output, never the order of a float sum.
+#:
+#: * ``dist_topk`` (K1): vocabulary rows (= threads) per block and packed
+#:   valid bins per tile. The per-thread FMA chain over the dimension and
+#:   the packed-order selection do not see tile edges.
+#: * ``act_phase2``: the fused-gather entry ``act_phase2_gather``; rows
+#:   (warps) per block. The 32-lane stride over hmax orders the row's sum,
+#:   so ``block_h`` is not a knob here.
+#: * ``act_phase2_cand`` (K5): no knob; no engine launches it.
+#: * ``cand_pour``: K3's corpus-row entry ``cand_pour_rows``; rows (warps)
+#:   per block. Its slots per pass (CH) and queries per warp (QB_ALL)
+#:   decide which lane sums which entries. ``block_v`` (the TPU kernel's
+#:   one-hot vocabulary slab) has no counterpart: the card loads directly.
+#: * ``cand_dist``: K4's valid-bin entry ``cand_dist_valid``; rows (warps)
+#:   per block. Its quads per lane (QPL) and slots per pass (CH) order its
+#:   sums; ``block_v`` as for ``cand_pour``.
+FAMILY_ENTRIES = {
+    "dist_topk": ("dist_topk_batched", "dist_topk"),
+    "act_phase2": ("act_phase2_gather", "act_phase2"),
+    "act_phase2_cand": ("act_phase2_cand", "act_phase2"),
+    "cand_pour": ("cand_pour_rows", "cand_pour_rows"),
+    "cand_dist": ("cand_dist_valid", "cand_dist_valid"),
+}
+TILE_MACROS = {
+    "dist_topk": {"block_v": "DIST_TOPK_BV", "block_h": "DIST_TOPK_BH"},
+    "act_phase2": {"block_n": "ACT_PHASE2_GATHER_WARPS"},
+    "act_phase2_cand": {},
+    "cand_pour": {"block_n": "CAND_POUR_ROWS_WARPS"},
+    "cand_dist": {"block_n": "CAND_DIST_VALID_WARPS"},
+}
+DEFAULT_TILES = {
+    "dist_topk": {"block_v": 128, "block_h": 64},
+    "act_phase2": {"block_n": 8},
+    "act_phase2_cand": {},
+    "cand_pour": {"block_n": 4},
+    "cand_dist": {"block_n": 4},
+}
+
+#: Kernels that keep fixed tiles, with the reason: none is on a path the
+#: tile knobs reach.
+FIXED_TILES = {
+    "act_phase2 (csrc/act_phase2.cu act_phase2_kernel, K2 unfused)":
+        "256 threads; the single-query LC-ACT path's pour on gathered "
+        "ladders, one launch per query",
+    "act_phase2_cand (csrc/act_phase2.cu, K5)":
+        "256 threads; no engine launches it, in either package",
+    "cand_pour (csrc/cand_pour.cu, stacked K3)":
+        "256 threads; off the path since K3 reads the corpus rows",
+    "cand_dist (csrc/cand_dist.cu, stacked K4)":
+        "256 threads; off the path since K4 reads the valid-bin handoff",
+}
+
+_DTYPE_BYTES = {"float32": 4, "int32": 4, "bfloat16": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockBuffer:
+    """One shared-memory array of a block: ``static`` (a ``__shared__``
+    array, at most 48 KB in all) or ``dynamic`` (``extern __shared__``,
+    requested at launch)."""
+    name: str
+    shape: tuple[int, ...]
+    dtype: str = "float32"
+    role: str = "static"
+
+    def __post_init__(self) -> None:
+        assert self.role in ("static", "dynamic"), self.role
+        assert self.dtype in _DTYPE_BYTES, self.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * _DTYPE_BYTES[self.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelBlocks:
+    """Static description of one kernel launch: grid, block, shared
+    arrays, ``__launch_bounds__(threads, min_blocks)`` and the registers
+    a thread's accumulator tile takes at least (``acc_regs``)."""
+    family: str
+    kernel: str
+    grid: tuple[int, ...]
+    threads: int
+    buffers: tuple[BlockBuffer, ...]
+    min_blocks: int = 1
+    acc_regs: int = 0
+
+    @property
+    def static_bytes(self) -> int:
+        return sum(b.nbytes for b in self.buffers if b.role == "static")
+
+    @property
+    def dynamic_bytes(self) -> int:
+        return sum(b.nbytes for b in self.buffers if b.role == "dynamic")
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory a block holds: static plus requested dynamic."""
+        return self.static_bytes + self.dynamic_bytes
+
+
+def _positive(**dims) -> None:
+    bad = {k: v for k, v in dims.items() if v < 1}
+    if bad:
+        raise ValueError(f"kernel dims must be >= 1, got {bad}")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tile(family: str, knob: str, value) -> int:
+    return DEFAULT_TILES[family][knob] if value is None else value
+
+
+def _warps(family: str, block_n) -> int:
+    warps = _tile(family, "block_n", block_n)
+    if not 1 <= warps <= 32:
+        raise ValueError(f"{family}: block_n (warps a block) must be in "
+                         f"[1, 32], got {warps}")
+    return warps
+
+
+def _dist_topk_layout(*, nq: int, v: int, h: int, m: int, k: int,
+                      block_v: int | None = None,
+                      block_h: int | None = None) -> KernelBlocks:
+    _positive(nq=nq, v=v, h=h, m=m, k=k)
+    bv = _tile("dist_topk", "block_v", block_v)
+    bh = _tile("dist_topk", "block_h", block_h)
+    if bv % 32 or not 32 <= bv <= 1024:
+        raise ValueError(f"dist_topk: block_v (threads a block) must be a "
+                         f"multiple of 32 in [32, 1024], got {bv}")
+    if bh % 32 or bh < 32:
+        raise ValueError(f"dist_topk: block_h must be a multiple of 32 "
+                         f"(float4 column groups), got {bh}")
+    if 8 * bh % bv:
+        raise ValueError(f"dist_topk: 8 * block_h must be a multiple of "
+                         f"block_v (each thread stages whole columns), got "
+                         f"{bh} and {bv}")
+    if not 1 <= k <= dist_k.MAX_K:
+        raise ValueError(f"dist_topk: k must be in [1, {dist_k.MAX_K}]")
+    min_blocks = max(1, 384 // bv)
+    gx = _cdiv(v, bv)
+    groups = min(nq, max(1, _cdiv(min_blocks * SMS, gx)))
+    qpb = _cdiv(nq, groups)
+    stages, bk = 4, 8
+    return KernelBlocks(
+        family="dist_topk", kernel="dist_topk_kernel",
+        grid=(gx, _cdiv(nq, qpb)), threads=bv, min_blocks=min_blocks,
+        # the 8 x block_h/8 float32 accumulator of a thread
+        acc_regs=bh,
+        buffers=(
+            BlockBuffer("a", (stages, bk, bv + 4), role="dynamic"),
+            BlockBuffer("b", (stages, bk, bh + 4), role="dynamic"),
+            BlockBuffer("d", (bv, bh + 1), role="dynamic"),
+            BlockBuffer("sa2", (bv,), role="dynamic"),
+            BlockBuffer("sb2", (bh,), role="dynamic"),
+            BlockBuffer("tq", (bh,), "int32", "dynamic"),
+            BlockBuffer("tc", (bh,), "int32", "dynamic"),
+        ))
+
+
+def _act_phase2_layout(*, nq: int, n: int, h: int, iters: int,
+                       block_n: int | None = None,
+                       per_query_x: bool = False) -> KernelBlocks:
+    _positive(nq=nq, n=n, h=h)
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    if per_query_x:
+        if block_n is not None:
+            raise ValueError("act_phase2_cand (K5) keeps its fixed tile; "
+                             "it takes no block_n")
+        family, kernel, warps = "act_phase2_cand", "act_phase2_kernel", 8
+    else:
+        family, kernel = "act_phase2", "act_phase2_gather_kernel"
+        warps = _warps("act_phase2", block_n)
+    return KernelBlocks(family=family, kernel=kernel,
+                        grid=(_cdiv(nq * n, warps),), threads=32 * warps,
+                        buffers=())
+
+
+#: K3's corpus-row entry: slots a lane reads per pass, queries a warp
+#: pours in the all-rows form (csrc/cand_pour_rows.cu CH, QB_ALL).
+_ROWS_CH, _ROWS_QB = 16, 16
+#: K4's valid-bin entry: slots a lane reads per pass (cand_dist_valid CH).
+_VALID_CH = 8
+
+
+def _cand_pour_layout(*, nq: int, b: int, h: int, iters: int,
+                      mode: str = "pour", form: str = "cand",
+                      block_n: int | None = None) -> KernelBlocks:
+    """K3's corpus-row entry: ``form="cand"`` at b candidate rows a query,
+    ``form="all"`` at every one of b = n corpus rows."""
+    _positive(nq=nq, b=b, h=h)
+    if mode not in ("pour", "omr") or form not in ("cand", "all"):
+        raise ValueError(f"cand_pour: mode must be pour or omr and form "
+                         f"cand or all, got {mode!r}, {form!r}")
+    if not 0 <= iters <= cand_k.MAX_ITERS:
+        raise ValueError(f"cand_pour: iters must be in [0, "
+                         f"{cand_k.MAX_ITERS}], got {iters}")
+    if form == "all" and mode == "pour" and iters:
+        raise ValueError("cand_pour: the all-rows form pours at iters 0")
+    warps = _warps("cand_pour", block_n)
+    chunks = _cdiv(nq, _ROWS_QB) if form == "all" else nq
+    return KernelBlocks(
+        family="cand_pour", kernel="cand_pour_rows_kernel",
+        grid=(_cdiv(chunks * b, warps),), threads=32 * warps,
+        buffers=(BlockBuffer("sx", (warps, 32 * _ROWS_CH)),
+                 BlockBuffer("sid", (warps, 32 * _ROWS_CH), "int32")))
+
+
+def _cand_dist_layout(*, nq: int, b: int, h: int, mode: str = "rev_min",
+                      block_n: int | None = None) -> KernelBlocks:
+    _positive(nq=nq, b=b, h=h)
+    if mode not in ("rev_min", "ict"):
+        raise ValueError(f"cand_dist: mode must be rev_min or ict, got "
+                         f"{mode!r}")
+    warps = _warps("cand_dist", block_n)
+    # The queue's weights are read by the ict pour only: in rev_min the
+    # compiler drops sx.
+    queue = (BlockBuffer("sx", (warps, 32 * _VALID_CH)),) * (mode == "ict")
+    return KernelBlocks(
+        family="cand_dist", kernel="cand_dist_valid_kernel",
+        grid=(_cdiv(nq * b, warps),), threads=32 * warps,
+        buffers=queue + (BlockBuffer("sid", (warps, 32 * _VALID_CH),
+                                     "int32"),))
+
+
+#: family name -> layout function: the surface ``analysis.smem`` and the
+#: autotuner iterate (the JAX package's five family names).
+KERNEL_FAMILIES = {
+    "dist_topk": _dist_topk_layout,
+    "act_phase2": _act_phase2_layout,
+    "act_phase2_cand": functools.partial(_act_phase2_layout,
+                                         per_query_x=True),
+    "cand_pour": _cand_pour_layout,
+    "cand_dist": _cand_dist_layout,
+}
+
+
+def block_layout(family: str, **dims) -> KernelBlocks:
+    """Static launch layout of one kernel launch (see
+    :data:`KERNEL_FAMILIES` for the per-family dim kwargs)."""
+    if family not in KERNEL_FAMILIES:
+        raise ValueError(f"unknown kernel family {family!r}; "
+                         f"one of {sorted(KERNEL_FAMILIES)}")
+    return KERNEL_FAMILIES[family](**dims)
+
+
+@functools.cache
+def _admitted(family: str, tiles: tuple) -> None:
+    from repro_torch.analysis import smem
+    bad = smem.check_tiles(family, dict(tiles))
+    if bad:
+        raise ValueError(f"{family} tile {dict(tiles)} is not admitted: "
+                         + "; ".join(v.message for v in bad))
+
+
+def variant(family: str, **tiles) -> tuple:
+    """The ``-D`` defines of ``family``'s variant at ``tiles`` (None or
+    the default: the default variant, no defines), as a hashable tuple of
+    (macro, value); raises ``ValueError`` if the budget model
+    (``analysis.smem``) does not admit the tile, so such a variant is
+    never built."""
+    macros = TILE_MACROS[family]
+    unknown = set(tiles) - set(macros)
+    if unknown:
+        raise ValueError(f"{family} takes the tile knobs {sorted(macros)}, "
+                         f"not {sorted(unknown)}")
+    picked = tuple(sorted((k, v) for k, v in tiles.items()
+                          if v is not None and v != DEFAULT_TILES[family][k]))
+    if not picked:
+        return ()
+    _admitted(family, picked)
+    return tuple(sorted((macros[k], v) for k, v in picked))

@@ -33,7 +33,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.api.config import EngineConfig
+from repro_torch.api.config import TILE_KNOBS, EngineConfig
 from repro_torch.api.index import EmdIndex
 from repro_torch.candidates import SOURCES, SourceSpec
 from repro_torch.cascade.spec import CascadeSpec, CascadeStage
@@ -50,6 +50,10 @@ SNAPSHOT_LEAVES = ("ids", "w", "coords", "doc_ids")
 #: The port's backend names as the JAX package writes them.
 _BACKEND_ON_DISK = {"cuda": "pallas", "reference": "reference"}
 
+#: The JAX package's default of each tile knob, which the codec writes for
+#: the port's None (each kernel's own tile) and reads back as None.
+_JAX_TILE_DEFAULT = 256
+
 
 # ------------------------------------------------------------- config codec
 def config_to_dict(config: EngineConfig) -> dict:
@@ -59,6 +63,9 @@ def config_to_dict(config: EngineConfig) -> dict:
     d = {f.name: getattr(config, f.name)
          for f in dataclasses.fields(config)}
     d["backend"] = _BACKEND_ON_DISK[d["backend"]]
+    for knob in TILE_KNOBS:
+        if d[knob] is None:
+            d[knob] = _JAX_TILE_DEFAULT
     c = d["cascade"]
     if isinstance(c, CascadeSpec):
         source = None
@@ -79,6 +86,9 @@ def config_from_dict(d: dict) -> EngineConfig:
     d = dict(d)
     on_disk = {v: k for k, v in _BACKEND_ON_DISK.items()}
     d["backend"] = on_disk.get(d["backend"], d["backend"])
+    for knob in TILE_KNOBS:
+        if d.get(knob) == _JAX_TILE_DEFAULT:
+            d[knob] = None
     c = d.get("cascade")
     if isinstance(c, dict):
         source = c.get("source")
@@ -116,6 +126,9 @@ def snapshot(server: EmdServer, ckpt_dir: str) -> str:
         "generation": gen.gen,
         "next_doc_id": server._next_doc_id,
         "config": config_to_dict(server.config),
+        # The tiles exactly (the config codec writes None as the JAX
+        # package's 256, and reads 256 back as None).
+        "tiles": {k: getattr(server.config, k) for k in TILE_KNOBS},
         "corpus_manifest": {"n": gen.corpus.n, "hmax": gen.corpus.hmax,
                             "v": gen.corpus.v, "m": gen.corpus.m},
         "source_leaves": source_leaves,
@@ -176,6 +189,8 @@ def restore_snapshot(ckpt_dir: str,
     tree = store.restore(ckpt_dir, generation,
                          _like_from_manifest(manifest))
     config = config_from_dict(extra["config"])
+    if "tiles" in extra:
+        config = dataclasses.replace(config, **extra["tiles"])
     source = None
     n_src = int(extra.get("source_leaves", 0))
     if n_src:

@@ -222,7 +222,7 @@ def test_all_rows_engines_match_jax(jcorpus, tcorpus, method, monkeypatch):
     calls = []
     real = getattr(tops, entry)
     monkeypatch.setattr(tops, entry,
-                        lambda *a: calls.append(a[2]) or real(*a))
+                        lambda *a, **k: calls.append(a[2]) or real(*a, **k))
     got = getattr(lc, name)(tcorpus, torch.tensor(qi), torch.tensor(qw),
                             use_kernels=True, block_q=2)
     assert calls == [None]                 # one all-rows call for the batch
@@ -255,7 +255,8 @@ def test_cand_engines_take_the_row_entry(jcorpus, tcorpus, method, precision,
     calls = []
     real = getattr(tops, entry)
     monkeypatch.setattr(tops, entry,
-                        lambda *a: calls.append(a[2].shape) or real(*a))
+                        lambda *a, **k: calls.append(a[2].shape)
+                        or real(*a, **k))
 
     def old(*a, **k):
         raise AssertionError("the old K3 entry was called")

@@ -257,7 +257,7 @@ def test_engines_take_the_valid_route(jcorpus, mode, monkeypatch):
     calls = []
     entry = getattr(tops, f"cand_{mode}_valid")
     monkeypatch.setattr(tops, f"cand_{mode}_valid",
-                        lambda *a: calls.append(a) or entry(*a))
+                        lambda *a, **k: calls.append(a) or entry(*a, **k))
 
     def stacked(*a, **k):
         raise AssertionError("the stacked handoff was built")

@@ -405,7 +405,8 @@ def test_engine_config_cascade_validation():
     assert hash(cfg) == hash(EngineConfig(cascade="fast"))
     assert EngineConfig().cascade_spec is None
     assert EngineConfig(backend="reference").cascade_knobs() == dict(
-        use_kernels=False, block_q=8, precision="f32")
+        use_kernels=False, block_q=8, precision="f32", block_v=None,
+        block_h=None, block_n=None, rev_block=256)
     # cascade_knobs' use_kernels follows the backend alone; score_kwargs'
     # also the method's kernel support (bow has none; ict has the all-rows
     # K4 in the port).

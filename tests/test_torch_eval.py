@@ -482,7 +482,7 @@ def test_full_corpus_engines_on_all_rows_k4_match_jax(kind, mode, precision,
     calls = []
     mod_entry = f"cand_{mode}_valid"
     monkeypatch.setattr(tops, mod_entry,
-                        lambda *a: calls.append(a[2]) or entry(*a))
+                        lambda *a, **k: calls.append(a[2]) or entry(*a, **k))
 
     def stacked(*a, **k):
         raise AssertionError("the stacked handoff was built")
