@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
+Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``); phase 12 starts
+up to four processes on it and stops them. Phases:
 
 0. the card: ``nvidia-smi`` name and power limit, the device name;
 1. build: the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
@@ -108,7 +109,21 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``). Phases:
    cache file for act-7 and ``tight``: the cached build times nothing and
    picks the same tiles, and both search bitwise like the default config;
    (c) ``python -m repro_torch.analysis.check --passes registry smem``
-   clean; (d) the phase's seconds.
+   clean; (d) the phase's seconds;
+12. the mesh: ``EmdIndex(backend="distributed")`` on (a) a 1x1 mesh over
+   NCCL, (b) a 2x2 and (c) a 1x4 mesh over gloo whose four ranks share the
+   card (``repro_torch.launch.local``; the corpus written once with
+   ``np.save``, memory-mapped by the ranks, which load phase 1's
+   libraries), at 20News width: act-7, rwmd, omr, rwmd_rev, ict and
+   symmetric rwmd (scores and top-16), the ``chain``, ``tight``, ``fast``
+   and phase 10's LSH-sourced ladders, and act-7 all-pairs on the 2,000-row
+   prefix under f32 and bf16; each against the single-card cuda index (act,
+   rwmd, omr and ``chain`` bitwise, the rest within rtol / atol, top-16
+   equal where separated; ``fast`` and the LSH ladder by their recall of
+   the single card's top-16), every rank's result the same, the launches
+   per rank by kernel (each run's kernels above 0), the bytes each
+   collective brought, seconds per search (contended where ranks share the
+   card), K1 and the fused K2 alone on each rank's shards.
 
 Any failed check exits non-zero before the last line. The last lines are the
 card's name and power limit, a JSON line of the kernels and
@@ -116,7 +131,9 @@ card's name and power limit, a JSON line of the kernels and
 """
 import asyncio
 import dataclasses
+import functools
 import gc
+import hashlib
 import json
 import os
 import re
@@ -154,6 +171,7 @@ from repro_torch.analysis import check as static_check  # noqa: E402
 from repro_torch.analysis import smem  # noqa: E402
 from repro_torch.kernels import (_build, act_phase2, autotune,  # noqa: E402
                                  cand_pour, dist_topk, ops, timing)
+from repro_torch.launch.local import run_local  # noqa: E402
 from repro_torch.serving import (ChaosInjector, ChaosSchedule,  # noqa: E402
                                  EmdServer, ServerOverloaded, ServeResult,
                                  ServingPolicy, corrupt_checkpoint,
@@ -2472,7 +2490,7 @@ def phase10(host_corpus, corpus, q_ids, q_w, rows, dev):
                                              rows, dev, runs)
     results["seconds"] = time.perf_counter() - t_start
     print(f"phase 10: done in {results['seconds']:.1f} s", flush=True)
-    return results, runs
+    return results, runs, lsh_index
 
 
 # -------------------------------------------------------------- phase 11
@@ -2681,6 +2699,298 @@ def phase11(corpus, host_corpus, q_ids, q_w, wide, narrow, logs, bounds,
           flush=True)
     return dict(variants=variants, tuned=tuned, build_s=build_s,
                 seconds=secs)
+
+
+# -------------------------------------------------------------- phase 12
+# Slice 10: the mesh. EmdIndex(backend="distributed") over a (data, model)
+# torch.distributed mesh on the one card: a 1x1 mesh over NCCL, and 2x2 and
+# 1x4 meshes whose ranks share the card and exchange over gloo (their times
+# are contended: no scale-out figure). The ranks load the libraries phase 1
+# built; the parent writes the corpus once and the ranks memory-map it.
+
+#: mesh name -> (data ranks, model ranks, collective backend).
+MESHES = {"1x1-nccl": (1, 1, "nccl"), "2x2-gloo": (2, 2, "gloo"),
+          "1x4-gloo": (1, 4, "gloo")}
+#: The full-corpus searches of each mesh: name -> EngineConfig fields.
+P12_METHODS = {"act": dict(method="act", iters=ITERS),
+               "rwmd": dict(method="rwmd"), "omr": dict(method="omr"),
+               "rwmd_rev": dict(method="rwmd_rev"), "ict": dict(method="ict"),
+               "rwmd_sym": dict(method="rwmd", symmetric=True)}
+P12_CASCADES = ("chain", "tight", "fast", "lsh")
+#: The all-pairs runs on the prefix: name -> precision policy.
+P12_ALL_PAIRS = {"all_pairs.act.f32": "f32", "all_pairs.act.bf16": "bf16"}
+#: Bitwise the single-card cuda index at every mesh shape: every kernel on
+#: their path computes a row, or a (query, row) pair, whatever the shard
+#: shapes, and the merges are exact. The ladders led by a batched product
+#: over the query slice (wcd's centroids, the LSH source's query
+#: centroids) are held bitwise too, as they have run; a mesh that rounds
+#: them otherwise fails here.
+P12_BITWISE = ("scores.act", "scores.rwmd", "scores.omr", "search.act",
+               "search.rwmd", "search.omr", "cascade.chain", "cascade.fast",
+               "cascade.lsh", "all_pairs.act.f32", "all_pairs.act.bf16")
+#: Within RTOL / ATOL, top-16 equal where separated: the valid-bin handoff
+#: is one cuBLAS product whose rounding may follow the query slice's shape.
+P12_TOL = ("scores.rwmd_rev", "scores.ict", "scores.rwmd_sym",
+           "search.rwmd_rev", "search.ict", "search.rwmd_sym",
+           "cascade.tight")
+#: Kernels each run must launch on every rank (count > 0).
+P12_EXPECT = {
+    "scores.act": ("dist_topk", "act_phase2_gather"),
+    "scores.rwmd": ("dist_topk", "cand_pour_rows.all_pour_iters0"),
+    "scores.omr": ("dist_topk", "cand_pour_rows.all_omr"),
+    "scores.rwmd_rev": ("cand_dist_valid.all_rev_min",),
+    "scores.ict": ("cand_dist_valid.all_ict",),
+    "scores.rwmd_sym": ("dist_topk", "cand_pour_rows.all_pour_iters0",
+                        "cand_dist_valid.all_rev_min"),
+    "cascade.chain": ("dist_topk", "cand_pour_rows.all_pour_iters0",
+                      "cand_pour_rows.omr", "cand_pour_rows.pour"),
+    "cascade.tight": ("dist_topk", "cand_pour_rows.all_pour_iters0",
+                      "cand_pour_rows.pour", "cand_dist_valid.ict"),
+    "cascade.fast": ("dist_topk", "cand_pour_rows.pour_iters0",
+                     "cand_pour_rows.pour"),
+    "cascade.lsh": ("dist_topk", "cand_pour_rows.pour_iters0",
+                    "cand_pour_rows.pour"),
+    "all_pairs.act.f32": ("dist_topk", "act_phase2_gather"),
+    "all_pairs.act.bf16": ("dist_topk", "act_phase2_gather"),
+}
+#: Seconds a mesh's ranks may take, start-up included.
+P12_TIMEOUT = 360
+
+
+def p12_searches(host, q_ids, q_w, source_leaves, build):
+    """The phase's runs as name -> callable, over indexes made by
+    ``build(corpus, **config fields)`` (the cuda index of one card, or the
+    distributed one of a rank)."""
+    runs = {}
+    for name, cfg in P12_METHODS.items():
+        index = build(host, **cfg)
+        runs[f"scores.{name}"] = functools.partial(index.scores, q_ids, q_w)
+        runs[f"search.{name}"] = functools.partial(index.search, q_ids, q_w)
+    index = build(host, method="act", iters=ACT3)
+    for name in P12_CASCADES[:-1]:
+        runs[f"cascade.{name}"] = functools.partial(index.search, q_ids, q_w,
+                                                    cascade=name)
+    lsh = build(host, cascade=SOURCED["lsh"],
+                source=LSH_SPEC.wrap(source_leaves))
+    runs["cascade.lsh"] = functools.partial(lsh.search, q_ids, q_w)
+    prefix = prefix_corpus(host, PREFIX)
+    for name, precision in P12_ALL_PAIRS.items():
+        runs[name] = build(prefix, method="act", iters=ITERS,
+                           precision=precision).all_pairs
+    return runs
+
+
+def p12_host(x):
+    return (tuple(t.cpu().numpy() for t in x) if isinstance(x, tuple)
+            else x.cpu().numpy())
+
+
+def phase12_rank(mesh, paths, rows, source_leaves):
+    """One rank of a phase-12 mesh: every run warmed once, then counted
+    (launch counts and collective bytes set to 0 just before it) and timed
+    between barriers; then K1 and the fused K2 alone on this rank's
+    shards (ranks sharing the card time them at once: contended)."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import partition
+    from repro_torch.sharding import annotate
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # read-only memory maps
+        host = Corpus(*(torch.from_numpy(np.load(p, mmap_mode="r"))
+                        for p in paths))
+    dev = mesh.device
+    q_ids, q_w = (x[rows].to(dev) for x in (host.ids, host.w))
+
+    def build(corpus, source=None, **cfg):
+        cfg = dict(dict(top_l=TOP_L, block_q=BLOCK_Q), **cfg)
+        return EmdIndex.build(corpus, EngineConfig(backend="distributed",
+                                                   **cfg),
+                              mesh=mesh, source=source)
+    out = {"results": {}, "launches": {}, "bytes": {}, "seconds": {}}
+    for name, run in p12_searches(host, q_ids, q_w, source_leaves,
+                                  build).items():
+        run()
+        torch.cuda.synchronize()
+        dist.barrier()
+        zero_counts()
+        annotate.reset_traffic()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = nonzero(read_counts())
+        out["bytes"][name] = annotate.traffic()
+        res = p12_host(res)
+        if name.startswith("all_pairs"):      # every rank: a digest
+            out["results"][name] = hashlib.sha256(res.tobytes()).hexdigest()
+            if mesh.index("data") == mesh.index("model") == 0:
+                out["results"][name + ".matrix"] = res
+        else:
+            out["results"][name] = res
+    # K1 and the fused K2 alone on this rank's shards, as the act-7 search
+    # launches them.
+    q0, q1 = partition.axis_slice(mesh, "data", len(rows))
+    qi, qw, nq_l = q_ids[q0:q1], q_w[q0:q1], q1 - q0
+    coords = host.coords.to(dev)
+    v0, v1 = 0, host.v
+    if mesh.size("model") > 1 and partition.vocab_shardable(mesh, host.v):
+        v0, v1 = partition.axis_slice(mesh, "model", host.v)
+    cs, qcs, qm = coords[v0:v1].contiguous(), coords[qi], qw > 0
+    index = build(host, method="act", iters=ITERS)
+    local = index._local
+    Z, W = lc._phase1_batched_dispatch(local, qi, qw, ITERS + 1, True,
+                                       mesh=mesh)
+    dist.barrier()
+    k1 = cuda_ms(lambda: ops.dist_topk_batched(cs, qcs, qm, ITERS + 1),
+                 reps=10)
+    dist.barrier()
+    k2 = cuda_ms(lambda: ops.act_phase2_gather(local.w, local.ids, Z, W),
+                 reps=10)
+    out["shards"] = dict(k1_ms=k1, k1_shape=[nq_l, v1 - v0], k2_ms=k2,
+                         k2_shape=[nq_l, local.n],
+                         staged=annotate.staged(mesh, q_ids))
+    return out
+
+
+def p12_compare(name, got, want, next_want):
+    """(max |d|, bitwise, top-16 agreement) of one run against the single
+    card; checks it by its class (P12_BITWISE / P12_TOL)."""
+    if name.startswith("scores"):
+        d = float(np.abs(got - want).max())
+        bitwise = bool(np.array_equal(got, want))
+        if name in P12_BITWISE:
+            check(bitwise, f"phase 12 {name}: not bitwise (max |d| {d})")
+        else:
+            check(np.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  f"phase 12 {name}: max |d| {d} beyond rtol {RTOL} atol "
+                  f"{ATOL}")
+        return d, bitwise, None
+    (v, i), (wv, wi) = got, want
+    bitwise = bool(np.array_equal(v, wv) and np.array_equal(i, wi))
+    d = float(np.abs(v - wv).max())
+    if name in P12_BITWISE:
+        check(bitwise, f"phase 12 {name}: not bitwise (max |d| {d})")
+    firm = firm_ranks(torch.from_numpy(wv), torch.from_numpy(next_want))
+    firm = firm.numpy()
+    check(np.allclose(v, wv, rtol=RTOL, atol=ATOL)
+          and np.array_equal(i[firm], wi[firm]),
+          f"phase 12 {name}: max |d| {d}, top-{TOP_L} ids differ at a "
+          "separated rank")
+    return d, bitwise, float(firm.mean())
+
+
+def phase12(host_corpus, lsh_index, rows, q_ids, q_w, dev, p4):
+    """Phase 12: each mesh of MESHES against the single-card cuda index on
+    the same runs. ``p4``: phase 4's single-card K1 and fused K2 ms."""
+    t_start = time.perf_counter()
+    leaves = [t.cpu().numpy() for t in lsh_index.source.leaves()]
+
+    def build(corpus, source=None, **cfg):
+        cfg = dict(dict(top_l=TOP_L, block_q=BLOCK_Q), **cfg)
+        return EmdIndex.build(corpus, EngineConfig(**cfg), device=dev,
+                              source=source)
+    want = {}
+    runs = p12_searches(host_corpus, q_ids, q_w, leaves, build)
+    for name, run in runs.items():
+        want[name] = p12_host(run())
+    # The score after the 16th of each full-corpus search (ranks 16 of the
+    # scores), and +inf for a cascade (its 17th is not rescored).
+    nxt = {}
+    for name in want:
+        if name.startswith("search"):
+            s = np.sort(want["scores" + name[6:]], axis=1)
+            nxt[name] = s[:, TOP_L]
+        elif name.startswith("cascade"):
+            nxt[name] = np.full(NQ, np.inf, np.float32)
+    del runs
+    # The ranks share the card with this process: release its allocator's
+    # cached blocks first (phases 8-11 leave tens of GB reserved and free
+    # in the cache).
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = 2**30
+    print(f"phase 12: this process holds "
+          f"{torch.cuda.memory_allocated() / gib:.2f} GiB on the card "
+          f"({torch.cuda.memory_reserved() / gib:.2f} GiB reserved) while "
+          "the ranks run", flush=True)
+    tmp = tempfile.mkdtemp(prefix="mesh-corpus-")
+    paths = []
+    for field in ("ids", "w", "coords"):
+        paths.append(os.path.join(tmp, f"{field}.npy"))
+        np.save(paths[-1], getattr(host_corpus, field).numpy())
+    out = {}
+    for mesh_name, (n_data, n_model, backend) in MESHES.items():
+        t0 = time.perf_counter()
+        ranks = run_local(phase12_rank, n_data, n_model, backend=backend,
+                          device="cuda", args=(paths, rows, leaves),
+                          timeout=P12_TIMEOUT)
+        wall = time.perf_counter() - t0
+        shared = n_data * n_model > 1
+        label = (f"{n_data * n_model} ranks share the card, contended"
+                 if shared else "one rank")
+        if ranks[0]["shards"]["staged"]:
+            print(f"phase 12: {mesh_name}: gloo's collectives on CUDA "
+                  "tensors are staged through the host (the backend is "
+                  "gloo)", flush=True)
+        first = ranks[0]["results"]
+        for r, rank in enumerate(ranks[1:], 1):
+            for name, res in rank["results"].items():
+                ok = all(np.array_equal(a, b) for a, b in zip(
+                    *(x if isinstance(x, tuple) else (x,)
+                      for x in (res, first[name]))))
+                check(ok, f"phase 12 {mesh_name}: rank {r}'s {name} is not "
+                      "rank 0's")
+        summary = {}
+        for name in want:
+            launches = [rk["launches"][name] for rk in ranks]
+            for r, c in enumerate(launches):
+                for kname in P12_EXPECT.get(name, ()):
+                    check(c.get(kname, 0) > 0,
+                          f"phase 12 {mesh_name}: rank {r}'s {name} never "
+                          f"launched {kname}: {c}")
+            if name.startswith("all_pairs"):
+                got = first[name + ".matrix"]
+                d = float(np.abs(got - want[name]).max())
+                bitwise = bool(np.array_equal(got, want[name]))
+                check(np.array_equal(got, got.T),
+                      f"phase 12 {mesh_name} {name}: not symmetric")
+                check(bitwise, f"phase 12 {mesh_name} {name}: not bitwise "
+                      f"(max |d| {d})")
+                agree = None
+            else:
+                d, bitwise, agree = p12_compare(name, first[name],
+                                                want[name], nxt.get(name))
+            secs = [rk["seconds"][name] for rk in ranks]
+            summary[name] = dict(max_abs_diff=d, bitwise=bitwise,
+                                 agreement=agree, launches=launches,
+                                 bytes=[rk["bytes"][name] for rk in ranks],
+                                 seconds=secs)
+            agreement = ("" if agree is None
+                         else f", top-{TOP_L} agreement {agree:.3f}")
+            print(f"phase 12: {mesh_name} ({label}) {name}: vs the single "
+                  f"card max|d|={d:.3g} "
+                  f"{'bitwise' if bitwise else 'not bitwise'}{agreement}"
+                  f"; launches rank 0 {launches[0]}; bytes rank 0 "
+                  f"{ranks[0]['bytes'][name]}; s per search "
+                  f"{max(secs):.4f} (slowest rank)", flush=True)
+        shards = [rk["shards"] for rk in ranks]
+        for r, sh in enumerate(shards):
+            print(f"phase 12: {mesh_name} rank {r}: K1 {sh['k1_ms']:.4f} ms "
+                  f"on its {sh['k1_shape'][0]} queries x "
+                  f"{sh['k1_shape'][1]} words, fused K2 {sh['k2_ms']:.4f} "
+                  f"ms on {sh['k2_shape'][0]} queries x {sh['k2_shape'][1]} "
+                  f"rows ({label}); one card, phase 4: K1 {p4['k1_ms']:.4f}"
+                  f" ms, fused K2 {p4['kg_ms']:.4f} ms on {NQ} queries",
+                  flush=True)
+        out[mesh_name] = dict(shape=[n_data, n_model], backend=backend,
+                              contended=shared, wall_s=wall, runs=summary,
+                              shards=shards)
+        print(f"phase 12: {mesh_name} done in {wall:.1f} s", flush=True)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 12: done in {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main():
@@ -3067,7 +3377,8 @@ def main():
                                      dev)
 
     # Phase 10: the serving path.
-    p10, p10_runs = phase10(host_corpus, corpus, q_ids, q_w, rows, dev)
+    p10, p10_runs, lsh_index = phase10(host_corpus, corpus, q_ids, q_w,
+                                       rows, dev)
 
     # Phase 11: the tiles (launches compared there are not the main
     # path's; its tuned builds search outside the counted runs).
@@ -3078,6 +3389,10 @@ def main():
     p11 = phase11(corpus, host_corpus, q_ids, q_w, wide, narrow, logs,
                   bounds, dev)
     variants = p11["variants"]
+
+    # Phase 12: the mesh (its runs' launches are counted on each rank).
+    p12 = phase12(host_corpus, lsh_index, rows, q_ids, q_w, dev,
+                  dict(k1_ms=k1_ms, kg_ms=kg_ms))
 
     def p10_launches(kname):
         """The kernel's launches in each run of phase 10 that made any."""
@@ -3175,6 +3490,15 @@ def main():
     print(json.dumps({"phase10": p10}))
     print(json.dumps({"phase11": {k: p11[k] for k in ("tuned", "build_s",
                                                       "seconds")}}))
+    # Every kernel's launches in phase 12, by mesh: summed over the ranks
+    # and the runs (a kernel of phase 9's nq=1 and bf16_agg paths, which
+    # the mesh does not take, reads 0).
+    for entry in kernels:
+        entry["launches_phase12"] = {
+            m: sum(c.get(entry["name"], 0) for run in p12[m]["runs"].values()
+                   for c in run["launches"])
+            for m in MESHES}
+    print(json.dumps({"phase12": p12}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

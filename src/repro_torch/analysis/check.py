@@ -15,7 +15,8 @@ renders a per-pass report and exits non-zero if any violation survives:
 
 The JAX package's other passes are not yet ported: ``hazards`` and
 ``precision`` trace the JAX steps (ROADMAP Queue 1 item 7),
-``collectives`` needs the mesh (item 6) and ``bench`` the benches'
+``collectives`` is item 6's second half (the mesh's traffic guard runs as
+a test meanwhile, ``tests/test_torch_mesh.py``) and ``bench`` the benches'
 artifacts (item 1).
 """
 from __future__ import annotations

@@ -12,10 +12,11 @@ Three families of invariants, all pure Python (no tracing, no devices):
   chain. A bad edit to the tightness table silently breaks cascade
   admissibility — this pass turns that into a CI failure.
 * **MethodSpec coherence** — reverse links symmetric, kernel support
-  only on methods with a batched engine, symmetric measures
-  reverse-free, iterated methods cascade-rescorable. (The JAX package's
-  ``dist_fn`` and ``dist_out`` belong to its mesh engine, which the port
-  does not have yet: ROADMAP Queue 1 item 6.)
+  only on methods with a batched engine, ``dist_out`` layouts
+  well-formed, symmetric measures reverse-free, iterated methods
+  cascade-rescorable. (The JAX package's ``dist_fn`` check has no
+  counterpart: the port's mesh engine is the batched engine on a rank's
+  shards and registers no scorer of its own.)
 * **Cascade presets** — every ``CASCADES`` entry constructs, resolves
   budgets on a reference corpus, and its COMPUTED admissibility matches
   the DECLARED ``PRESET_ADMISSIBLE`` claim; ``EngineConfig`` constructs
@@ -139,6 +140,11 @@ def check_method_specs(methods=None) -> list[Violation]:
                 "registry", name,
                 "supports_kernels on a method without a batched engine "
                 "(the kernel paths live in the batch pipelines)"))
+        bad_axes = [ax for ax in spec.dist_out
+                    if ax not in ("data", "model", None)]
+        if bad_axes:
+            out.append(Violation(
+                "registry", name, f"dist_out has unknown axes {bad_axes}"))
         if spec.uses_iters and spec.cand_fn is None:
             out.append(Violation(
                 "registry", name,

@@ -1,9 +1,8 @@
 """Engine configuration of the port's ``EmdIndex``.
 
 ``EngineConfig`` keeps the JAX package's field names, so a configuration
-reads the same in both packages. The fields and values this package does
-not run yet raise ``ValueError`` naming the field and saying so; each of
-them accepts only the JAX default, which leaves its feature off.
+reads the same in both packages. The JAX backend ``pallas`` is this
+package's ``cuda`` and raises ``ValueError`` saying so.
 
 The tile knobs ``block_v`` / ``block_h`` / ``block_n`` default to None
 here, where the JAX package's default is 256: None leaves each kernel on
@@ -17,21 +16,21 @@ import dataclasses
 
 from repro_torch.cascade.spec import CascadeSpec, resolve_spec
 from repro_torch.core.precision import POLICIES
-from repro_torch.core.retrieval import ENGINES, METHODS
+from repro_torch.core.retrieval import METHODS
+from repro_torch.launch.search import DEFAULT_ROW_PAD_MULTIPLE
 
 #: ``reference`` runs plain PyTorch ops; ``cuda`` the hand-written kernels
-#: (the counterpart of the JAX package's ``pallas``).
-BACKENDS = ("reference", "cuda")
+#: (the counterpart of the JAX package's ``pallas``); ``distributed`` the
+#: kernels on the shards of a (data, model) mesh (``launch/search.py``).
+BACKENDS = ("reference", "cuda", "distributed")
 
-#: JAX ``EngineConfig`` values this package does not run yet.
+#: JAX ``EngineConfig`` values this package names otherwise.
 _UNPORTED_VALUES = {
-    "backend": ("pallas", "distributed"),
+    "backend": ("pallas",),
 }
 
-#: JAX ``EngineConfig`` fields this package does not run yet: the
-#: distributed backend's row padding (the mesh, ROADMAP Queue 1 item 6).
-#: Each keeps its JAX default.
-_UNPORTED_FIELDS = ("pad_multiple",)
+#: How ``EmdIndex.scores`` scores a batch.
+BATCH_ENGINES = ("batched", "scan")
 
 #: The kernels' tile knobs.
 TILE_KNOBS = ("block_v", "block_h", "block_n")
@@ -53,7 +52,10 @@ class EngineConfig:
     backend:   ``cuda`` (default; the CUDA kernels, or their plain versions
                on an index built on the CPU) or ``reference`` (PyTorch ops).
                The JAX package's ``pallas`` is ``cuda`` here;
-               ``distributed`` is not yet ported.
+               ``distributed`` runs the kernels on the shards of a
+               (data, model) mesh (``EmdIndex.build(..., mesh=)``):
+               queries over ``data``, corpus rows and, where it divides,
+               the vocabulary over ``model``.
     top_l:     default neighbour count for ``EmdIndex.search``.
     block_q:   queries gathered and poured per Phase-2 block.
     precision: ``f32``, ``bf16`` (bfloat16 handoff ladders, float32 matmul
@@ -81,6 +83,9 @@ class EngineConfig:
                take at ``EmdIndex.build``. An explicit value always wins
                over an autotuned pick.
     rev_block: row block of the reverse (rwmd_rev) reference scorer.
+    pad_multiple: the distributed backend pads the corpus rows to a
+               multiple of this (zero-weight rows, masked before any top-l)
+               so that they split over the mesh's ``model`` axis.
     autotune:  tile policy applied at ``EmdIndex.build``
                (``repro_torch.kernels.autotune``): ``off`` (default: the
                knobs as given), ``cached`` (the ``tune_cache`` winner of
@@ -102,7 +107,7 @@ class EngineConfig:
     block_h: int | None = None
     block_n: int | None = None
     rev_block: int = 256
-    pad_multiple: int = 512
+    pad_multiple: int = DEFAULT_ROW_PAD_MULTIPLE
     cascade: CascadeSpec | str | None = None
     autotune: str = "off"
     tune_cache: str | None = None
@@ -114,10 +119,10 @@ class EngineConfig:
                              "cascade")
         for f in dataclasses.fields(self):
             value = getattr(self, f.name)
-            if (f.name in _UNPORTED_FIELDS and value != f.default) or \
-                    value in _UNPORTED_VALUES.get(f.name, ()):
+            if value in _UNPORTED_VALUES.get(f.name, ()):
                 raise ValueError(f"EngineConfig.{f.name}={value!r} is not "
-                                 "yet ported")
+                                 "yet ported (the kernels' backend is "
+                                 "'cuda' here)")
         if self.method not in METHODS:
             raise ValueError(f"unknown method {self.method!r}; one of "
                              f"{sorted(METHODS)}")
@@ -129,9 +134,9 @@ class EngineConfig:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of "
                              f"{BACKENDS}")
-        if self.batch_engine not in ENGINES:
+        if self.batch_engine not in BATCH_ENGINES:
             raise ValueError(f"unknown batch_engine {self.batch_engine!r}; "
-                             f"one of {ENGINES}")
+                             f"one of {BATCH_ENGINES}")
         if self.precision not in POLICIES:
             raise ValueError(f"unknown precision policy {self.precision!r}; "
                              f"one of {sorted(POLICIES)}")
@@ -143,12 +148,28 @@ class EngineConfig:
             raise ValueError(f"block_q must be >= 1, got {self.block_q}")
         if self.rev_block < 1:
             raise ValueError(f"rev_block must be >= 1, got {self.rev_block}")
+        if self.pad_multiple < 1:
+            raise ValueError(f"pad_multiple must be >= 1, got "
+                             f"{self.pad_multiple}")
         if self.autotune not in AUTOTUNE_MODES:
             raise ValueError(f"unknown autotune mode {self.autotune!r}; "
                              f"one of {AUTOTUNE_MODES}")
         self._check_tiles()
         if self.cascade is not None:
-            resolve_spec(self.cascade)           # raises on unknown preset
+            cspec = resolve_spec(self.cascade)   # raises on unknown preset
+            if self.backend == "distributed":
+                from repro_torch.cascade import rescore
+                if not rescore.resolve(cspec.rescorer).jittable:
+                    raise ValueError(
+                        f"cascade rescorer {cspec.rescorer!r} runs on the "
+                        "host; the distributed backend needs a device "
+                        "rescorer (act/ict/sinkhorn/...)")
+                if cspec.sourced and cspec.source.width is None:
+                    raise ValueError(
+                        "the distributed cascade needs a candidate source "
+                        "with an explicit capacity (bucket_cap/leaf_cap) so "
+                        "its tables have fixed shapes; "
+                        f"{cspec.source.describe()} sizes to the data")
 
     def _check_tiles(self) -> None:
         """Each knob set must be an int >= 1 that at least one kernel
@@ -203,11 +224,20 @@ class EngineConfig:
         """Phase-2 rounds actually run (0 for methods other than act)."""
         return self.iters if self.spec.uses_iters else 0
 
+    def _kernel_backend(self) -> bool:
+        """True when this config runs the kernels: the ``cuda`` backend,
+        or the distributed backend's batched engine (the scan engine
+        replays the single-query engines with the kernels off, as in the
+        JAX package)."""
+        return (self.backend == "cuda"
+                or (self.backend == "distributed"
+                    and self.batch_engine == "batched"))
+
     def score_kwargs(self) -> dict:
         """Keyword arguments of ``retrieval.query_scores`` and
         ``retrieval.batch_scores``."""
         return dict(method=self.method, iters=self.effective_iters,
-                    use_kernels=(self.backend == "cuda"
+                    use_kernels=(self._kernel_backend()
                                  and self.spec.supports_kernels),
                     block_q=self.block_q, precision=self.precision,
                     block_v=self.block_v, block_h=self.block_h,
@@ -223,5 +253,20 @@ class EngineConfig:
         ignore it."""
         kw = self.score_kwargs()
         del kw["method"], kw["iters"]
-        kw["use_kernels"] = self.backend == "cuda"
+        kw["use_kernels"] = self._kernel_backend()
         return kw
+
+    def dist_step_kwargs(self) -> dict:
+        """Keyword arguments of ``launch.search.make_scores_step``: those of
+        ``score_kwargs``, the symmetric flag and the mesh engine (``dist``
+        for the batched engine, ``scan`` for the scan engine)."""
+        return dict(self.score_kwargs(), symmetric=self.symmetric,
+                    engine=("dist" if self.batch_engine == "batched"
+                            else "scan"))
+
+    def cascade_step_kwargs(self) -> dict:
+        """Keyword arguments of ``launch.search.make_cascade_search_step``:
+        ``cascade_knobs`` and the mesh engine."""
+        return dict(self.cascade_knobs(),
+                    engine=("dist" if self.batch_engine == "batched"
+                            else "scan"))

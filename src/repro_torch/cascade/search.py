@@ -13,8 +13,15 @@ to global row ids.
 
 The port's own copy of the JAX package's ``cascade/search.py``. Stages run
 eagerly, one after the other; the exact ``emd`` rescorer prunes on the
-device and rescores on the host. The shard-blocked top-budget of the mesh
-(``topk_blocks > 1``) is not yet ported and raises.
+device and rescores on the host.
+
+On a mesh (``mesh=``, a ``launch.mesh.Mesh``) the corpus is the rank's row
+shard and the queries its data shard. Stage 1's top-budget is then
+shard-blocked (``topk_blocks`` = the ``model`` size): each model rank
+selects its winners with global row ids, and only those cross the mesh
+(``annotate.emd_shard_topk``), never the score matrix. Later stages score
+the merged candidates, whose rows are exchanged over ``model``
+(``kernels/partition.cand_sharded``). The host rescorer raises there.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ import torch
 from repro_torch.cascade import rescore
 from repro_torch.cascade.spec import CascadeSpec, resolve_spec
 from repro_torch.core import lc, retrieval
+from repro_torch.kernels import partition
+from repro_torch.sharding import annotate
 
 
 class CascadeResult(NamedTuple):
@@ -35,18 +44,57 @@ class CascadeResult(NamedTuple):
     indices: torch.Tensor
 
 
-def topk_smallest(scores: torch.Tensor, k: int, blocks: int = 1):
-    """(values, indices) of the k smallest entries per row, ascending, the
-    lowest index first among ties (``lax.top_k`` of the negated scores),
-    by a stable sort. ``blocks > 1``, the mesh's shard-blocked schedule,
-    is not yet ported."""
-    if blocks != 1:
-        raise ValueError(f"topk_blocks={blocks} is not yet ported: the "
-                         "shard-blocked top-budget needs the mesh")
-    if not 1 <= k <= scores.shape[-1]:
-        raise ValueError(f"k must be in [1, {scores.shape[-1]}], got {k}")
+def _first_k(scores: torch.Tensor, k: int):
     values, idx = torch.sort(scores, dim=-1, stable=True)
     return values[..., :k], idx[..., :k]
+
+
+def _merge(values: torch.Tensor, ids: torch.Tensor, k: int):
+    """The k smallest of the blocks' winners, laid out block after block:
+    a stable sort keeps ties in (block, local rank) order."""
+    v, pos = _first_k(values, k)
+    return v, torch.gather(ids, -1, pos)
+
+
+def topk_smallest(scores: torch.Tensor, k: int, blocks: int = 1, *,
+                  mesh=None):
+    """(values, indices) of the k smallest entries per row, ascending, the
+    lowest index first among ties (``lax.top_k`` of the negated scores),
+    by a stable sort.
+
+    ``blocks > 1`` runs the shard-blocked schedule of the JAX package:
+    each of ``blocks`` column blocks selects its min(k, n/blocks)
+    smallest, and one merge over the winners picks the k. A block holds at
+    most that many of the true k, so the result is the plain one; ties
+    merge in (block, local rank) order, which is the lowest index first.
+    An n that does not split takes the plain sort. On a ``mesh`` whose
+    ``model`` axis has more than one rank, ``scores`` is this rank's
+    column block (the model shard of the rows), ``blocks`` must be the
+    ``model`` size, and the winners are gathered over ``model``
+    (``annotate.emd_shard_topk``): the indices are global."""
+    n_local = scores.shape[-1]
+    if mesh is not None and mesh.size("model") > 1:
+        if blocks != mesh.size("model"):
+            raise ValueError(f"topk_blocks={blocks} on a mesh of "
+                             f"{mesh.size('model')} model ranks; the "
+                             "blocks are the model shards")
+        n = n_local * blocks
+        if not 1 <= k <= n:
+            raise ValueError(f"k must be in [1, {n}], got {k}")
+        v, i = _first_k(scores, min(k, n_local))
+        i = i + mesh.index("model") * n_local
+        return _merge(annotate.emd_shard_topk(v, mesh),
+                      annotate.emd_shard_topk(i, mesh), k)
+    if not 1 <= k <= n_local:
+        raise ValueError(f"k must be in [1, {n_local}], got {k}")
+    if blocks <= 1 or n_local % blocks:
+        return _first_k(scores, k)
+    per = n_local // blocks
+    v, i = _first_k(scores.reshape(scores.shape[:-1] + (blocks, per)),
+                    min(k, per))
+    i = i + per * torch.arange(blocks, device=i.device)[:, None]
+    flat = scores.shape[:-1] + (-1,)
+    return _merge(v.reshape(flat), i.reshape(flat), k)
 
 
 def _source_budgets(spec: CascadeSpec, budgets: tuple[int, ...],
@@ -97,7 +145,7 @@ def _masked(scores: torch.Tensor, cmask) -> torch.Tensor:
 
 def _prune(corpus: lc.Corpus, Q_ids: torch.Tensor, Q_w: torch.Tensor,
            spec: CascadeSpec, budgets: tuple[int, ...], *, n_valid,
-           topk_blocks, engine, source=None, **knobs):
+           topk_blocks, engine, source=None, mesh=None, **knobs):
     """Run the pruning ladder; returns ``(cand, cmask)``: the
     (nq, budgets[-1]) global row ids surviving every stage, and their
     validity mask when stage 1 was fed by a sublinear source (``None`` on
@@ -109,14 +157,19 @@ def _prune(corpus: lc.Corpus, Q_ids: torch.Tensor, Q_w: torch.Tensor,
     of under-full buckets, which the tables fill with row 0) pushed to the
     sentinel so they rank last; the mask rides along the ladder, because a
     later stage can still keep one when a query's probed buckets hold fewer
-    real rows than its budget."""
+    real rows than its budget.
+
+    On a ``mesh`` stage 1 scores the rank's rows, whose first global id is
+    ``row0``, and the pad mask and the top-budget work on that block."""
     first = spec.stages[0]
     if source is None or source.spec.full_scan:
         s = retrieval.batch_scores(corpus, Q_ids, Q_w, method=first.method,
                                    iters=first.iters, engine=engine,
-                                   **knobs)
+                                   mesh=mesh, **knobs)
+        if n_valid is not None and mesh is not None:
+            n_valid = max(0, n_valid - mesh.index("model") * corpus.n)
         _, cand = topk_smallest(lc.mask_pad_rows(s, n_valid), budgets[0],
-                                topk_blocks)
+                                topk_blocks, mesh=mesh)
         cmask, stages = None, zip(spec.stages[1:], budgets[1:], strict=True)
     else:
         cand, cmask = source.candidates(corpus, Q_ids, Q_w)
@@ -125,7 +178,7 @@ def _prune(corpus: lc.Corpus, Q_ids: torch.Tensor, Q_w: torch.Tensor,
     for stage, b in stages:
         sc = retrieval.cand_scores(corpus, Q_ids, Q_w, cand,
                                    method=stage.method, iters=stage.iters,
-                                   **knobs)
+                                   mesh=mesh, **knobs)
         _, pos = topk_smallest(_masked(sc, cmask), b)
         cand = torch.gather(cand, 1, pos)
         if cmask is not None:
@@ -140,7 +193,7 @@ def cascade_search(corpus: lc.Corpus, Q_ids: torch.Tensor,
                    block_q: int = 8, precision: str = "f32",
                    block_v: int | None = None, block_h: int | None = None,
                    block_n: int | None = None, rev_block: int = 256,
-                   source=None) -> CascadeResult:
+                   source=None, mesh=None) -> CascadeResult:
     """Cascaded top-l search of a ``(nq, h)`` query batch.
 
     ``spec`` is a :class:`~repro_torch.cascade.spec.CascadeSpec` or a
@@ -161,6 +214,11 @@ def cascade_search(corpus: lc.Corpus, Q_ids: torch.Tensor,
     or the one ``EmdIndex.build`` keeps), required when ``spec.sourced``:
     stage 1 then scores only the sourced candidates, at the price of
     measured recall.
+
+    ``mesh``: the rank's shards of a mesh (``corpus`` its row shard,
+    ``Q_ids`` / ``Q_w`` its queries); the result is its queries' (nq/dp,
+    top_l), the same on every model rank, with global row ids. A host
+    rescorer raises there.
     """
     spec = resolve_spec(spec)
     if spec.sourced:
@@ -183,15 +241,27 @@ def cascade_search(corpus: lc.Corpus, Q_ids: torch.Tensor,
                  block_n=block_n, rev_block=rev_block)
     if top_l < 1:
         raise ValueError(f"top_l must be >= 1, got {top_l}")
-    n = n_valid if n_valid is not None else corpus.n
+    resc = rescore.resolve(spec.rescorer)
+    if mesh is not None and not resc.jittable:
+        raise ValueError(
+            f"rescorer {spec.rescorer!r} runs on the host and cannot run on "
+            "the mesh; use a device rescorer (act/ict/sinkhorn/...) or run "
+            "the cascade on a single device")
+    n_rows = corpus.n * (1 if mesh is None else mesh.size("model"))
+    n = n_valid if n_valid is not None else n_rows
     budgets = _resolved_budgets(spec, source, n, top_l)
     cand, cmask = _prune(corpus, Q_ids, Q_w, spec, budgets, n_valid=n_valid,
                          topk_blocks=topk_blocks, engine=engine,
-                         source=source, **knobs)
-    resc = rescore.resolve(spec.rescorer)
+                         source=source, mesh=mesh, **knobs)
     if resc.jittable:
-        rescored = resc.fn(corpus, Q_ids, Q_w, cand,
-                           iters=spec.rescorer_iters, **knobs)
+        if mesh is None:
+            rescored = resc.fn(corpus, Q_ids, Q_w, cand,
+                               iters=spec.rescorer_iters, **knobs)
+        else:
+            rescored = partition.cand_sharded(mesh, resc.fn, corpus, Q_ids,
+                                              Q_w, cand,
+                                              iters=spec.rescorer_iters,
+                                              **knobs)
         vals, pos = topk_smallest(_masked(rescored, cmask), top_l)
         return CascadeResult(vals, torch.gather(cand, 1, pos))
     # Host rescorer (exact emd): device pruning, numpy rescoring.

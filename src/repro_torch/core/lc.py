@@ -15,11 +15,17 @@ LC-RWMD query -> db (``rwmd_rev``) and LC-ICT read the whole distance
 tensor instead, query-major as Dq (nq, v, h).
 
 This is the pipeline of the JAX package's ``core/lc.py``, with the same
-handoff arrays, sentinels and tie-breaks. Two pieces of the JAX code have
-no counterpart here: the XLA bitcast fence of ``_map_query_blocks`` (query
-blocks are a plain Python loop) and the mesh sharding pins. JAX's
-``_pad_const`` (the sentinel as a 0-d array) is ``pad_dist_for`` itself:
-``torch.where`` takes the Python float.
+handoff arrays, sentinels and tie-breaks. The XLA bitcast fence of
+``_map_query_blocks`` has no counterpart here (query blocks are a plain
+Python loop). JAX's ``_pad_const`` (the sentinel as a 0-d array) is
+``pad_dist_for`` itself: ``torch.where`` takes the Python float.
+
+On a mesh (``mesh=``, a ``launch.mesh.Mesh``) the engines run on the
+rank's shards: its queries and its corpus rows, the coordinates whole.
+Only the kernel path's Phase 1 is then split further, over the vocabulary
+(``kernels/partition.dist_topk_sharded``, then the handoff all-gather);
+the reference Phase 1 runs each rank's queries over the whole vocabulary,
+and every Phase 2/3 engine scores the rank's rows as it scores a corpus.
 
 ``use_kernels=True`` sends Phase 1 to the ``dist_topk`` kernel and Phase
 2/3 to the ``act_phase2`` kernel's fused-gather entry (``kernels/ops.py``),
@@ -480,19 +486,31 @@ def _phase1_batched_dispatch(corpus: Corpus, Q_ids: torch.Tensor,
                              Q_w: torch.Tensor, k: int, use_kernels: bool,
                              precision: str = "f32",
                              block_v: int | None = None,
-                             block_h: int | None = None):
+                             block_h: int | None = None, mesh=None):
     """Batched Phase 1 through the ``dist_topk`` kernel or the reference
     ops. Returns query-major Z, W (nq, v, k) in the storage dtype.
 
     Under a reduced compute dtype (``bf16_agg``) the kernel is given the
     coordinates in that dtype, as in the JAX package: its norms then come
     from the rounded coordinates too, where the reference path rounds only
-    the cross term's operands (:func:`phase1_stacked_dist`)."""
+    the cross term's operands (:func:`phase1_stacked_dist`).
+
+    On a ``mesh`` whose ``model`` axis splits the vocabulary, the kernel
+    runs on the rank's vocabulary slice and the ladders are gathered
+    (``partition.dist_topk_sharded``); otherwise each rank runs the whole
+    Phase 1 for its queries."""
     if use_kernels:
         policy = resolve_precision(precision)
         coords = corpus.coords
         if policy.compute_dtype is not None:
             coords = coords.to(policy.compute_dtype)
+        if mesh is not None and mesh.size("model") > 1:
+            from repro_torch.kernels import partition
+            if partition.vocab_shardable(mesh, corpus.v):
+                return partition.dist_topk_sharded(
+                    mesh, coords, Q_ids, Q_w, k,
+                    out_dtype=policy.storage_dtype, block_v=block_v,
+                    block_h=block_h)
         Z, S = kops.dist_topk_batched(coords, coords[Q_ids], Q_w > 0.0, k,
                                       out_dtype=policy.storage_dtype,
                                       qids=Q_ids, block_v=block_v,
@@ -544,16 +562,19 @@ def lc_act_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
                           use_kernels: bool = False, block_q: int = 8,
                           precision: str = "f32", block_v: int | None = None,
                           block_h: int | None = None,
-                          block_n: int | None = None) -> torch.Tensor:
+                          block_n: int | None = None,
+                          mesh=None) -> torch.Tensor:
     """Batched LC-ACT: (nq, h) query batch -> (nq, n) lower bounds.
     ``block_v`` / ``block_h`` tile K1, ``block_n`` the Phase-2/3 kernel
-    (None: the kernel's default tile; every tile gives the same bits)."""
+    (None: the kernel's default tile; every tile gives the same bits).
+    ``mesh``: the rank's shards on a mesh (module docstring)."""
     if iters == 0 and not use_kernels:
         Z0 = phase1_min_batched(corpus.coords, Q_ids, Q_w,
                                 precision=precision)
         return pour_min_blocked(corpus, Z0, block_q)
     Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, iters + 1,
-                                    use_kernels, precision, block_v, block_h)
+                                    use_kernels, precision, block_v, block_h,
+                                    mesh)
     return pour_blocked(corpus, Z, W, iters, block_q,
                         use_kernels=use_kernels, block_n=block_n)
 
@@ -563,12 +584,13 @@ def lc_rwmd_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
                            block_q: int = 8, precision: str = "f32",
                            block_v: int | None = None,
                            block_h: int | None = None,
-                           block_n: int | None = None) -> torch.Tensor:
+                           block_n: int | None = None,
+                           mesh=None) -> torch.Tensor:
     """Batched LC-RWMD db -> query (batched LC-ACT with zero rounds)."""
     return lc_act_scores_batched(corpus, Q_ids, Q_w, iters=0,
                                  use_kernels=use_kernels, block_q=block_q,
                                  precision=precision, block_v=block_v,
-                                 block_h=block_h, block_n=block_n)
+                                 block_h=block_h, block_n=block_n, mesh=mesh)
 
 
 # ---------------------------------------------- distance-handoff engines
@@ -740,12 +762,13 @@ def lc_omr_scores_batched(corpus: Corpus, Q_ids: torch.Tensor,
                           block_q: int = 8, precision: str = "f32",
                           block_v: int | None = None,
                           block_h: int | None = None,
-                          block_n: int | None = None) -> torch.Tensor:
+                          block_n: int | None = None,
+                          mesh=None) -> torch.Tensor:
     """Batched LC-OMR: batched Phase 1 with k=2 (the ``dist_topk`` kernel
     when ``use_kernels``), query-blocked Algorithm-1 reduction (one
     ``cand_pour`` launch when ``use_kernels``)."""
     Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, 2, use_kernels,
-                                    precision, block_v, block_h)
+                                    precision, block_v, block_h, mesh)
     return omr_reduce_blocked(corpus, Z, W[..., 0], block_q,
                               use_kernels=use_kernels, block_n=block_n)
 
@@ -906,15 +929,18 @@ def lc_act_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
                        iters: int = 1, *, use_kernels: bool = False,
                        block_q: int = 8, precision: str = "f32",
                        block_v: int | None = None, block_h: int | None = None,
-                       block_n: int | None = None) -> torch.Tensor:
+                       block_n: int | None = None,
+                       mesh=None) -> torch.Tensor:
     """Candidate-compacted batched LC-ACT: (nq, h) queries scored against
-    each query's own (b,) candidate rows -> (nq, b)."""
+    each query's own (b,) candidate rows -> (nq, b). ``mesh``: Phase 1 on
+    the mesh (the candidate rows are the caller's, already exchanged)."""
     if iters == 0 and not use_kernels:
         Z0 = phase1_min_batched(corpus.coords, Q_ids, Q_w,
                                 precision=precision)
         return pour_min_cand_blocked(corpus, Z0, cand, block_q)
     Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, iters + 1,
-                                    use_kernels, precision, block_v, block_h)
+                                    use_kernels, precision, block_v, block_h,
+                                    mesh)
     return pour_cand_blocked(corpus, Z, W, cand, iters, block_q,
                              use_kernels=use_kernels, block_n=block_n)
 
@@ -924,12 +950,13 @@ def lc_rwmd_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
                         use_kernels: bool = False, block_q: int = 8,
                         precision: str = "f32", block_v: int | None = None,
                         block_h: int | None = None,
-                        block_n: int | None = None) -> torch.Tensor:
+                        block_n: int | None = None,
+                        mesh=None) -> torch.Tensor:
     """Candidate-compacted batched LC-RWMD db -> query."""
     return lc_act_scores_cand(corpus, Q_ids, Q_w, cand, iters=0,
                               use_kernels=use_kernels, block_q=block_q,
                               precision=precision, block_v=block_v,
-                              block_h=block_h, block_n=block_n)
+                              block_h=block_h, block_n=block_n, mesh=mesh)
 
 
 def lc_rwmd_scores_rev_cand(corpus: Corpus, Q_ids: torch.Tensor,
@@ -955,10 +982,11 @@ def lc_omr_scores_cand(corpus: Corpus, Q_ids: torch.Tensor,
                        use_kernels: bool = False, block_q: int = 8,
                        precision: str = "f32", block_v: int | None = None,
                        block_h: int | None = None,
-                       block_n: int | None = None) -> torch.Tensor:
+                       block_n: int | None = None,
+                       mesh=None) -> torch.Tensor:
     """Candidate-compacted batched LC-OMR."""
     Z, W = _phase1_batched_dispatch(corpus, Q_ids, Q_w, 2, use_kernels,
-                                    precision, block_v, block_h)
+                                    precision, block_v, block_h, mesh)
     return omr_reduce_cand_blocked(corpus, Z, W[..., 0], cand, block_q,
                                    use_kernels=use_kernels, block_n=block_n)
 

@@ -1,14 +1,15 @@
 """Top-l nearest-neighbour retrieval on the LC engines, through a typed
 method registry.
 
-The JAX package's ``core/retrieval.py`` without its mesh engine:
-``METHODS`` holds a :class:`MethodSpec` for each of the seven JAX methods
-(act, rwmd, rwmd_rev, omr, ict, bow, wcd) with its single-query, batched
-and candidate-compacted scorers. ``query_scores`` dispatches one query
-through ``METHODS[method].fn`` (the full-precision oracle), ``batch_scores``
-a batch through ``batch_fn`` (or, for the symmetric measure, through
-``symmetric_batch_fn`` or both directions), or with ``engine="scan"``
-through a loop of ``query_scores``; ``cand_scores`` through ``cand_fn``;
+The JAX package's ``core/retrieval.py``: ``METHODS`` holds a
+:class:`MethodSpec` for each of the seven JAX methods (act, rwmd, rwmd_rev,
+omr, ict, bow, wcd) with its single-query, batched and
+candidate-compacted scorers. ``query_scores`` dispatches one query through
+``METHODS[method].fn`` (the full-precision oracle), ``batch_scores`` a
+batch through ``batch_fn`` (or, for the symmetric measure, through
+``symmetric_batch_fn`` or both directions), with ``engine="dist"`` through
+the same scorers on a rank's shards, or with ``engine="scan"`` through a
+loop of ``query_scores``; ``cand_scores`` through ``cand_fn``;
 ``search`` and ``top_l_smallest`` match ``lax.top_k`` on the negated
 scores (ascending scores, the lowest index first among ties).
 
@@ -19,9 +20,9 @@ neighbours, self excluded, that share its label; ``recall_at_l`` the
 agreement of two rankings.
 
 Every scorer takes the uniform keyword set ``iters``, ``use_kernels``,
-``block_q`` and ``precision`` and ignores the ones it does not use.
-Not yet ported, and so absent from :class:`MethodSpec`: the mesh scorers
-(``dist_fn``, ``dist_out``) and ``batch_scores(engine="dist")``.
+``block_q``, ``precision`` and ``mesh`` and ignores the ones it does not
+use. On a mesh (``launch.mesh.Mesh``) a scorer is given the rank's shards
+(its queries, its corpus rows) and returns the rank's block.
 """
 from __future__ import annotations
 
@@ -60,6 +61,9 @@ class MethodSpec:
                  ``use_kernels=True`` sends the gather and reduction to
                  the ``cand_pour`` / ``cand_dist`` kernels. The bow and wcd
                  baselines have no kernel and ignore the flag.
+    dist_out:    the axes that split the (nq, n) score matrix's two dims
+                 on the mesh (``"data"``, ``"model"`` or None for
+                 replicated): the step gathers the rank's block over them.
     """
     name: str
     paper_name: str
@@ -71,6 +75,7 @@ class MethodSpec:
     batch_fn: Callable | None = None
     symmetric_batch_fn: Callable | None = None
     cand_fn: Callable | None = None
+    dist_out: tuple = ("data", "model")
 
 
 # The engines below take the kernels' tile knobs as keywords: block_v and
@@ -79,7 +84,7 @@ class MethodSpec:
 # ``_STATIC_KW``). None is the kernel's default tile; no knob changes a
 # score.
 _K1 = ("block_v", "block_h")
-_ALL = ("block_v", "block_h", "block_n")
+_ALL = ("block_v", "block_h", "block_n", "mesh")
 
 
 def _tiles(kw, names):
@@ -306,7 +311,7 @@ def _spec(method: str) -> MethodSpec:
 
 
 #: The engines of :func:`batch_scores`.
-ENGINES = ("batched", "scan")
+ENGINES = ("batched", "scan", "dist")
 
 
 def query_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
@@ -345,7 +350,7 @@ def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
                  use_kernels: bool = False, block_q: int = 8,
                  precision: str = "f32", block_v: int | None = None,
                  block_h: int | None = None, block_n: int | None = None,
-                 rev_block: int = 256) -> torch.Tensor:
+                 rev_block: int = 256, mesh=None) -> torch.Tensor:
     """Query batch ``(nq, h)`` -> ``(nq, n)`` scores.
 
     ``engine="batched"`` (default) runs the method's batched engine: Phase 1
@@ -353,8 +358,16 @@ def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
     ``iters`` is read by ``act`` only. ``engine="scan"`` runs
     :func:`query_scores` on each query in turn and stacks the rows, so it
     is bitwise a loop of single-query calls (float32, whatever
-    ``precision``): the check of the batched engine. The JAX package's
-    mesh engine, ``engine="dist"``, is not yet ported.
+    ``precision``): the check of the batched engine. ``engine="dist"`` is
+    the mesh engine: the batched engine on the rank's shards. On a
+    ``mesh`` (a ``launch.mesh.Mesh``) the corpus and queries are the
+    rank's shards and the result is the rank's (nq/dp, n/mp) block; the
+    kernel path's Phase 1 splits the vocabulary over ``model`` where it
+    divides. Without a mesh, and on a 1 x 1 mesh, it is ``batched``. (The
+    JAX package's ``dist_fn`` for rwmd_rev, a full-row reverse reduction
+    because XLA cannot scan a sharded row axis, has no counterpart: a
+    rank's shard is a local tensor that the batched engine's row blocks
+    already walk, to the same bits.)
 
     ``symmetric=True`` scores the paper's symmetric measure, the max of the
     two directional bounds; it needs a method with a reverse direction
@@ -366,9 +379,6 @@ def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
     ``block_v`` / ``block_h`` tile K1 and ``block_n`` the Phase-2/3
     kernels (None: each kernel's default tile); ``rev_block`` is the
     reverse reference scorer's row block. No knob changes a score."""
-    if engine == "dist":
-        raise ValueError("batch_scores(engine='dist'), the JAX package's "
-                         "mesh engine, is not yet ported")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
     spec = _spec(method)
@@ -383,6 +393,7 @@ def batch_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
             query_scores(corpus, q_ids[i], q_w[i], method=method,
                          symmetric=symmetric, **kw)
             for i in range(q_ids.shape[0])])
+    kw["mesh"] = mesh
     if symmetric and not spec.symmetric:
         if spec.reverse is None:
             raise ValueError(
@@ -401,20 +412,26 @@ def cand_scores(corpus: lc.Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
                 use_kernels: bool = False, block_q: int = 8,
                 precision: str = "f32", block_v: int | None = None,
                 block_h: int | None = None, block_n: int | None = None,
-                rev_block: int = 256) -> torch.Tensor:
+                rev_block: int = 256, mesh=None) -> torch.Tensor:
     """Candidate-compacted scoring: ``(nq, h)`` queries against each
     query's own ``(b,)`` candidate rows ``cand`` -> ``(nq, b)`` scores,
     through ``MethodSpec.cand_fn`` (the cascade's stage primitive); the
-    tile knobs as for :func:`batch_scores`."""
+    tile knobs as for :func:`batch_scores`. On a ``mesh`` the corpus is
+    the rank's row shard and ``cand`` holds global row ids: each model
+    rank scores the candidates it owns and the scores are summed over
+    ``model`` (``kernels/partition.cand_sharded``)."""
     spec = _spec(method)
     if spec.cand_fn is None:
         raise ValueError(f"method {method!r} has no candidate-compacted "
                          "scorer registered (MethodSpec.cand_fn)")
-    return spec.cand_fn(corpus, q_ids, q_w, cand, iters=iters,
-                        use_kernels=use_kernels, block_q=block_q,
-                        precision=precision, block_v=block_v,
-                        block_h=block_h, block_n=block_n,
-                        rev_block=rev_block)
+    kw = dict(iters=iters, use_kernels=use_kernels, block_q=block_q,
+              precision=precision, block_v=block_v, block_h=block_h,
+              block_n=block_n, rev_block=rev_block)
+    if mesh is not None:
+        from repro_torch.kernels import partition
+        return partition.cand_sharded(mesh, spec.cand_fn, corpus, q_ids,
+                                      q_w, cand, **kw)
+    return spec.cand_fn(corpus, q_ids, q_w, cand, **kw)
 
 
 def top_l_smallest(scores: torch.Tensor, top_l: int):

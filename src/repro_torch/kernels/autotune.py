@@ -232,8 +232,9 @@ def index_plan(corpus, config) -> list[tuple[str, dict]]:
     of a shared knob wins): the method's full-corpus engine (K1, the fused
     K2, K3's dump or omr, K4), then with a cascade its unsourced stage 1
     and its candidate stages and rescorer at ``_PLAN_B`` rows a query.
-    None on the reference backend."""
-    if config.backend != "cuda":
+    None on the reference backend (on the distributed backend the corpus is
+    the rank's row shard)."""
+    if config.backend == "reference":
         return []
     nq = config.block_q
     plan = _engine_plan(corpus, config.method, config.effective_iters, nq)

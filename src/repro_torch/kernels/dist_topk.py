@@ -45,20 +45,27 @@ launches = 0
 def dist_topk_plain(coords: torch.Tensor, qcs: torch.Tensor,
                     qmask: torch.Tensor, k: int,
                     out_dtype: torch.dtype = torch.float32,
-                    qids: torch.Tensor | None = None):
+                    qids: torch.Tensor | None = None, row0: int = 0):
     """Plain PyTorch version of the kernel: materialize the (v, nq, h)
     distances, then k rounds of masked min-extraction with the
     ``out_dtype`` sentinel. coords (v, m), qcs (nq, h, m) float32 or
     bfloat16, qmask (nq, h) bool -> Z (nq, v, k) ``out_dtype``, S (nq, v,
     k) int32. ``qids`` (nq, h): the vocabulary ids of the query bins
     (qcs = coords[qids]); their distances to their own rows are pinned to
-    0, where the kernel's FMA order gives 0 by itself."""
+    0, where the kernel's FMA order gives 0 by itself. ``row0``: the
+    vocabulary id of coords' first row, when coords is a slice of the
+    vocabulary (row i is id row0 + i; the mesh's vocabulary shards)."""
     v, _ = coords.shape
     nq, h, m = qcs.shape
     big = pad_dist_for(out_dtype)
-    d = pairwise_dist(coords.float(), qcs.reshape(nq * h, m).float(),
-                      b_ids=None if qids is None else qids.reshape(-1)
-                      ).reshape(v, nq, h)
+    d = pairwise_dist(coords.float(), qcs.reshape(nq * h, m).float())
+    if qids is not None:
+        # The same-id pin (``pairwise_dist``'s), at the rows this slice
+        # holds: bin j's own row is qids[j] - row0.
+        rel = qids.reshape(-1).long() - row0
+        col = torch.nonzero((rel >= 0) & (rel < v))[:, 0]
+        d[rel[col], col] = 0.0
+    d = d.reshape(v, nq, h)
     work = torch.where(qmask[None], d, big)
     col = torch.arange(h, dtype=torch.int32, device=coords.device)
     zs, ss = [], []

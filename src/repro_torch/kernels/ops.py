@@ -59,7 +59,7 @@ def _check_ids_range(ids: torch.Tensor, v: int) -> None:
 def dist_topk_batched(coords: torch.Tensor, qcs: torch.Tensor,
                       qmask: torch.Tensor, k: int, *,
                       out_dtype: torch.dtype = torch.float32,
-                      qids: torch.Tensor | None = None,
+                      qids: torch.Tensor | None = None, row0: int = 0,
                       block_v: int | None = None,
                       block_h: int | None = None):
     """Fused distance + row-top-k for a query batch in one launch.
@@ -72,7 +72,9 @@ def dist_topk_batched(coords: torch.Tensor, qcs: torch.Tensor,
     ``qids`` (nq, h) integer, optional: the vocabulary ids of the query
     bins, when qcs = coords[qids]. The plain version pins each bin's
     distance to its own vocabulary row to exactly 0; the kernel gives that
-    0 by its FMA order and does not read qids.
+    0 by its FMA order and does not read qids. ``row0``: the vocabulary id
+    of coords' first row when coords is a slice of the vocabulary (a mesh's
+    vocabulary shard), so that the plain version pins the right pairs.
 
     ``block_v`` / ``block_h``: the kernel's tile (vocabulary rows a block,
     valid bins a tile; None: the default tile). Every admitted tile gives
@@ -107,7 +109,7 @@ def dist_topk_batched(coords: torch.Tensor, qcs: torch.Tensor,
     tensors = (coords, qcs, qmask) + (() if qids is None else (qids,))
     if _on_cpu(*tensors):
         return dist_k.dist_topk_plain(coords, qcs, qmask, k, out_dtype,
-                                         qids)
+                                      qids, row0)
     return dist_k.dist_topk_cuda(coords, qcs, qmask, k, out_dtype, var)
 
 

@@ -48,7 +48,8 @@ from repro_torch.serving.server import EmdServer
 SNAPSHOT_LEAVES = ("ids", "w", "coords", "doc_ids")
 
 #: The port's backend names as the JAX package writes them.
-_BACKEND_ON_DISK = {"cuda": "pallas", "reference": "reference"}
+_BACKEND_ON_DISK = {"cuda": "pallas", "reference": "reference",
+                    "distributed": "distributed"}
 
 #: The JAX package's default of each tile knob, which the codec writes for
 #: the port's None (each kernel's own tile) and reads back as None.
@@ -233,10 +234,12 @@ def restore_server(ckpt_dir: str, policy: ServingPolicy | None = None, *,
     ``await start()``s it) on ``device`` (default ``"cuda"``, as
     ``EmdIndex.build``). ``generation=None`` takes the newest INTACT
     snapshot (corrupt ones skipped). ``mesh`` (restoring onto another
-    device mesh) is not yet ported (ROADMAP Queue 1 item 6)."""
+    device mesh) is not yet ported: the serving half of the mesh, ROADMAP
+    Queue 1 item 6's second half, is the next slice."""
     if mesh is not None:
-        raise ValueError("restore_server(mesh=...) is not yet ported: the "
-                         "mesh is ROADMAP Queue 1 item 6")
+        raise ValueError("restore_server(mesh=...) is not yet ported: "
+                         "restoring a server onto a mesh is the next slice "
+                         "(ROADMAP Queue 1 item 6, second half)")
     snap = (restore_latest(ckpt_dir) if generation is None
             else restore_snapshot(ckpt_dir, generation))
     index = EmdIndex.build(snap.corpus, snap.config, device,

@@ -476,9 +476,12 @@ class EmdServer:
 
     def reshard(self, new_mesh) -> None:
         """Recovery on mesh change (the JAX package's distributed backend):
-        not yet ported, the mesh is ROADMAP Queue 1 item 6."""
-        raise ValueError("EmdServer.reshard is not yet ported: the mesh is "
-                         "ROADMAP Queue 1 item 6")
+        not yet ported. The mesh scores and searches; resharding a live
+        server onto a new process group is the next slice (ROADMAP Queue 1
+        item 6, second half)."""
+        raise ValueError("EmdServer.reshard is not yet ported: resharding a "
+                         "live server is the next slice (ROADMAP Queue 1 "
+                         "item 6, second half)")
 
     def _swap(self, corpus: Corpus, doc_ids: np.ndarray) -> None:
         gen = self._gen

@@ -84,6 +84,37 @@ def test_method_specs_reject_kernels_without_a_batched_engine():
     assert any("without a batched engine" in v.message for v in out)
 
 
+@pytest.mark.parametrize("layout,bad", [
+    (("data", "pod"), ["pod"]),
+    (("rows", None), ["rows"]),
+    ((None, "vocab"), ["vocab"]),
+    (("pod", "rows"), ["pod", "rows"]),
+])
+def test_method_specs_reject_unknown_dist_out_axes(layout, bad):
+    methods = dict(METHODS)
+    methods["act"] = dataclasses.replace(METHODS["act"], dist_out=layout)
+    out = registry_lint.check_method_specs(methods)
+    assert [v.message for v in out if v.subject == "act"] == \
+        [f"dist_out has unknown axes {bad}"]
+
+
+def test_method_specs_mesh_checks_give_jax_verdicts():
+    """The seeded dist_out registrations get the same verdicts from both
+    packages' lints."""
+    from repro.core.retrieval import METHODS as JMETHODS
+
+    def seeded(methods):
+        m = dict(methods)
+        m["act"] = dataclasses.replace(m["act"], dist_out=("data", "pod"))
+        m["wcd"] = dataclasses.replace(m["wcd"], dist_out=("rows", None))
+        return m
+
+    def verdicts(out):
+        return sorted((v.subject, v.message) for v in out)
+    assert verdicts(registry_lint.check_method_specs(seeded(METHODS))) == \
+        verdicts(jlint.check_method_specs(seeded(JMETHODS)))
+
+
 def test_presets_reject_admissibility_drift():
     declared = dict(cspec.PRESET_ADMISSIBLE, fast=True)   # wcd stage lies
     out = registry_lint.check_cascade_presets(declared=declared)

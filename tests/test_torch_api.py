@@ -151,8 +151,6 @@ def test_config_has_the_jax_fields():
 
 @pytest.mark.parametrize("field,value", [
     ("backend", "pallas"),
-    ("backend", "distributed"),
-    ("pad_multiple", 16),
 ])
 def test_unported_config_raises(field, value):
     with pytest.raises(ValueError, match=f"{field}.*not yet ported"):
@@ -165,6 +163,7 @@ def test_unported_config_raises(field, value):
     ("precision", "bf16_agg"), ("batch_engine", "scan"),
     ("autotune", "force"), ("autotune", "cached"), ("tune_cache", "t.json"),
     ("block_v", 128), ("block_h", 128), ("block_n", 16), ("rev_block", 64),
+    ("backend", "distributed"), ("pad_multiple", 16),
 ])
 def test_formerly_unported_config_values_build(field, value):
     assert getattr(EngineConfig(**{field: value}), field) == value
@@ -173,6 +172,7 @@ def test_formerly_unported_config_values_build(field, value):
 @pytest.mark.parametrize("field,value", [
     ("method", "nope"), ("backend", "tpu"), ("precision", "fp8"),
     ("iters", -1), ("top_l", 0), ("block_q", 0), ("batch_engine", "dist"),
+    ("pad_multiple", 0),
 ])
 def test_bad_config_raises(field, value):
     with pytest.raises(ValueError, match=field.replace("_", ".")):

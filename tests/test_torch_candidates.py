@@ -631,7 +631,7 @@ def test_emdindex_builds_and_reuses_the_source(jcorpus, corpus):
     with pytest.raises(ValueError, match="does not match"):
         EmdIndex.build(corpus, cfg, device="cpu",
                        source=CentroidLSHSpec().build(corpus))
-    with pytest.raises(ValueError, match="mesh.*not yet ported"):
+    with pytest.raises(ValueError, match="mesh must be a .*Mesh, got object"):
         EmdIndex.build(corpus, cfg, device="cpu", mesh=object())
     # an unsourced cascade on the same index searches without the source
     s2, _ = index.search(q_ids, q_w, cascade="chain")

@@ -216,21 +216,51 @@ def test_rescorer_registry_matches_jax():
         rescore.resolve("nope")
 
 
-@pytest.mark.parametrize("what", ["source", "topk_blocks"])
+@pytest.mark.parametrize("what", ["source"])
 def test_unported_cascade_pieces_raise(corpus, what):
-    if what == "source":
-        # Sources are ported; their static-check shapes (state_structs,
-        # the mesh's and the static checkers' hook) are not.
-        spec = tc.CascadeSpec(stages=(tc.CascadeStage("rwmd", 8),),
-                              source="centroid_lsh")
-        with pytest.raises(ValueError,
-                           match="SourceSpec.state_structs.*not yet ported"):
-            spec.source.state_structs(8)
-        return
-    qi, qw = _queries(corpus, 2)
-    with pytest.raises(ValueError, match="topk_blocks.*not yet ported"):
-        tc.cascade_search(_port(corpus), torch.tensor(qi), torch.tensor(qw),
-                          "chain", 4, topk_blocks=2)
+    # Sources are ported; their static-check shapes (state_structs, the
+    # static checkers' hook) are not.
+    spec = tc.CascadeSpec(stages=(tc.CascadeStage("rwmd", 8),),
+                          source="centroid_lsh")
+    with pytest.raises(ValueError,
+                       match="SourceSpec.state_structs.*not yet ported"):
+        spec.source.state_structs(8)
+
+
+def _tied_scores(nq, n, seed):
+    """Scores from a few distinct values, so that most entries tie."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 4, size=(nq, n)).astype(np.float32) / 4
+
+
+@pytest.mark.parametrize("blocks", [2, 4, 3])
+@pytest.mark.parametrize("k", [1, 5, 12, 24])
+def test_topk_blocks_match_jax(blocks, k):
+    """The shard-blocked top-k (each block's winners, then one merge) gives
+    JAX's values and indices, ties included (both: the lowest index
+    first), and so the plain sort's; a block count that does not divide
+    n (3 of 24) takes the plain sort in both packages."""
+    s = _tied_scores(5, 24, blocks * 100 + k)
+    v, i = tc.topk_smallest(torch.tensor(s), k, blocks)
+    jv, ji = jc.topk_smallest(jnp.asarray(s), k, blocks)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    pv, pi = tc.topk_smallest(torch.tensor(s), k)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+def test_cascade_with_topk_blocks_matches_jax(corpus):
+    """A cascade's stage 1 through the shard-blocked top-budget gives JAX's
+    top-l with the same blocks."""
+    qi, qw = _queries(corpus, 4)
+    got = tc.cascade_search(_port(corpus), torch.tensor(qi),
+                            torch.tensor(qw), "chain", 4, topk_blocks=2)
+    want = jc.cascade_search(corpus, jnp.asarray(qi), jnp.asarray(qw),
+                             "chain", 4, topk_blocks=2)
+    np.testing.assert_array_equal(got.indices.numpy(),
+                                  np.asarray(want.indices))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               **F32_TOL)
 
 
 # ------------------------------------------------------ cascade vs JAX

@@ -1,5 +1,6 @@
 """The port stands alone: nothing in ``src/repro_torch`` or ``chip_smoke.py``
-imports JAX or the JAX package, and importing the port loads no JAX."""
+imports JAX or the JAX package, nor do the mesh tests' rank bodies
+(``tests/torch_mesh_ranks.py``), and importing the port loads no JAX."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,7 @@ import torch  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_ranks.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -33,7 +34,8 @@ def _imported_roots(path: Path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"lc.py", "ops.py", "index.py", "chip_smoke.py"} <= names
+    assert {"lc.py", "ops.py", "index.py", "chip_smoke.py", "mesh.py",
+            "local.py", "annotate.py", "partition.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -47,7 +49,10 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.api, repro_torch.core.lc, "
             "repro_torch.kernels.ops, repro_torch.data.synth, "
             "repro_torch.cascade, repro_torch.candidates, "
-            "repro_torch.serving, repro_torch.checkpoint; "
+            "repro_torch.serving, repro_torch.checkpoint, "
+            "repro_torch.launch.mesh, repro_torch.launch.local, "
+            "repro_torch.launch.search, repro_torch.sharding.annotate, "
+            "repro_torch.kernels.partition; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

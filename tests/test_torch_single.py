@@ -212,12 +212,28 @@ def test_scan_engine_on_an_empty_batch():
     assert out.shape == (0, tc.n)
 
 
-@pytest.mark.parametrize("engine,match", [("dist", "dist.*not yet ported"),
-                                          ("nope", "unknown engine")])
+@pytest.mark.parametrize("engine,match", [("nope", "unknown engine")])
 def test_batch_scores_refuses_other_engines(engine, match):
     _, tc = _corpora()
     with pytest.raises(ValueError, match=match):
         tr.batch_scores(tc, tc.ids[:2], tc.w[:2], engine=engine)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["reference", "kernels"])
+@pytest.mark.parametrize("method", sorted(tr.METHODS))
+def test_dist_engine_on_a_1x1_mesh_is_batched(method, use_kernels):
+    """The mesh engine on a 1 x 1 mesh (one rank, no process group) scores
+    bitwise as the batched engine, and so it does without a mesh."""
+    from repro_torch.launch.mesh import make_test_mesh
+    _, tc = _corpora()
+    kw = dict(method=method, iters=2, use_kernels=use_kernels)
+    q = (tc.ids[:5], tc.w[:5])
+    batched = tr.batch_scores(tc, *q, **kw)
+    mesh = make_test_mesh(1, 1, backend="gloo", device="cpu")
+    assert torch.equal(tr.batch_scores(tc, *q, engine="dist", mesh=mesh,
+                                       **kw), batched)
+    assert torch.equal(tr.batch_scores(tc, *q, engine="dist", **kw), batched)
 
 
 @pytest.mark.parametrize("backend", ["cuda", "reference"])
