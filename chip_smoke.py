@@ -108,22 +108,39 @@ up to four processes on it and stops them. Phases:
    (b) ``EmdIndex.build(autotune="force")`` then ``"cached"`` on one tune
    cache file for act-7 and ``tight``: the cached build times nothing and
    picks the same tiles, and both search bitwise like the default config;
-   (c) ``python -m repro_torch.analysis.check --passes registry smem``
-   clean; (d) the phase's seconds;
+   (c) ``python -m repro_torch.analysis.check --passes registry smem
+   collectives`` clean (the last on 8 gloo ranks on the host's CPU); (d)
+   the phase's seconds;
 12. the mesh: ``EmdIndex(backend="distributed")`` on (a) a 1x1 mesh over
    NCCL, (b) a 2x2 and (c) a 1x4 mesh over gloo whose four ranks share the
    card (``repro_torch.launch.local``; the corpus written once with
    ``np.save``, memory-mapped by the ranks, which load phase 1's
    libraries), at 20News width: act-7, rwmd, omr, rwmd_rev, ict and
    symmetric rwmd (scores and top-16), the ``chain``, ``tight``, ``fast``
-   and phase 10's LSH-sourced ladders, and act-7 all-pairs on the 2,000-row
+   and phase 10's LSH-sourced ladders, and act-7 all-pairs on the 1,000-row
    prefix under f32 and bf16; each against the single-card cuda index (act,
    rwmd, omr and ``chain`` bitwise, the rest within rtol / atol, top-16
    equal where separated; ``fast`` and the LSH ladder by their recall of
    the single card's top-16), every rank's result the same, the launches
    per rank by kernel (each run's kernels above 0), the bytes each
    collective brought, seconds per search (contended where ranks share the
-   card), K1 and the fused K2 alone on each rank's shards.
+   card), K1 and the fused K2 alone on each rank's shards. Then each mesh
+   serves (``EmdServer`` on the mesh: the leader queues, the other ranks
+   follow): on every mesh a burst of 16 requests that the ``fast`` rung
+   serves (the primary's launches failed by a hook on the leader), bitwise
+   the single card's ``fast``; (a) phase 10's open-loop traffic at 200 and
+   800 requests/s over act-7 (p50 / p99, every primary answer bitwise the
+   single card's batched row); (b) 64 requests over act-7, bitwise, then
+   append 64 and delete 32 (bitwise a single-card index of the mutated
+   corpus), reshards 2x2 -> 1x2 -> 2x2 (one generation each, bitwise), a
+   snapshot, then ``runtime.elastic.reshard_live`` on its own moving the
+   act-7 tables 2x2 -> 1x2 -> 2x2 (each rank's bitwise a fresh build's);
+   (c) ``restore_server(mesh=)`` of (b)'s snapshot and of an LSH-sourced
+   ``tight``-shaped primary (K4 valid on the served path), bitwise (b) and
+   the single card. Each served run's launches per rank by kernel are
+   equal across the ranks in its mesh, with the bytes of each label
+   (``control``: the leader's commands, ``reshard``: the tables
+   ``reshard_live`` moved).
 
 Any failed check exits non-zero before the last line. The last lines are the
 card's name and power limit, a JSON line of the kernels and
@@ -138,6 +155,7 @@ import json
 import os
 import re
 import resource
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2691,9 +2709,9 @@ def phase11(corpus, host_corpus, q_ids, q_w, wide, narrow, logs, bounds,
     variants, build_s = phase11_variants(corpus, q_ids, q_w, wide, narrow,
                                          logs, bounds)
     tuned = phase11_tuner(host_corpus, q_ids, q_w, dev)
-    rc = static_check.main(["--passes", "registry", "smem"])
+    rc = static_check.main(["--passes", "registry", "smem", "collectives"])
     check(rc == 0, "python -m repro_torch.analysis.check --passes registry "
-          "smem found violations")
+          "smem collectives found violations")
     secs = time.perf_counter() - t_start
     print(f"phase 11: done in {secs:.1f} s ({build_s:.1f} s of builds)",
           flush=True)
@@ -2755,6 +2773,19 @@ P12_EXPECT = {
 }
 #: Seconds a mesh's ranks may take, start-up included.
 P12_TIMEOUT = 360
+#: Rows of the all-pairs prefix on the mesh (phase 8's is PREFIX).
+P12_PREFIX = 1_000
+#: Requests of the 2x2 mesh's served run, sent 16 at once.
+P12_SERVE_REQUESTS = 64
+#: The kernels each served run must launch on every rank of its mesh.
+P12_SERVED_EXPECT = {
+    "open": ("dist_topk", "act_phase2_gather"),
+    "fast": ("dist_topk", "cand_pour_rows.pour_iters0",
+             "cand_pour_rows.pour"),
+    "primary": ("dist_topk", "act_phase2_gather"),
+    "lsh_tight": ("dist_topk", "cand_pour_rows.pour_iters0",
+                  "cand_pour_rows.pour", "cand_dist_valid.ict"),
+}
 
 
 def p12_searches(host, q_ids, q_w, source_leaves, build):
@@ -2773,7 +2804,7 @@ def p12_searches(host, q_ids, q_w, source_leaves, build):
     lsh = build(host, cascade=SOURCED["lsh"],
                 source=LSH_SPEC.wrap(source_leaves))
     runs["cascade.lsh"] = functools.partial(lsh.search, q_ids, q_w)
-    prefix = prefix_corpus(host, PREFIX)
+    prefix = prefix_corpus(host, P12_PREFIX)
     for name, precision in P12_ALL_PAIRS.items():
         runs[name] = build(prefix, method="act", iters=ITERS,
                            precision=precision).all_pairs
@@ -2785,11 +2816,12 @@ def p12_host(x):
             else x.cpu().numpy())
 
 
-def phase12_rank(mesh, paths, rows, source_leaves):
+def phase12_rank(mesh, paths, rows, source_leaves, mesh_name, serve):
     """One rank of a phase-12 mesh: every run warmed once, then counted
     (launch counts and collective bytes set to 0 just before it) and timed
     between barriers; then K1 and the fused K2 alone on this rank's
-    shards (ranks sharing the card time them at once: contended)."""
+    shards (ranks sharing the card time them at once: contended); then the
+    mesh's served runs (``p12_served``)."""
     import warnings
 
     import torch.distributed as dist
@@ -2851,6 +2883,199 @@ def phase12_rank(mesh, paths, rows, source_leaves):
     out["shards"] = dict(k1_ms=k1, k1_shape=[nq_l, v1 - v0], k2_ms=k2,
                          k2_shape=[nq_l, local.n],
                          staged=annotate.staged(mesh, q_ids))
+    del index, local, Z, W
+    out["served"] = p12_served(mesh, mesh_name, host, rows, build, serve)
+    return out
+
+
+def p12_session(server, fn):
+    """``fn(server)`` (a coroutine function) in a run of the server on the
+    mesh's leader, its result; ``follow()`` on every other rank (None)."""
+    if not server.is_leader:
+        server.follow()
+        return None
+
+    async def go():
+        async with server:
+            return await fn(server)
+    return asyncio.run(go())
+
+
+def p12_counted(runs, name, fn):
+    """``fn()`` with this rank's launch counts and collective bytes set to
+    0 just before it and read just after: runs[name]."""
+    from repro_torch.sharding import annotate
+    torch.cuda.synchronize()
+    zero_counts()
+    annotate.reset_traffic()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    runs[name] = dict(launches=nonzero(read_counts()),
+                      bytes=annotate.traffic(),
+                      seconds=time.perf_counter() - t0)
+    return res
+
+
+def p12_answers(results):
+    """Served answers as (tier, generation, scores, indices); a shed
+    request as its message."""
+    return [(r.tier, r.generation, r.scores, r.indices)
+            if isinstance(r, ServeResult) else repr(r) for r in results]
+
+
+async def p12_ask(server, host_ids, host_w, rows):
+    """The rows' queries sent at once (one launch of up to 16)."""
+    return p12_answers(await asyncio.gather(
+        *[server.search(host_ids[r], host_w[r]) for r in rows],
+        return_exceptions=True))
+
+
+def p12_served(mesh, mesh_name, host, rows, build, serve):
+    """This rank's served runs on ``mesh`` (module docstring, phase 12):
+    {"runs": name -> launches, bytes and seconds on this rank, "answers":
+    the leader's answers, "stats": numbers}."""
+    from repro_torch.launch.mesh import plan_mesh
+    leader = mesh.index("data") == mesh.index("model") == 0
+    host_ids, host_w = host.ids.numpy(), host.w.numpy()
+    runs, answers, stats = {}, {}, {}
+    policy = dataclasses.replace(serve_policy(), deadline_ms=60_000.0)
+
+    def ask(rows_):
+        return lambda s: p12_ask(s, host_ids, host_w, rows_)
+    if mesh_name != "1x4-gloo":
+        index = build(host, method="act", iters=ITERS)
+        # The fast rung: the leader's hook fails the primary's two attempts.
+        hook = ChaosInjector(ChaosSchedule(fail_launches=frozenset({0, 1})))
+        server = EmdServer(index, policy, launch_hook=hook if leader
+                           else None)
+        answers["fast"] = p12_counted(runs, "served.fast", lambda: p12_session(
+            server, ask(rows)))
+    if mesh_name == "1x1-nccl":
+        for b in (1, 2, 4, 8, 16):          # every bucket's shape, once
+            index.search(host_ids[:b], host_w[:b])
+        for qps in SERVE_LOADS:
+            server = EmdServer(index, serve_policy())
+
+            async def go(s, qps=qps):
+                return await open_loop(s, host_ids, host_w,
+                                       serve["req_rows"], qps,
+                                       SEED + int(qps))
+            results, lat = p12_counted(runs, f"served.open.{int(qps)}",
+                                       lambda: p12_session(server, go))
+            st = server.stats
+            check(st.launch_failures == 0 and st.device_faults == 0,
+                  f"phase 12 served {qps}/s: {st.launch_failures} launch "
+                  "failures without a hook")
+            mix = {}
+            for r in results:
+                t = r.tier if isinstance(r, ServeResult) else "SHED"
+                mix[t] = mix.get(t, 0) + 1
+            answers[f"open.{int(qps)}"] = p12_answers(results)
+            stats[f"open.{int(qps)}"] = dict(
+                p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)), launches=st.launches,
+                flushes=st.flushes, tier_mix=mix, shed=st.shed,
+                buckets=dict(sorted(st.bucket_launches.items())))
+    if mesh_name == "2x2-gloo":
+        server = EmdServer(index, policy)
+        req = serve["req_rows"][:P12_SERVE_REQUESTS]
+
+        async def burst(s):
+            out = []
+            for g in range(0, len(req), NQ):
+                out += await p12_ask(s, host_ids, host_w, req[g:g + NQ])
+            return out
+        answers["primary"] = p12_counted(runs, "served.primary",
+                                         lambda: p12_session(server, burst))
+        stats["primary_launches"] = server.stats.launches
+
+        async def mutate(s):
+            new_ids = s.append(host_ids[serve["append"]],
+                               host_w[serve["append"]])
+            removed = s.delete(serve["delete"])
+            return (new_ids, removed,
+                    await p12_ask(s, host_ids, host_w, rows))
+        res = p12_counted(runs, "served.mutated",
+                          lambda: p12_session(server, mutate))
+        if res is not None:
+            new_ids, stats["removed"], answers["mutated"] = res
+            stats["appended"] = len(new_ids)
+        stats["mutate_s"] = runs["served.mutated"]["seconds"]
+
+        async def reshards(s):
+            out, secs = [], []
+            dev = mesh.device.type
+            for plan in (plan_mesh(1, 2, ranks=(0, 1), backend="gloo",
+                                   device=dev),
+                         plan_mesh(2, 2, backend="gloo", device=dev)):
+                t0 = time.perf_counter()
+                s.reshard(plan)
+                secs.append(time.perf_counter() - t0)
+                out.append(await p12_ask(s, host_ids, host_w, rows))
+            return out, secs
+        res = p12_counted(runs, "served.reshard",
+                          lambda: p12_session(server, reshards))
+        if res is not None:
+            answers["reshard"], stats["reshard_s"] = res
+        stats["generation"] = server.generation
+        t0 = time.perf_counter()
+        snapshot(server, serve["snap_dir"])
+        stats["snapshot_s"] = time.perf_counter() - t0
+        stats["live"] = p12_reshard_live(mesh, host, index)
+    if mesh_name == "1x4-gloo":
+        for name, path in (("primary", serve["snap_dir"]),
+                           ("lsh_tight", serve["lsh_dir"])):
+            t0 = time.perf_counter()
+            server = restore_server(path, policy, mesh=mesh)
+            stats[f"restore_{name}_s"] = time.perf_counter() - t0
+            stats[f"restore_{name}_generation"] = server.generation
+            answers[f"restored.{name}"] = p12_counted(
+                runs, f"served.restored.{name}",
+                lambda: p12_session(server, ask(rows)))
+        # The fast rung over the restored LSH primary's corpus (the
+        # original rows, as on the other meshes).
+        hook = ChaosInjector(ChaosSchedule(fail_launches=frozenset({0, 1})))
+        server = EmdServer(server._gen.tiers[0].index, policy,
+                           launch_hook=hook if leader else None)
+        answers["fast"] = p12_counted(runs, "served.fast", lambda: (
+            p12_session(server, ask(rows))))
+    return dict(runs=runs, answers=answers if leader else {}, stats=stats)
+
+
+def p12_reshard_live(mesh, host, index):
+    """``runtime.elastic.reshard_live`` on its own: ``index``'s tables
+    2x2 -> 1x2 -> 2x2, as a server's would move were its rows not on every
+    rank. Each move's seconds, the bytes this rank received and whether
+    its tables are bitwise a fresh build's on the new mesh (None outside
+    it)."""
+    from repro_torch.launch.mesh import join_mesh, plan_mesh, world_group
+    from repro_torch.launch.search import SEARCH_PLAN
+    from repro_torch.runtime import elastic
+    from repro_torch.sharding import annotate
+    plan = {"ids": SEARCH_PLAN["corpus_ids"], "w": SEARCH_PLAN["corpus_w"],
+            "coords": SEARCH_PLAN["coords"]}
+    group = world_group(mesh.timeout)
+    tables, old, out = {k: getattr(index._local, k) for k in plan}, mesh, {}
+    for name, (n_data, n_model, ranks) in (("down", (1, 2, (0, 1))),
+                                           ("up", (2, 2, None))):
+        new = join_mesh(plan_mesh(n_data, n_model, ranks=ranks,
+                                  backend="gloo", device=mesh.device.type))
+        torch.cuda.synchronize()
+        annotate.reset_traffic()
+        t0 = time.perf_counter()
+        tables = elastic.reshard_live(tables, new, plan, mesh=old,
+                                      group=group)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        same = None
+        if new is not None:
+            fresh = EmdIndex.build(host, index.config, mesh=new)._local
+            same = all(torch.equal(tables[k], getattr(fresh, k))
+                       for k in plan)
+        out[name] = dict(seconds=secs, bitwise=same,
+                         bytes=annotate.traffic().get(elastic.LABEL, 0))
+        old = new
     return out
 
 
@@ -2905,6 +3130,8 @@ def phase12(host_corpus, lsh_index, rows, q_ids, q_w, dev, p4):
         elif name.startswith("cascade"):
             nxt[name] = np.full(NQ, np.inf, np.float32)
     del runs
+    serve, served_want = p12_serve_setup(host_corpus, leaves, q_ids, q_w,
+                                         build)
     # The ranks share the card with this process: release its allocator's
     # cached blocks first (phases 8-11 leave tens of GB reserved and free
     # in the cache).
@@ -2924,7 +3151,8 @@ def phase12(host_corpus, lsh_index, rows, q_ids, q_w, dev, p4):
     for mesh_name, (n_data, n_model, backend) in MESHES.items():
         t0 = time.perf_counter()
         ranks = run_local(phase12_rank, n_data, n_model, backend=backend,
-                          device="cuda", args=(paths, rows, leaves),
+                          device="cuda",
+                          args=(paths, rows, leaves, mesh_name, serve),
                           timeout=P12_TIMEOUT)
         wall = time.perf_counter() - t0
         shared = n_data * n_model > 1
@@ -2984,13 +3212,206 @@ def phase12(host_corpus, lsh_index, rows, q_ids, q_w, dev, p4):
                   f"rows ({label}); one card, phase 4: K1 {p4['k1_ms']:.4f}"
                   f" ms, fused K2 {p4['kg_ms']:.4f} ms on {NQ} queries",
                   flush=True)
+        served = p12_check_served(mesh_name, ranks, served_want, serve,
+                                  label)
+        for name, run in served["runs"].items():
+            summary[name] = run
         out[mesh_name] = dict(shape=[n_data, n_model], backend=backend,
                               contended=shared, wall_s=wall, runs=summary,
-                              shards=shards)
+                              shards=shards, served=served["stats"])
         print(f"phase 12: {mesh_name} done in {wall:.1f} s", flush=True)
+    shutil.rmtree(serve["dir"])
     out["seconds"] = time.perf_counter() - t_start
     print(f"phase 12: done in {out['seconds']:.1f} s", flush=True)
     return out
+
+
+def p12_serve_setup(host_corpus, leaves, q_ids, q_w, build):
+    """The served runs' inputs (``serve``, to every rank) and the single
+    card's answers they are held to: phase 10's requests and their batched
+    rows on act-7, the 16 queries on the ``fast`` rung, on act-7 over the
+    mutated corpus and on the LSH-sourced ``tight``-shaped primary; and
+    that primary's snapshot under the distributed backend, which the 1x4
+    mesh restores."""
+    from repro_torch.serving.policy import resolve_tier
+    from repro_torch.serving.server import _tier_config
+    host_ids, host_w = host_corpus.ids.numpy(), host_corpus.w.numpy()
+    req_rows = np.random.default_rng(SEED + 10).integers(0, N_DOCS,
+                                                         SERVE_REQUESTS)
+    rng = np.random.default_rng(SEED + 20)
+    append = rng.choice(N_DOCS, LIFE_APPEND, replace=False)
+    delete = rng.choice(N_DOCS + LIFE_APPEND, LIFE_DELETE, replace=False)
+    tmp = tempfile.mkdtemp(prefix="mesh-serve-")
+    serve = dict(req_rows=req_rows, append=append, delete=delete, dir=tmp,
+                 snap_dir=os.path.join(tmp, "act7"),
+                 lsh_dir=os.path.join(tmp, "lsh_tight"))
+    act7 = build(host_corpus, method="act", iters=ITERS)
+    want = dict(batched=batched_rows(act7, host_ids, host_w,
+                                     np.unique(req_rows)))
+    fast = EmdIndex.build(host_corpus, _tier_config(
+        act7.config, resolve_tier("fast")), device=act7.device)
+    want["fast"] = p12_host(fast.search(q_ids, q_w))
+    keep = ~np.isin(np.arange(N_DOCS + LIFE_APPEND), delete)
+    doc_ids = np.arange(N_DOCS + LIFE_APPEND)[keep]
+    mutated = Corpus(*(torch.cat([x, x[torch.from_numpy(append)]])[
+        torch.from_numpy(keep)] for x in (host_corpus.ids, host_corpus.w)),
+        host_corpus.coords)
+    s, i = p12_host(build(mutated, method="act", iters=ITERS).search(
+        q_ids, q_w))
+    want["mutated"] = (s, doc_ids[i])
+    source = LSH_SPEC.wrap(leaves)
+    want["lsh_tight"] = p12_host(build(
+        host_corpus, cascade=SOURCED["lsh_tight"], source=source).search(
+            q_ids, q_w))
+    # The same primary under the distributed backend (a 1x1 mesh with no
+    # process group, here), snapshotted for the 1x4 mesh's restore.
+    dist_lsh = EmdIndex.build(host_corpus, EngineConfig(
+        backend="distributed", cascade=SOURCED["lsh_tight"], top_l=TOP_L,
+        block_q=BLOCK_Q), device=act7.device, source=source)
+    snapshot(EmdServer(dist_lsh, ServingPolicy(ladder=("primary",))),
+             serve["lsh_dir"])
+    return serve, want
+
+
+def p12_check_served(mesh_name, ranks, want, serve, label):
+    """Hold one mesh's served runs to the single card, their launches to
+    each other across the ranks of the run's mesh, and print them.
+    Returns {"runs": name -> run summary, "stats": the leader's
+    numbers}."""
+    ans = ranks[0]["served"]["answers"]
+    st = ranks[0]["served"]["stats"]
+
+    def bitwise(got, want_s, want_i, name):
+        for k, a in enumerate(got):
+            check(not isinstance(a, str), f"phase 12 {mesh_name} {name}: "
+                  f"request {k} failed: {a}")
+            check(np.array_equal(a[2], want_s[k])
+                  and np.array_equal(a[3], want_i[k]),
+                  f"phase 12 {mesh_name} {name}: request {k} is not bitwise "
+                  "the single card's")
+
+    def tiers(got):
+        return {t: sum(1 for a in got if a[0] == t)
+                for t in sorted({a[0] for a in got})}
+    fs, fi = want["fast"]
+    check(tiers(ans["fast"]) == {"fast": NQ}, f"phase 12 {mesh_name}: the "
+          f"fast burst's tiers {tiers(ans['fast'])}")
+    bitwise(ans["fast"], fs, fi, "fast rung")
+    lines = [f"the fast rung served {NQ} requests bitwise the single card's "
+             "fast ladder"]
+    if mesh_name == "1x1-nccl":
+        for qps in SERVE_LOADS:
+            name = f"open.{int(qps)}"
+            got, o = ans[name], st[name]
+            n = 0
+            for row, a in zip(serve["req_rows"], got):
+                if a[0] != "primary":
+                    continue
+                b_s, b_i = want["batched"][int(row)]
+                check(np.array_equal(a[2], b_s) and np.array_equal(a[3], b_i),
+                      f"phase 12 served {qps}/s: row {row} is not bitwise the "
+                      "single card's batched row")
+                n += 1
+            lines.append(
+                f"open-loop {SERVE_REQUESTS} requests at {qps:g}/s: latency "
+                f"p50 {o['p50_ms']:.3f} ms, p99 {o['p99_ms']:.3f} ms; "
+                f"launches {o['launches']}, flushes {o['flushes']}, buckets "
+                f"{o['buckets']}, tiers {o['tier_mix']}, shed {o['shed']}; "
+                f"the {n} primary answers bitwise the single card's batched "
+                "rows")
+    if mesh_name == "2x2-gloo":
+        req = serve["req_rows"][:P12_SERVE_REQUESTS]
+        got = ans["primary"]
+        check(tiers(got) == {"primary": len(req)},
+              f"phase 12 2x2 served tiers {tiers(got)}")
+        bitwise(got, [want["batched"][int(r)][0] for r in req],
+                [want["batched"][int(r)][1] for r in req], "primary")
+        check(st["removed"] == LIFE_DELETE and st["appended"] == LIFE_APPEND,
+              "phase 12 2x2: the mutations miscounted")
+        bitwise(ans["mutated"], *want["mutated"], "mutated")
+        gens = [{a[1] for a in x} for x in (ans["mutated"],
+                                            *ans["reshard"])]
+        check(gens == [{2}, {3}, {4}] and st["generation"] == 4,
+              f"phase 12 2x2: generations {gens} across the reshards")
+        for x in ans["reshard"]:
+            bitwise(x, *want["mutated"], "reshard")
+        lines += [
+            f"{len(req)} requests over act-7 in groups of {NQ}: every answer "
+            "primary and bitwise the single card's batched row",
+            f"appended {LIFE_APPEND}, deleted {LIFE_DELETE} in "
+            f"{st['mutate_s']:.3f} s: the {NQ} queries bitwise a single-card"
+            " index of the mutated corpus",
+            f"reshard 2x2 -> 1x2 in {st['reshard_s'][0]:.3f} s, 1x2 -> 2x2 in "
+            f"{st['reshard_s'][1]:.3f} s: generations 2 -> 3 -> 4, answers "
+            f"bitwise; snapshot in {st['snapshot_s']:.3f} s"]
+        for move, label in (("down", "2x2 -> 1x2"), ("up", "1x2 -> 2x2")):
+            per = [rk["served"]["stats"]["live"][move] for rk in ranks]
+            inside = [r for r, x in enumerate(per) if x["bitwise"] is not None]
+            check(all(per[r]["bitwise"] for r in inside)
+                  and inside == ([0, 1] if move == "down" else [0, 1, 2, 3]),
+                  f"phase 12 2x2: reshard_live {label}: the tables are not "
+                  f"bitwise a fresh build's on ranks {inside}")
+            lines.append(
+                f"reshard_live {label} in "
+                f"{max(x['seconds'] for x in per):.3f} s: the tables of ranks "
+                f"{inside} bitwise a fresh build's; bytes received per rank "
+                f"{[x['bytes'] for x in per]}")
+    if mesh_name == "1x4-gloo":
+        got = ans["restored.primary"]
+        check(st["restore_primary_generation"] == 4
+              and {a[1] for a in got} == {4},
+              "phase 12 1x4: the restored generation")
+        bitwise(got, *want["mutated"], "restored act-7")
+        ls, li = want["lsh_tight"]
+        got = ans["restored.lsh_tight"]
+        check(tiers(got) == {"primary": NQ}, "phase 12 1x4: the restored "
+              f"lsh_tight's tiers {tiers(got)}")
+        gs = np.stack([a[2] for a in got])
+        gi = np.stack([a[3] for a in got])
+        d = float(np.abs(gs - ls).max())
+        check(np.array_equal(gs, ls) and np.array_equal(gi, li),
+              f"phase 12 1x4: the restored lsh_tight is not bitwise the "
+              f"single card's (max |d| {d})")
+        lines += [
+            "restore_server(mesh=) of the 2x2 snapshot (generation 4) in "
+            + ", ".join(f"{rk['served']['stats']['restore_primary_s']:.3f}"
+                        for rk in ranks)
+            + " s per rank: the 16 queries bitwise the 2x2 answers and the "
+            "single card's",
+            "restore_server(mesh=) of the LSH-sourced tight-shaped primary, "
+            "no refit, in "
+            + ", ".join(f"{rk['served']['stats']['restore_lsh_tight_s']:.3f}"
+                        for rk in ranks)
+            + " s per rank: the 16 queries bitwise the single card's"]
+    runs = {}
+    names = ranks[0]["served"]["runs"]
+    members = {"served.reshard": [(0, 1), (2, 3)]}
+    for name in names:
+        per = [rk["served"]["runs"][name] for rk in ranks]
+        launches = [r["launches"] for r in per]
+        for group in members.get(name, [range(len(ranks))]):
+            check(all(launches[r] == launches[group[0]] for r in group),
+                  f"phase 12 {mesh_name} {name}: launches differ across "
+                  f"ranks {list(group)}: {launches}")
+        key = name.split(".", 1)[1]
+        key = ("open" if key.startswith("open") else
+               "lsh_tight" if key.endswith("lsh_tight") else
+               "fast" if key == "fast" else "primary")
+        for r, c in enumerate(launches):
+            for kname in P12_SERVED_EXPECT[key]:
+                check(c.get(kname, 0) > 0, f"phase 12 {mesh_name} {name}: "
+                      f"rank {r} never launched {kname}: {c}")
+        runs[name] = dict(launches=launches,
+                          bytes=[r["bytes"] for r in per],
+                          seconds=[r["seconds"] for r in per])
+        print(f"phase 12: {mesh_name} ({label}) {name}: launches rank 0 "
+              f"{launches[0]}, equal on the ranks of its mesh; bytes rank 0 "
+              f"{per[0]['bytes']}, last rank {per[-1]['bytes']}; "
+              f"{max(r['seconds'] for r in per):.3f} s", flush=True)
+    for line in lines:
+        print(f"phase 12: {mesh_name} served: {line}", flush=True)
+    return dict(runs=runs, stats=st)
+
 
 
 def main():

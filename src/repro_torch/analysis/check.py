@@ -12,12 +12,14 @@ renders a per-pass report and exits non-zero if any violation survives:
 * ``smem``     -- every kernel launch of ``chip_smoke.py``'s shapes against
   sm_90's shared-memory, register and thread budget, from the kernels'
   launch layouts (``smem``). Pure arithmetic.
+* ``collectives`` -- every registry step (``launch.search.step_cases``) on
+  a local 2 x 4 gloo mesh: its collective bytes against the manifest, and
+  the scale-guarded steps flat in the corpus size (``collectives_check``).
+  Spawns 8 CPU ranks; ``--update-manifests`` rewrites the manifest.
 
 The JAX package's other passes are not yet ported: ``hazards`` and
-``precision`` trace the JAX steps (ROADMAP Queue 1 item 7),
-``collectives`` is item 6's second half (the mesh's traffic guard runs as
-a test meanwhile, ``tests/test_torch_mesh.py``) and ``bench`` the benches'
-artifacts (item 1).
+``precision`` trace the JAX steps (ROADMAP Queue 1 item 7) and ``bench``
+reads the benches' artifacts (item 1).
 """
 from __future__ import annotations
 
@@ -31,22 +33,26 @@ from repro_torch.analysis.violations import render
 PASSES = {
     "registry": "repro_torch.analysis.registry_lint",
     "smem": "repro_torch.analysis.smem",
+    "collectives": "repro_torch.analysis.collectives_check",
 }
 
 #: The JAX package's passes the port does not have yet -> ROADMAP item.
-UNPORTED = {"hazards": 7, "precision": 7, "collectives": 6, "bench": 1}
+UNPORTED = {"hazards": 7, "precision": 7, "bench": 1}
 
 
 def _parse(argv):
     p = argparse.ArgumentParser(
         prog="repro_torch.analysis.check",
-        description="static registry and sm_90 kernel-budget checks")
+        description="static registry, sm_90 kernel-budget and mesh "
+                    "collective checks")
     p.add_argument("--passes", nargs="+", default=None,
                    help=f"passes to run, space- or comma-separated, from "
                         f"{', '.join(PASSES)} (default: all)")
     p.add_argument("--smem-budget-kb", type=float, default=227.0,
                    help="shared memory a block may hold, in KB (default: "
                         "sm_90's 227)")
+    p.add_argument("--update-manifests", action="store_true",
+                   help="collectives: rewrite the manifest from this run")
     return p.parse_args(argv)
 
 
@@ -74,6 +80,8 @@ def main(argv=None) -> int:
         if name == "smem":
             kwargs["budget"] = mod.Budget(
                 smem_per_block=int(args.smem_budget_kb * 1024))
+        if name == "collectives":
+            kwargs["update_manifests"] = args.update_manifests
         violations, checked = mod.run(**kwargs)
         print(render(violations, checked=checked, passname=name))
         failures += len(violations)

@@ -97,11 +97,12 @@ class SourceSpec:
 
     def state_structs(self, m: int) -> tuple:
         """The static checkers' shapes of the state arrays (the JAX
-        package compiles the mesh step against them). Not yet ported: the
-        static checks (ROADMAP Queue 1 item 7) and the mesh (item 6)."""
+        package traces its hazard and precision passes against them). Not
+        yet ported: those passes are ROADMAP Queue 1 item 7 (the port's
+        collectives pass runs built sources)."""
         raise ValueError(
             "SourceSpec.state_structs is not yet ported: it serves the "
-            "static checks and the mesh (ROADMAP Queue 1 items 6 and 7)")
+            "hazards and precision passes (ROADMAP Queue 1 item 7)")
 
     def wrap(self, leaves):
         """Reassemble the built source from its state arrays (numpy arrays

@@ -10,8 +10,8 @@ so concurrent launches never collide), builds the mesh on each
 something picklable (tensors on the CPU). The results come back in rank
 order; a rank's exception is raised again here, with the rank's traceback.
 
-Every wait has a limit: ``timeout`` seconds for the process group's
-collectives and for the whole run. A rank that does not finish in time
+Every wait has a limit: ``timeout`` seconds for the process group's and
+the mesh's collectives and for the whole run. A rank that does not finish in time
 fails the run, and every rank still alive is killed.
 """
 from __future__ import annotations
@@ -49,7 +49,7 @@ def _rank_main(fn, rank, n_data, n_model, backend, device, tmp, args,
             rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout))
         mesh = make_test_mesh(n_data, n_model, backend=backend,
-                              device=device)
+                              device=device, timeout=timeout)
         result = fn(mesh, *args)
         dist.barrier()
         record = ("ok", result)

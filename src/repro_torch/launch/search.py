@@ -28,6 +28,8 @@ Serving callers reach this through ``repro_torch.api.EmdIndex``
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core import lc, retrieval
@@ -164,3 +166,152 @@ def make_cascade_search_step(spec, top_l: int = 16,
         return _gather_queries(mesh, res.scores, res.indices)
 
     return cascade_step
+
+
+# ---------------------------------------------------------------------------
+# The step registry: every servable mesh step as data, which the static
+# checks walk (``analysis/collectives_check.py``) instead of hard-coding
+# method lists, so a method or preset registered in ``retrieval.METHODS`` /
+# ``cascade.CASCADES`` is covered the moment it lands. JAX's
+# ``launch/search.py`` registry, case for case.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StepCase:
+    """One enumerable step.
+
+    kind:          ``scores`` | ``search`` | ``cascade``.
+    method:        registry method (None for cascade cases: the spec
+                   carries its stages' methods).
+    engine:        ``dist`` (the serving pipeline) or ``scan`` (the
+                   single-query engines, one query at a time).
+    cascade:       CascadeSpec or preset name for ``kind="cascade"``.
+    scale_guarded: True when the step's collective bytes must not grow
+                   with the corpus (the (nq, n) score matrix never crosses
+                   the mesh): the collectives pass runs it at two corpus
+                   sizes. A scores step hands every rank the whole matrix
+                   by design (its ``scores`` label), so the pass exempts
+                   that one label there. False for the scan engine and
+                   for fractional-budget cascades, whose candidate counts
+                   grow with n by design.
+    use_kernels:   True runs the case on the kernel path (the kernels'
+                   wrappers on each rank's shards, ``kernels/partition``).
+    precision:     the precision policy (``core/precision.py``): the bf16
+                   cases put the half-width Phase-1 handoff under the
+                   checks.
+    """
+    name: str
+    kind: str
+    method: str | None
+    engine: str
+    cascade: object = None
+    scale_guarded: bool = False
+    use_kernels: bool = False
+    precision: str = "f32"
+
+
+def step_cases(*, engines: tuple[str, ...] = ("dist", "scan"),
+               include_search: bool = True,
+               include_cascades: bool = True) -> tuple[StepCase, ...]:
+    """Every (kind x method x engine) step the mesh serves, the device
+    cascade presets, an absolute-budget admissible ladder
+    (``cascade:pinned``), sourced ladders, the kernel path of every method
+    that has one, and the bf16 policy's cases."""
+    from repro_torch import candidates as cand_mod
+    from repro_torch import cascade as cx
+
+    cases = [
+        StepCase(f"scores:{method}:{engine}", "scores", method, engine,
+                 scale_guarded=engine == "dist")
+        for method in sorted(retrieval.METHODS)
+        for engine in engines
+    ]
+    if include_search:
+        cases += [StepCase(f"search:act:{engine}", "search", "act", engine,
+                           scale_guarded=engine == "dist")
+                  for engine in engines]
+    if include_cascades:
+        for preset in sorted(cx.CASCADES):
+            if cx.rescore.resolve(cx.CASCADES[preset].rescorer).jittable:
+                cases.append(StepCase(f"cascade:{preset}:dist", "cascade",
+                                      None, "dist", cascade=preset))
+        stages = (cx.CascadeStage("rwmd", 24),
+                  cx.CascadeStage("act", 8, iters=2))
+        pinned = cx.CascadeSpec(stages=stages, rescorer="ict")
+        lsh = cx.CascadeSpec(stages=stages, rescorer="ict",
+                             source=cand_mod.CentroidLSHSpec(
+                                 n_buckets=16, probes=4, bucket_cap=8,
+                                 refine=16))
+        tree = cx.CascadeSpec(stages=stages, rescorer="ict",
+                              source=cand_mod.ClusterTreeSpec(
+                                  branching=4, depth=2, beam=4, probes=2,
+                                  leaf_cap=8))
+        for name, spec, kernels in (
+                ("cascade:pinned:dist", pinned, False),
+                ("cascade:pinned:dist:kernels", pinned, True),
+                ("cascade:sourced:lsh:dist", lsh, False),
+                ("cascade:sourced:lsh:dist:kernels", lsh, True),
+                ("cascade:sourced:tree:dist", tree, False)):
+            cases.append(StepCase(name, "cascade", None, "dist",
+                                  cascade=spec, scale_guarded=True,
+                                  use_kernels=kernels))
+    if "dist" in engines:
+        cases += [
+            StepCase(f"scores:{method}:dist:kernels", "scores", method,
+                     "dist", scale_guarded=True, use_kernels=True)
+            for method in sorted(m for m, s in retrieval.METHODS.items()
+                                 if s.supports_kernels)
+        ]
+        cases += [
+            StepCase("scores:act:dist:bf16", "scores", "act", "dist",
+                     scale_guarded=True, precision="bf16"),
+            StepCase("scores:act:dist:kernels:bf16", "scores", "act",
+                     "dist", scale_guarded=True, use_kernels=True,
+                     precision="bf16"),
+        ]
+    return tuple(cases)
+
+
+def build_step(case: StepCase, workload, mesh=None, *, top_l: int = 4,
+               **score_kw):
+    """The mesh step of one registry case for ``workload`` (the operands'
+    padded row count is ``padded_rows(workload.n_db, pad_multiple)``;
+    ``workload.n_db`` rows are real). ``score_kw``: the usual batch
+    knobs. Without ``mesh`` the step takes whole operands."""
+    score_kw.setdefault("use_kernels", case.use_kernels)
+    score_kw.setdefault("precision", case.precision)
+    if case.kind == "scores":
+        return make_scores_step(workload.iters, method=case.method,
+                                engine=case.engine, mesh=mesh, **score_kw)
+    if case.kind == "search":
+        return make_search_step(workload.iters, top_l, workload.n_db,
+                                method=case.method, engine=case.engine,
+                                mesh=mesh, **score_kw)
+    assert case.kind == "cascade", case.kind
+    blocks = 1 if mesh is None else model_axis_size(mesh)
+    return make_cascade_search_step(case.cascade, top_l, workload.n_db,
+                                    topk_blocks=blocks, engine=case.engine,
+                                    mesh=mesh, **score_kw)
+
+
+def case_operands(case: StepCase, corpus: lc.Corpus, q_ids: torch.Tensor,
+                  q_w: torch.Tensor, mesh=None,
+                  pad_multiple: int = DEFAULT_ROW_PAD_MULTIPLE) -> tuple:
+    """This rank's operands of one case's step: the corpus padded to
+    ``pad_multiple`` rows and the queries, sharded by
+    :data:`SEARCH_PLAN`, then a sourced cascade's tables (its source
+    built over ``corpus``), replicated."""
+    n_pad = padded_rows(corpus.n, pad_multiple)
+    ids, w = (torch.cat([x, x.new_zeros((n_pad - corpus.n, x.shape[1]))])
+              for x in (corpus.ids, corpus.w))
+    ops = (ids, w, corpus.coords, q_ids, q_w)
+    if mesh is not None:
+        ops = tuple(shard(mesh, x, axes)
+                    for x, axes in zip(ops, SEARCH_PLAN.values()))
+    if case.kind == "cascade":
+        from repro_torch import cascade as cx
+        rspec = cx.resolve_spec(case.cascade)
+        if rspec.sourced:
+            ops += tuple(rspec.source.build(corpus).leaves())
+    return ops

@@ -24,6 +24,14 @@ the config codec writes the JAX package's backend names (the port's
 that passes integrity verification: a corrupt or torn newest snapshot
 (``CheckpointCorrupt``) falls back to the previous generation instead of
 refusing to serve.
+
+On a mesh (``EmdServer`` over the distributed backend, serving/server.py)
+the leader alone writes a snapshot: it holds the whole corpus, as every
+rank does. ``restore_server(mesh=)`` is the recovery of a new world: every
+rank calls it on the same directory, the leader picks the generation and
+sends its number before any other rank reads a leaf (ranks that each
+walked the directory could disagree while a save is in progress), and
+every rank builds the index on the mesh from that generation's rows.
 """
 from __future__ import annotations
 
@@ -40,6 +48,8 @@ from repro_torch.cascade.spec import CascadeSpec, CascadeStage
 from repro_torch.checkpoint import store
 from repro_torch.checkpoint.store import CheckpointCorrupt
 from repro_torch.core.lc import Corpus
+from repro_torch.launch.mesh import Mesh
+from repro_torch.serving import control as ctl
 from repro_torch.serving.policy import ServingPolicy
 from repro_torch.serving.server import EmdServer
 
@@ -105,10 +115,13 @@ def config_from_dict(d: dict) -> EngineConfig:
 
 
 # ---------------------------------------------------------------- snapshot
-def snapshot(server: EmdServer, ckpt_dir: str) -> str:
+def snapshot(server: EmdServer, ckpt_dir: str) -> str | None:
     """Write the server's CURRENT generation as checkpoint step
     ``generation`` under ``ckpt_dir``; returns the snapshot path.
-    Atomic: a crash mid-save leaves the previous snapshot live."""
+    Atomic: a crash mid-save leaves the previous snapshot live. On a mesh
+    the leader writes it and a follower writes nothing (None)."""
+    if not server.is_leader:
+        return None
     gen = server._gen
     tree = {"ids": gen.corpus.ids, "w": gen.corpus.w,
             "coords": gen.corpus.coords, "doc_ids": gen.doc_ids}
@@ -233,17 +246,59 @@ def restore_server(ckpt_dir: str, policy: ServingPolicy | None = None, *,
     """Snapshot -> ready-to-run :class:`EmdServer` (the caller still
     ``await start()``s it) on ``device`` (default ``"cuda"``, as
     ``EmdIndex.build``). ``generation=None`` takes the newest INTACT
-    snapshot (corrupt ones skipped). ``mesh`` (restoring onto another
-    device mesh) is not yet ported: the serving half of the mesh, ROADMAP
-    Queue 1 item 6's second half, is the next slice."""
-    if mesh is not None:
-        raise ValueError("restore_server(mesh=...) is not yet ported: "
-                         "restoring a server onto a mesh is the next slice "
-                         "(ROADMAP Queue 1 item 6, second half)")
-    snap = (restore_latest(ckpt_dir) if generation is None
-            else restore_snapshot(ckpt_dir, generation))
-    index = EmdIndex.build(snap.corpus, snap.config, device,
+    snapshot (corrupt ones skipped).
+
+    ``mesh`` (a ``launch.mesh.Mesh``, for a snapshot of the distributed
+    backend) builds the index on it. In a world of more than one rank
+    every rank calls this with its part of a mesh that spans the world;
+    the leader picks the generation and the others read the one it
+    sends. Then the leader serves and the others ``follow()``."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise ValueError(f"restore_server(mesh=) takes a "
+                         f"repro_torch.launch.mesh.Mesh, got "
+                         f"{type(mesh).__name__}")
+    control = None if mesh is None else ctl.Control.create(mesh)
+    if control is None:
+        snap = (restore_latest(ckpt_dir) if generation is None
+                else restore_snapshot(ckpt_dir, generation))
+    else:
+        snap = _restore_together(control, ckpt_dir, generation)
+    index = EmdIndex.build(snap.corpus, snap.config, device, mesh=mesh,
                            source=snap.source)
     return EmdServer(index, policy, launch_hook=launch_hook,
                      doc_ids=snap.doc_ids, generation=snap.generation,
-                     next_doc_id=snap.next_doc_id)
+                     next_doc_id=snap.next_doc_id, control=control)
+
+
+def _restore_together(control, ckpt_dir: str,
+                      generation: int | None) -> RestoredSnapshot:
+    """Every rank's snapshot of the generation the leader picked: the
+    leader verifies it (falling back past corrupt ones when
+    ``generation`` is None) and sends its number (-1: none), then the
+    others read it; a rank that fails fails them all."""
+    snap, err = None, None
+    if control.is_leader:
+        try:
+            snap = (restore_latest(ckpt_dir) if generation is None
+                    else restore_snapshot(ckpt_dir, generation))
+        except (CheckpointCorrupt, FileNotFoundError) as e:
+            err = e
+        chosen = control.broadcast_int(-1 if snap is None
+                                       else snap.generation)
+    else:
+        chosen = control.broadcast_int(-1)
+        if chosen >= 0:
+            try:
+                snap = restore_snapshot(ckpt_dir, chosen)
+            except (CheckpointCorrupt, FileNotFoundError) as e:
+                err = e
+    statuses = control.statuses(ctl.OK if snap is not None else ctl.FAILED)
+    if err is not None:
+        raise err
+    if chosen < 0 or any(statuses):
+        raise CheckpointCorrupt(
+            f"restore under {ckpt_dir} failed on world ranks "
+            f"{[r for r, s in enumerate(statuses) if s]}"
+            + ("" if chosen >= 0 else ": the leader found no intact "
+               "snapshot"))
+    return snap

@@ -9,21 +9,30 @@ and is replaced by the kernel-support check), of its ``test_vmem_*`` and
 budget is shared memory, registers and threads, not VMEM), and of its CLI
 tests. Parity with the JAX package: the registry lint gives JAX's verdicts
 on the same (seeded) relations and presets, and the report renders the
-same tables.
+same tables. The collectives pass (``collectives_check``) runs the step
+registry once on its 2 x 4 gloo mesh, shared by its tests: clean against
+the manifest, a changed manifest entry caught, the guarded steps flat and
+a seeded score-matrix gather flagged.
 """
+import copy
 import dataclasses
+import functools
 import json
 
 import pytest
 
+import torch_mesh_ranks as ranks
+
 from repro.analysis import registry_lint as jlint
 from repro.analysis import report as jreport
 from repro.cascade import spec as jspec
-from repro_torch.analysis import check, registry_lint, report, smem
+from repro_torch.analysis import (check, collectives_check, registry_lint,
+                                  report, smem)
 from repro_torch.analysis.violations import Violation, render
 from repro_torch.cascade import spec as cspec
 from repro_torch.core.retrieval import METHODS
 from repro_torch.kernels import ops
+from repro_torch.launch import search as dsearch
 
 # ---------------------------------------------------------------- registry
 
@@ -312,6 +321,19 @@ def test_cli_runs_registry_and_smem_clean(capsys):
     assert "PASS registry" in out and "PASS smem" in out
     assert check.main(["--passes", "registry,smem"]) == 0
     assert check.main([]) == 0
+    assert "PASS collectives" in capsys.readouterr().out
+
+
+def test_cli_collectives_pass_runs_clean(capsys, monkeypatch):
+    """``--passes collectives`` on the shared measurement (the run of the
+    whole CLI above spawns its own)."""
+    data = _collectives()
+    monkeypatch.setattr(collectives_check, "measure",
+                        lambda jobs: {(c.name, n): data[(c.name, n)]
+                                      for c, n in jobs})
+    assert check.main(["--passes", "collectives"]) == 0
+    assert "PASS collectives: 31 subject(s) clean" in \
+        capsys.readouterr().out
 
 
 def test_cli_rejects_unknown_pass():
@@ -320,7 +342,7 @@ def test_cli_rejects_unknown_pass():
 
 
 @pytest.mark.parametrize("name,item", [("hazards", 7), ("precision", 7),
-                                       ("collectives", 6), ("bench", 1)])
+                                       ("bench", 1)])
 def test_cli_unported_passes_name_their_roadmap_item(name, item):
     with pytest.raises(SystemExit, match=f"not yet ported.*item {item}"):
         check.main(["--passes", name])
@@ -331,3 +353,68 @@ def test_cli_fails_on_a_seeded_over_budget_launch(capsys):
     out = capsys.readouterr().out
     assert rc == 1
     assert "FAIL smem" in out and "dist_topk" in out
+
+
+# ------------------------------------------------------------ collectives
+
+
+@functools.cache
+def _collectives():
+    """The registry's jobs and the seeded step's, on one mesh each."""
+    out = collectives_check.measure(collectives_check.registry_jobs())
+    pinned = _case("cascade:pinned:dist")
+    seeded = collectives_check.measure(
+        [(pinned, n) for n in collectives_check.SCALE_N_DBS],
+        step_fn=ranks.seeded_step)
+    out.update({("seeded", n): t for (_, n), t in seeded.items()})
+    return out
+
+
+def _case(name):
+    return next(c for c in dsearch.step_cases() if c.name == name)
+
+
+def test_collectives_clean_against_the_manifest():
+    manifest = collectives_check.load_manifest()
+    assert collectives_check.check(_collectives(), manifest) == []
+    assert manifest["mesh"] == [2, 4] and manifest["backend"] == "gloo"
+    assert "torch" in manifest
+    assert set(manifest["steps"]) == {c.name for c in dsearch.step_cases()}
+
+
+def test_collectives_pin_fails_on_one_changed_entry():
+    manifest = copy.deepcopy(collectives_check.load_manifest())
+    manifest["steps"]["cascade:pinned:dist"]["shard_topk"] += 4
+    violations = collectives_check.check(_collectives(), manifest)
+    assert [v.subject for v in violations] == ["cascade:pinned:dist"]
+    assert "drifted from the manifest" in violations[0].message
+    del manifest["steps"]["search:act:dist"]
+    manifest["steps"]["scores:gone:dist"] = {}
+    subjects = {v.subject for v in
+                collectives_check.check(_collectives(), manifest)}
+    assert {"search:act:dist", "scores:gone:dist"} <= subjects
+
+
+@pytest.mark.parametrize("name", ["cascade:pinned:dist",
+                                  "cascade:pinned:dist:kernels",
+                                  "cascade:sourced:lsh:dist",
+                                  "cascade:sourced:lsh:dist:kernels",
+                                  "cascade:sourced:tree:dist",
+                                  "search:act:dist"])
+def test_collectives_guarded_steps_stay_flat(name):
+    case = _case(name)
+    small, big = (_collectives()[(name, n)]
+                  for n in collectives_check.SCALE_N_DBS)
+    assert case.scale_guarded and small == big and "scores" not in small
+    assert collectives_check.check_scaling(case, small, big) == []
+
+
+def test_collectives_guard_flags_a_seeded_score_matrix_gather():
+    small, big = (_collectives()[("seeded", n)]
+                  for n in collectives_check.SCALE_N_DBS)
+    violations = collectives_check.check_scaling(
+        _case("cascade:pinned:dist"), small, big)
+    assert len(violations) == 1
+    assert "scale with the corpus" in violations[0].message
+    assert violations[0].message.startswith("collective bytes scale with "
+                                            "the corpus: scores")

@@ -27,9 +27,11 @@ Tolerances:
 * every rank returns the same whole result, bitwise.
 
 The traffic guard: the scale-guarded cascade steps (the pinned ladder and
-the LSH-sourced one, reference and kernel paths) move the same bytes in
-each collective at n and 4n rows; a step that gathers the stage-1 score
-matrix moves more at 4n, and the guard catches it.
+the LSH-sourced one, reference and kernel paths: cases of the step
+registry, ``launch.search.step_cases``) move the same bytes in each
+collective at n and 4n rows, measured by the collectives pass on its 2 x 4
+mesh; a step that gathers the stage-1 score matrix moves more at 4n, and
+the pass's guard catches it.
 """
 import dataclasses
 import functools
@@ -47,8 +49,10 @@ from repro.api import EmdIndex as JIndex
 from repro.api import EngineConfig as JConfig
 from repro.core import retrieval as jr
 from repro.data.synth import make_text_like
+from repro_torch.analysis import collectives_check
 from repro_torch.api import EmdIndex, EngineConfig, corpus_from_numpy
 from repro_torch.cascade import topk_recall
+from repro_torch.launch import search as dsearch
 from repro_torch.launch.local import run_local
 from repro_torch.launch.mesh import make_test_mesh
 
@@ -62,6 +66,11 @@ NQ, TOP_L, PAD = 6, 4, 16
 BITWISE = ("act", "rwmd", "omr", "bow", "wcd")
 METHODS = sorted(jr.METHODS)
 SPAWN_TIMEOUT = 240
+#: The scale-guarded cascades and the corpus sizes of their guard here (n
+#: and 4n; n at least the pinned ladder's 4 shards x budget 24).
+GUARDED = ("cascade:pinned:dist", "cascade:pinned:dist:kernels",
+           "cascade:sourced:lsh:dist", "cascade:sourced:lsh:dist:kernels")
+GUARD_NS = (96, 384)
 
 
 @functools.cache
@@ -386,31 +395,36 @@ def test_mesh_needs_its_ranks():
 
 @functools.cache
 def _traffic():
-    corpora = {}
-    for name, n in (("n", 64), ("4n", 256)):
-        c = make_text_like(n_docs=n, n_classes=4, vocab=128, m=8,
-                           doc_len=10, hmax=16, seed=7)[0]
-        corpora[name] = _arrays(c)
-    qi, qw = corpora["n"][0][:4], corpora["n"][1][:4]
-    return run_local(ranks.traffic_suite, 2, 2,
-                     args=(corpora, qi, qw, TOP_L),
-                     timeout=SPAWN_TIMEOUT)
+    """The collectives pass's measurement of the guarded cascades, and of
+    the seeded step, at n and 4n rows (its 2 x 4 mesh, its workload)."""
+    cases = {c.name: c for c in dsearch.step_cases()}
+    jobs = [(cases[name], n) for name in GUARDED for n in GUARD_NS]
+    out = collectives_check.measure(jobs)
+    seeded = collectives_check.measure(
+        [(cases["cascade:pinned:dist"], n) for n in GUARD_NS],
+        step_fn=ranks.seeded_step)
+    out.update({("seeded", n): t for (_, n), t in seeded.items()})
+    return out
 
 
-@pytest.mark.parametrize("case", ["cascade:pinned:dist",
-                                  "cascade:pinned:dist:kernels",
-                                  "cascade:sourced:lsh:dist",
-                                  "cascade:sourced:lsh:dist:kernels"])
+@pytest.mark.parametrize("case", GUARDED)
 def test_guarded_cascades_move_the_same_bytes_at_n_and_4n(case):
-    for res in _traffic():
-        small, big = res[(case, "n")], res[(case, "4n")]
-        assert small and small == big, (small, big)
-        assert "scores" not in small
+    res = _traffic()
+    small, big = (res[(case, n)] for n in GUARD_NS)
+    assert small and small == big, (small, big)
+    assert "scores" not in small
+    cases = {c.name: c for c in dsearch.step_cases()}
+    assert cases[case].scale_guarded
+    assert collectives_check.check_scaling(cases[case], small, big) == []
 
 
 def test_traffic_guard_catches_a_seeded_score_matrix_gather():
-    for res in _traffic():
-        small, big = res[("seeded", "n")], res[("seeded", "4n")]
-        assert big["scores"] > small["scores"]
-        assert {k: v for k, v in big.items() if k != "scores"} == \
-            res[("cascade:pinned:dist", "4n")]
+    res = _traffic()
+    small, big = (res[("seeded", n)] for n in GUARD_NS)
+    assert big["scores"] > small["scores"]
+    assert {k: v for k, v in big.items() if k != "scores"} == \
+        res[("cascade:pinned:dist", GUARD_NS[1])]
+    case = next(c for c in dsearch.step_cases()
+                if c.name == "cascade:pinned:dist")
+    violations = collectives_check.check_scaling(case, small, big)
+    assert violations and "scale with the corpus" in violations[0].message

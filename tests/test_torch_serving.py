@@ -37,6 +37,7 @@ from repro_torch.cascade import CascadeSpec, CascadeStage
 from repro_torch.cascade.spec import CASCADES
 from repro_torch.checkpoint.store import CheckpointCorrupt
 from repro_torch.kernels._build import KernelError
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.serving import (TIER_RECALL, ChaosInjector, ChaosSchedule,
                                  EmdServer, ServerOverloaded, ServingPolicy,
                                  ServingTier, corrupt_checkpoint,
@@ -708,12 +709,44 @@ def test_other_exceptions_are_retried(index, corpus):
     assert stats.device_faults == 0
 
 
-def test_mesh_pieces_not_yet_ported(index, tmp_path):
+def test_mesh_pieces_not_yet_ported(index, corpus, tmp_path):
+    """The mesh pieces are ported now (the name is kept from when they
+    raised "not yet ported"): ``reshard`` and ``restore_server(mesh=)``
+    refuse a non-Mesh by its type; a one-device server's reshard onto a
+    1 x 1 mesh is a new generation that answers as before (a
+    single-device backend ignores the mesh, as in the JAX package)."""
     server = EmdServer(index, policy())
-    with pytest.raises(ValueError, match="reshard.*not yet ported"):
+    with pytest.raises(ValueError, match="reshard takes .*Mesh, got object"):
         server.reshard(object())
-    with pytest.raises(ValueError, match="mesh.*not yet ported"):
-        restore_server(str(tmp_path), policy(), mesh=object())
+    with pytest.raises(ValueError, match="mesh=.*Mesh, got dict"):
+        restore_server(str(tmp_path), policy(), mesh={})
+    mesh = make_test_mesh(1, 1, backend="gloo", device="cpu")
+
+    async def go():
+        async with server:
+            before = await server.search(*q(corpus, 3))
+            server.reshard(mesh)
+            after = await server.search(*q(corpus, 3))
+            return before, after
+    before, after = run(go())
+    assert after.generation == before.generation + 1 == 1
+    np.testing.assert_array_equal(before.scores, after.scores)
+    np.testing.assert_array_equal(before.indices, after.indices)
+
+
+def test_server_runs_again_in_a_new_event_loop(index, corpus):
+    """A stopped server starts again under another ``asyncio.run`` (each
+    run makes its own arrival event; one bound to the first loop left the
+    second run's requests waiting forever)."""
+    server = EmdServer(index, policy())
+
+    async def go(k):
+        async with server:
+            return await asyncio.wait_for(server.search(*q(corpus, k)), 30)
+    first, second = run(go(1)), run(go(2))
+    assert_direct(first, index, corpus, 1)
+    assert_direct(second, index, corpus, 2)
+    assert server.stats.launches == 2
 
 
 def test_sourced_primary_serves_and_mutates(corpus, jcorpus):

@@ -1,5 +1,5 @@
 """Rank bodies of the port's mesh tests (``test_torch_mesh.py``,
-``test_torch_partition.py``).
+``test_torch_partition.py``, ``test_torch_analysis.py``).
 
 ``repro_torch.launch.local.run_local`` runs each function on every rank of
 a local gloo mesh on the CPU. They import only the port (never JAX), take
@@ -31,17 +31,6 @@ LSH = CascadeSpec(stages=(CascadeStage("rwmd", 16),), rescorer="act",
                                          bucket_cap=16, refine=24))
 CASCADES = {"chain": "chain", "tight": "tight", "fast": "fast",
             "pinned": PINNED, "generous": GENEROUS, "lsh": LSH}
-#: The scale-guarded mesh steps, whose collective traffic must not grow
-#: with the corpus (the score matrix never crosses the mesh): the pinned
-#: ladder and an LSH-sourced one, each on the reference and kernel paths.
-#: name -> (cascade spec, use_kernels).
-_GUARD_LSH = CascadeSpec(stages=PINNED.stages, rescorer="ict",
-                         source=CentroidLSHSpec(n_buckets=16, probes=4,
-                                                bucket_cap=8, refine=16))
-GUARDED = {"cascade:pinned:dist": (PINNED, False),
-           "cascade:pinned:dist:kernels": (PINNED, True),
-           "cascade:sourced:lsh:dist": (_GUARD_LSH, False),
-           "cascade:sourced:lsh:dist:kernels": (_GUARD_LSH, True)}
 
 
 def _np(x):
@@ -203,35 +192,16 @@ def misc_suite(mesh, arrays, dedup_arrays):
     return out
 
 
-def traffic_suite(mesh, corpora, q_ids, q_w, top_l):
-    """Collective bytes of each scale-guarded step (:data:`GUARDED`) at each
-    corpus size of ``corpora``, and of a seeded step that also gathers the
-    stage-1 score matrix."""
-    def step(spec, n, kernels=False):
-        return dsearch.make_cascade_search_step(
-            spec, top_l, n, topk_blocks=mesh.size("model"), engine="dist",
-            mesh=mesh, use_kernels=kernels)
+def seeded_step(case, workload, mesh):
+    """The registry's step of ``case`` after a step that gathers the (nq,
+    n) rwmd score matrix over the mesh: the violation the collectives
+    pass's scaling guard exists for (``collectives_check.measure``'s
+    ``step_fn``)."""
+    step = dsearch.build_step(case, workload, mesh)
+    matrix = dsearch.make_scores_step(workload.iters, method="rwmd",
+                                      mesh=mesh)
 
-    out = {}
-    for n_name, arrays in corpora.items():
-        corpus = corpus_from_numpy(*arrays, "cpu")
-        qi, qw = torch.tensor(q_ids), torch.tensor(q_w)
-        operands = shard_operands(mesh, corpus.ids, corpus.w,
-                                  corpus.coords, qi, qw)
-        for name, (spec, kernels) in GUARDED.items():
-            tables = ()
-            if spec.sourced:
-                tables = spec.source.build(corpus).leaves()
-            annotate.reset_traffic()
-            step(spec, corpus.n, kernels)(*operands, *tables)
-            out[(name, n_name)] = annotate.traffic()
-        pinned = step(PINNED, corpus.n)
-        matrix = dsearch.make_scores_step(2, method="rwmd", mesh=mesh)
-
-        def seeded(*ops_):
-            matrix(*ops_)            # the score matrix crosses the mesh
-            return pinned(*ops_)
-        annotate.reset_traffic()
-        seeded(*operands)
-        out[("seeded", n_name)] = annotate.traffic()
-    return out
+    def seeded(*ops):
+        matrix(*ops[:5])             # the score matrix crosses the mesh
+        return step(*ops)
+    return seeded
