@@ -140,13 +140,35 @@ up to four processes on it and stops them. Phases:
    the single card. Each served run's launches per rank by kernel are
    equal across the ranks in its mesh, with the bytes of each label
    (``control``: the leader's commands, ``reshard``: the tables
-   ``reshard_live`` moved).
+   ``reshard_live`` moved);
+13. the LM serving path (``repro_torch.models``, plain PyTorch: the JAX
+   package's LM stack reaches no Pallas kernel): (a) each of the ten
+   architectures at ``smoke_config`` under float32, weights drawn on the
+   CPU from a seed and carried to the card, ``forward`` (logits, aux),
+   ``prefill`` (logits, compact caches) and 4 ``decode_step``s (logits,
+   caches) on the card against the CPU within atol / rtol 1e-4; (b)
+   olmo-1b at full width (16 layers, d_model 2048, vocab 50,304; bfloat16
+   weights from a ``torch.Generator`` on the card, seed 0): 4 prompts of
+   2,048 tokens from ``data.tokens.global_batch`` (seed 7), ``prefill``
+   (the chunked attention), the prompts decoded token by token into a
+   float32 decode cache, 32 greedy tokens twice from copies of that cache
+   (bitwise the same tokens and logits), every logit finite; a float32
+   copy of the weights decoded at every prompt position within 2e-2 of its
+   ``forward``; prefill seconds, decode ms a token at batch 4, peak memory
+   and the bfloat16 greedy tokens' agreement with the float32 copy's; (c)
+   the same for zamba2-2.7b (54 Mamba2 layers, the shared attention block
+   every 6) at 1,024-token prompts; (d) the retrieval stage: (b)'s prompts
+   and continuations, modulo v, as queries (``docs_to_corpus`` on phase
+   3's coordinates, hmax 500) searched by ``EmdIndex(backend="cuda")``
+   act-2 top-3 against the reference backend, K1 and the fused K2 each
+   launched (counts set to 0 just before the search, read just after).
 
 Any failed check exits non-zero before the last line. The last lines are the
 card's name and power limit, a JSON line of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
 import asyncio
+import copy
 import dataclasses
 import functools
 import gc
@@ -190,6 +212,11 @@ from repro_torch.analysis import smem  # noqa: E402
 from repro_torch.kernels import (_build, act_phase2, autotune,  # noqa: E402
                                  cand_pour, dist_topk, ops, timing)
 from repro_torch.launch.local import run_local  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, get_config,  # noqa: E402
+                                 smoke_config)
+from repro_torch.data.tokens import DataConfig, global_batch  # noqa: E402
+from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models import parity as lm_parity  # noqa: E402
 from repro_torch.serving import (ChaosInjector, ChaosSchedule,  # noqa: E402
                                  EmdServer, ServerOverloaded, ServeResult,
                                  ServingPolicy, corrupt_checkpoint,
@@ -3414,6 +3441,261 @@ def p12_check_served(mesh_name, ranks, want, serve, label):
 
 
 
+# -------------------------------------------------------------- phase 13
+# Slice 12: the LM serving path. (a) every architecture at smoke width under
+# float32, the card against the port's own CPU run on the same weights; (b)
+# olmo-1b and (c) zamba2-2.7b at full width, bfloat16 weights drawn on the
+# card from a seeded torch.Generator; (d) the EMD retrieval stage on phase
+# 3's corpus. No kernel of the model is written by hand (the JAX package's
+# LM stack reaches no pallas_call): its matmuls are cuBLAS's, in full float32
+# under float32 (phase 0 checks the matmul precision; the SSM's convolution
+# is elementwise).
+#: The full-width runs: prompt tokens of each of the LM_BATCH prompts.
+LM_FULL = {"olmo-1b": 2048, "zamba2-2.7b": 1024}
+LM_BATCH, LM_GEN = 4, 32
+#: decode_step against forward under float32: the JAX package's own bar
+#: (tests/test_models.py:71).
+LM_F32_TOL = 2e-2
+#: The retrieval stage: act-2, top-3 (the serving example's).
+LM_RETRIEVE = dict(method="act", iters=2, top_l=3)
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def phase13_smoke(dev):
+    """(a) Each architecture at smoke_config: weights drawn on the CPU, the
+    same weights on the card, forward, prefill and 4 decode steps on both
+    within 1e-4 (``parity.card_vs_cpu``); name -> max |card - CPU|."""
+    errs = {}
+    for name in ARCH_IDS:
+        try:
+            err = lm_parity.card_vs_cpu(smoke_config(name), dev)
+        except AssertionError as e:
+            check(False, f"phase 13 {name} smoke f32, card vs CPU: {e}")
+        errs[name] = err
+        print(f"phase 13: {name} smoke f32: card vs CPU max|d| forward "
+              f"{err['forward']:.3g}, prefill {err['prefill']:.3g}, "
+              f"{lm_parity.STEPS} decode steps {err['decode']:.3g}",
+              flush=True)
+    return errs
+
+
+def p13_step(model, tokens, t, cache):
+    return lm.decode_step(model, {"tokens": tokens, "cache_index": t}, cache)
+
+
+def p13_greedy(model, logits, cache, start):
+    """LM_GEN greedy steps after ``start`` prompt tokens: (tokens (B, GEN),
+    logits (GEN, B, vocab), ms a step at batch LM_BATCH)."""
+    tok = logits[:, -1].argmax(dim=-1)[:, None]
+    toks, outs = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(start, start + LM_GEN):
+        toks.append(tok)
+        logits, cache = p13_step(model, tok, t, cache)
+        outs.append(logits[:, -1])
+        tok = logits[:, -1].argmax(dim=-1)[:, None]
+    torch.cuda.synchronize()
+    return (torch.cat(toks, dim=1), torch.stack(outs),
+            1e3 * (time.perf_counter() - t0) / LM_GEN)
+
+
+#: Decode steps traced with torch.profiler for the device's share of a step.
+LM_TRACED = 8
+
+
+def p13_device_time(model, logits, cache, start):
+    """LM_TRACED greedy steps after ``start`` under torch.profiler: (device
+    ms a step, the union of the card's kernel, copy and set intervals;
+    device operations a step). (None, None) where the trace holds no
+    device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tok = logits[:, -1].argmax(dim=-1)[:, None]
+        for t in range(start, start + LM_TRACED):
+            logits, cache = p13_step(model, tok, t, cache)
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, None
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3 / LM_TRACED, len(spans) / LM_TRACED
+
+
+def phase13_full(name, dev):
+    """(b), (c) One architecture at full width: bfloat16 weights from a
+    torch.Generator on the card (seed 0), LM_BATCH prompts of LM_FULL[name]
+    tokens; prefill, the prompt decoded token by token into a float32
+    cache, LM_GEN greedy tokens twice from copies of that cache (bitwise),
+    then a float32 copy of the weights: decode_step against forward at
+    every prompt position, and its greedy tokens against the bfloat16
+    run's. Returns (figures, the bfloat16 run's prompts + continuations)."""
+    P = LM_FULL[name]
+    cfg = get_config(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.as_tensor(global_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=P, global_batch=LM_BATCH, seed=7),
+        0)["tokens"], device=dev)
+    batch = {"tokens": prompts}
+    lm.prefill(model, batch)                              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_p, caches = lm.prefill(model, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits_p).all()),
+          f"phase 13 {name}: non-finite prefill logits")
+    peak_prefill = torch.cuda.max_memory_allocated() - base
+    del caches
+    torch.cuda.reset_peak_memory_stats()
+    cache = lm.init_decode_cache(cfg, LM_BATCH, P + LM_GEN, torch.float32,
+                                 device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(P):
+        logits, cache = p13_step(model, prompts[:, t:t + 1], t, cache)
+        finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    prompt_ms = 1e3 * (time.perf_counter() - t0) / P
+    # The last prompt position, decoded against prefill's (bfloat16: shown).
+    last_d = float((logits[:, -1].float() - logits_p[:, -1].float()).abs()
+                   .max())
+    snap = clone_tree(cache)
+    toks, outs, decode_ms = p13_greedy(model, logits, cache, P)
+    toks2, outs2, _ = p13_greedy(model, logits, clone_tree(snap), P)
+    finite &= torch.isfinite(outs).all()
+    check(bool(finite), f"phase 13 {name}: a non-finite logit")
+    check(torch.equal(toks, toks2) and torch.equal(outs, outs2),
+          f"phase 13 {name}: a second greedy run from a copy of the cache "
+          f"differs (tokens equal {torch.equal(toks, toks2)})")
+    peak_decode = torch.cuda.max_memory_allocated() - base
+    device_ms, device_ops = p13_device_time(model, logits, clone_tree(snap),
+                                            P)
+    del cache, snap, outs, outs2, toks2
+    # A float32 copy of the same weights.
+    model32 = copy.deepcopy(model).float()
+    del model
+    full32, _, _ = lm.forward(model32, batch)
+    cache32 = lm.init_decode_cache(cfg, LM_BATCH, P + LM_GEN, torch.float32,
+                                   device=dev)
+    err = torch.zeros((), device=dev)
+    for t in range(P):
+        dl, cache32 = p13_step(model32, prompts[:, t:t + 1], t, cache32)
+        err = torch.maximum(err, (dl[:, 0] - full32[:, t]).abs().max())
+    err = float(err)
+    del full32
+    toks32, _, _ = p13_greedy(model32, dl, cache32, P)
+    agree = float((toks == toks32).float().mean())
+    check(err < LM_F32_TOL, f"phase 13 {name}: float32 decode_step vs "
+          f"forward max |d| {err} not under {LM_F32_TOL}")
+    del model32, cache32
+    gib = 2**30
+    out = dict(layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+               params=cfg.param_count(), prompt_len=P, batch=LM_BATCH,
+               gen=LM_GEN, init_s=init_s, prefill_s=prefill_s,
+               prompt_decode_ms_per_token=prompt_ms,
+               decode_ms_per_token=decode_ms,
+               decode_device_ms_per_step=device_ms,
+               decode_device_ops_per_step=device_ops,
+               peak_prefill_gib=peak_prefill / gib,
+               peak_decode_gib=peak_decode / gib,
+               last_prompt_vs_prefill_bf16=last_d, f32_decode_vs_forward=err,
+               greedy_agreement_f32=agree, bitwise_repeat=True)
+    print(f"phase 13: {name} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.param_count() / 1e9:.2f} B params, bf16): "
+          f"init {init_s:.2f} s; prefill {LM_BATCH} x {P} tokens "
+          f"{prefill_s:.3f} s; the prompt token by token "
+          f"{prompt_ms:.2f} ms a step; greedy decode {decode_ms:.2f} ms a "
+          f"token at batch {LM_BATCH}, bitwise on a second run; the "
+          f"card busy {device_ms} ms a step over {device_ops} device "
+          f"operations a step ({LM_TRACED} steps traced); peak "
+          f"above the {base / gib:.2f} GiB resident (weights included) "
+          f"{peak_prefill / gib:.2f} GiB in prefill, "
+          f"{peak_decode / gib:.2f} GiB in decode (the float32 cache, its "
+          f"copy and the copy's copy); "
+          f"last prompt logits vs prefill's max|d| {last_d:.3g} (bf16); "
+          f"f32 copy: decode vs forward max|d| {err:.3g} over {P} "
+          f"positions (bar {LM_F32_TOL}), greedy tokens agree with bf16 at "
+          f"{agree:.3f}", flush=True)
+    return out, torch.cat([prompts, toks], dim=1)
+
+
+def phase13_retrieval(host_corpus, seqs, dev):
+    """(d) The decoded sequences, modulo v, as EMD queries over phase 3's
+    corpus: ``EmdIndex(backend="cuda")`` act-2 top-3 against the reference
+    backend on the card, the launch counts set to 0 just before the search
+    and read just after."""
+    q = histogram.docs_to_corpus(list(seqs.cpu().numpy() % host_corpus.v),
+                                 host_corpus.coords.numpy(), HMAX)
+    qi, qw = q.ids.to(dev), q.w.to(dev)
+    cuda_index = EmdIndex.build(host_corpus, EngineConfig(**LM_RETRIEVE),
+                                device=dev)
+    ref_index = EmdIndex.build(host_corpus, EngineConfig(
+        backend="reference", **LM_RETRIEVE), device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_c, i_c = cuda_index.search(qi, qw)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    counts = read_counts()
+    s_r, i_r = ref_index.search(qi, qw)
+    full_c, full_r = cuda_index.scores(qi, qw), ref_index.scores(qi, qw)
+    err = float((full_c - full_r).abs().max())
+    check(torch.allclose(full_c, full_r, rtol=RTOL, atol=ATOL),
+          f"phase 13 retrieval: cuda vs reference max |d| {err}")
+    top = LM_RETRIEVE["top_l"]
+    firm = firm_ranks(s_r, full_r.sort(dim=1).values[:, top])
+    check(bool((i_c == i_r)[firm].all()),
+          "phase 13 retrieval: top-3 ids differ at a separated rank")
+    check(counts["dist_topk"] > 0 and counts["act_phase2_gather"] > 0,
+          f"phase 13 retrieval launched {nonzero(counts)}")
+    nbins = (qw > 0).sum(dim=1).tolist()
+    print(f"phase 13: retrieval of {len(seqs)} decoded sequences "
+          f"({seqs.shape[1]} tokens; {nbins} bins) over n={host_corpus.n}: "
+          f"cuda vs reference max|d|={err:.3g}, top-{top} equal at "
+          f"{int(firm.sum())} separated ranks of {firm.numel()}; "
+          f"{search_s:.4f} s (first search of this index); launches "
+          f"{nonzero(counts)}; neighbours {i_c.tolist()}", flush=True)
+    return dict(max_abs_err=err, search_s=search_s, bins=nbins,
+                launches=nonzero(counts), neighbours=i_c.tolist())
+
+
+def phase13(host_corpus, dev):
+    t_start = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls may use TF32")
+    out = {"smoke": phase13_smoke(dev)}
+    seqs = None
+    for name in LM_FULL:
+        out[name], s = phase13_full(name, dev)
+        seqs = s if seqs is None else seqs
+    out["retrieval"] = phase13_retrieval(host_corpus, seqs, dev)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 13: done in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
 
@@ -3815,6 +4097,11 @@ def main():
     p12 = phase12(host_corpus, lsh_index, rows, q_ids, q_w, dev,
                   dict(k1_ms=k1_ms, kg_ms=kg_ms))
 
+    # Phase 13: the LM serving path and its retrieval stage (K1 and the
+    # fused K2 counted around the retrieval search).
+    p13 = phase13(host_corpus, dev)
+    p13_launches = p13["retrieval"]["launches"]
+
     def p10_launches(kname):
         """The kernel's launches in each run of phase 10 that made any."""
         return {r: c[kname] for r, c in p10_runs.items() if c[kname]}
@@ -3830,8 +4117,10 @@ def main():
          "source": "src/repro_torch/csrc/dist_topk.cu",
          "replaces": "src/repro/kernels/dist_topk.py:121",
          "launches": launches["act"]["dist_topk"]
-         + sum(p10_launches("dist_topk").values()),
+         + sum(p10_launches("dist_topk").values())
+         + p13_launches["dist_topk"],
          "launches_phase10": p10_launches("dist_topk"),
+         "launches_phase13": p13_launches["dist_topk"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1_lib,
@@ -3852,8 +4141,10 @@ def main():
          "source": "src/repro_torch/csrc/act_phase2.cu",
          "replaces": "src/repro/kernels/act_phase2.py:73",
          "launches": launches["act"]["act_phase2_gather"]
-         + sum(p10_launches("act_phase2_gather").values()),
+         + sum(p10_launches("act_phase2_gather").values())
+         + p13_launches["act_phase2_gather"],
          "launches_phase10": p10_launches("act_phase2_gather"),
+         "launches_phase13": p13_launches["act_phase2_gather"],
          "max_abs_err": kg_err, "ms": kg_ms, "plain_ms": kg_plain,
          "bound_ms": kg_bound, "bound_by": kg_by, "library_ms": None,
          "all_pairs_chunk": chunk_times("act_phase2_gather"),
@@ -3920,6 +4211,7 @@ def main():
                    for c in run["launches"])
             for m in MESHES}
     print(json.dumps({"phase12": p12}))
+    print(json.dumps({"phase13": p13}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

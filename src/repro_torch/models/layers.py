@@ -1,0 +1,383 @@
+"""Transformer building blocks on torch tensors: norms, rotary embeddings,
+GQA attention with KV cache, MLP flavors, and a sort-based token-dropping
+MoE layer (the JAX package's ``models/layers.py``).
+
+Each block is an ``nn.Module`` that holds its weights under the JAX
+package's leaf names and shapes (``wq`` is (d, H, hd), an expert's
+``w_up`` (E*s, d, ff/s) ...), so ``models/convert.py`` carries a JAX
+parameter tree across leaf for leaf. The math is plain functions on
+tensors, each named after its JAX counterpart and following its rounding:
+the same casts, the same float32 islands, the same masking constants.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -1e30
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def normal(shape, generator, device) -> torch.Tensor:
+    """Standard normal float32 draws from ``generator`` on ``device``; on
+    the meta device, shapes only (no draw)."""
+    if device.type == "meta":
+        return torch.empty(shape, device=device)
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., k) times the (k, *out) weight -> (..., *out): one matmul
+    (the JAX package's ``einsum("bsd,dhk->bshk")`` and kin)."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
+                                                    *w.shape[1:])
+
+
+def dense_init(generator, in_dim: int, out_shape: tuple[int, ...], dtype,
+               device) -> nn.Parameter:
+    """Fan-in-scaled normal init, matmul weight of shape (in_dim, *out)."""
+    w = normal((in_dim, *out_shape), generator, device) * in_dim ** -0.5
+    return nn.Parameter(w.to(dtype))
+
+
+# ----------------------------------------------------------------------------
+# Norms
+# ----------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """RMSNorm with a ``scale``, or OLMo's non-parametric LayerNorm (no
+    parameter; the JAX leaf is an empty dict)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.kind = cfg.norm
+        if cfg.norm == "nonparametric":
+            self.register_parameter("scale", None)
+        else:
+            self.scale = nn.Parameter(torch.ones(
+                cfg.d_model, dtype=param_dtype(cfg), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return norm_apply(self.scale, x, self.kind)
+
+
+def norm_apply(scale, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """Statistics in float32: the population variance and eps 1e-5 for the
+    non-parametric LayerNorm; RMSNorm at eps 1e-6, cast to ``x.dtype``
+    before the scale multiplies."""
+    xf = x.float()
+    if kind == "nonparametric":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        return ((xf - mu) * torch.rsqrt(var + 1e-5)).to(x.dtype)
+    rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+    return (xf * rms).to(x.dtype) * scale
+
+
+# ----------------------------------------------------------------------------
+# Rotary position embeddings
+# ----------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_cos_sin(positions: torch.Tensor, hd: int, theta: float):
+    """The rotary angles' (cos, sin), (B, S, 1, hd/2) float32, for
+    positions (B, S). M-RoPE (qwen2-vl) under the stub vision frontend,
+    whose three position streams are the same ids, is this rotation bit
+    for bit."""
+    freqs = rope_freqs(hd, theta, positions.device)          # (hd/2,)
+    ang = positions[..., None].float() * freqs                # (B,S,hd/2)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, hd) rotated by ``rope_cos_sin``'s angles, in float32,
+    cast back to x's dtype."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# GQA attention with optional sliding window and KV cache
+# ----------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator, device):
+        super().__init__()
+        d, hd, dt = cfg.d_model, cfg.head_dim, param_dtype(cfg)
+        self.wq = dense_init(generator, d, (cfg.n_heads, hd), dt, device)
+        self.wk = dense_init(generator, d, (cfg.n_kv_heads, hd), dt, device)
+        self.wv = dense_init(generator, d, (cfg.n_kv_heads, hd), dt, device)
+        self.wo = dense_init(generator, cfg.n_heads * hd, (d,), dt, device)
+
+
+#: Full-sequence attention switches to the chunked online-softmax (flash)
+#: path above this length, as the JAX package does: the S x S score matrix
+#: never materializes there.
+FLASH_THRESHOLD = 1024
+FLASH_CHUNK = 512
+
+
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int, scale: float) -> torch.Tensor:
+    """Chunked causal attention with online softmax.
+
+    q: (B, S, KV, G, hd) grouped queries; k, v: (B, S, KV, hd). Each query
+    chunk scans only its causal prefix of KV chunks. q is scaled in float32
+    before the scores; masking is additive ``NEG_INF`` and the denominator
+    is floored at 1e-30. ``window`` 0 is global.
+    """
+    B, S, KV, G, hd = q.shape
+    C = FLASH_CHUNK
+    dev = q.device
+    ar = torch.arange(C, device=dev)
+    outs = []
+    for i in range(S // C):
+        q_blk = q[:, i * C:(i + 1) * C].float() * scale
+        qpos = i * C + ar[:, None]                             # (C, 1)
+        m = torch.full((B, C, KV, G), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, C, KV, G), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, C, KV, G, hd), dtype=torch.float32, device=dev)
+        for j in range(i + 1):
+            k_blk = k[:, j * C:(j + 1) * C].float()
+            v_blk = v[:, j * C:(j + 1) * C].float()
+            s = torch.einsum("bqngh,btnh->bqngt", q_blk, k_blk)
+            kpos = j * C + ar[None, :]                         # (1, C)
+            ok = kpos <= qpos
+            if window > 0:
+                ok &= (qpos - kpos) < window
+            s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqngt,btnh->bqngh", p, v_blk)
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    return torch.cat(outs, dim=1)                              # (B,S,KV,G,hd)
+
+
+def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor, window: int = 0,
+                    cache: dict | None = None, cache_index: int | None = None,
+                    return_kv: bool = False):
+    """Full-sequence (prefill) or single-token (decode) attention.
+
+    cache: {"k", "v"}: (B, S_cache, kvH, hd). When given, x is (B, 1, d):
+    the new KV is written IN PLACE at slot ``cache_index`` (an index past
+    the cache raises ``IndexError``) and attention runs over the whole
+    cache, masked to ``kpos <= cache_index`` and the window.
+    Returns (out, cache) for decode, (out, {"k", "v"} or None) otherwise.
+    """
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = proj(x, attn.wq)
+    k = proj(x, attn.wk)
+    v = proj(x, attn.wv)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+    group = H // KV
+    qg = q.reshape(B, S, KV, group, hd)
+
+    if cache is not None:
+        k_cache, v_cache = cache["k"], cache["v"]
+        skv = k_cache.shape[1]
+        if not 0 <= cache_index < skv:
+            raise IndexError(f"cache_index {cache_index} is outside the "
+                             f"cache's {skv} slots")
+        k_cache[:, cache_index] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, cache_index] = v[:, 0].to(v_cache.dtype)
+        new_cache = cache
+        k, v = k_cache.to(x.dtype), v_cache.to(x.dtype)
+        kpos = torch.arange(skv, device=x.device)
+        ok = kpos <= cache_index
+        if window > 0:
+            ok &= (cache_index - kpos) < window
+    else:
+        new_cache = {"k": k, "v": v} if return_kv else None
+        if S > FLASH_THRESHOLD and S % FLASH_CHUNK == 0:
+            out = _flash_attention(qg, k, v, window, hd ** -0.5)
+            out = out.to(x.dtype).reshape(B, S, H * hd)
+            return proj(out, attn.wo), new_cache
+        ar = torch.arange(S, device=x.device)
+        qpos, kpos = ar[:, None], ar[None, :]
+        ok = kpos <= qpos
+        if window > 0:
+            ok &= (qpos - kpos) < window
+    mask = torch.where(ok, 0.0, NEG_INF).float()     # (skv,) or (S, S)
+
+    # "bsngk,btnk->bngst" and "bngst,btnk->bsngk" as batched matmuls
+    scores = (qg.permute(0, 2, 3, 1, 4)
+              @ k.permute(0, 2, 3, 1)[:, :, None]).float()
+    scores = scores * (hd ** -0.5)
+    scores = scores + mask
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = probs @ v.transpose(1, 2)[:, :, None]               # (B,KV,G,S,hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
+    return proj(out, attn.wo), new_cache
+
+
+# ----------------------------------------------------------------------------
+# MLP flavors
+# ----------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator, device):
+        super().__init__()
+        d, ff, dt = cfg.d_model, cfg.d_ff, param_dtype(cfg)
+        self.w_up = dense_init(generator, d, (ff,), dt, device)
+        self.w_down = dense_init(generator, ff, (d,), dt, device)
+        if cfg.mlp == "swiglu":
+            self.w_gate = dense_init(generator, d, (ff,), dt, device)
+
+
+def activation(kind: str, up: torch.Tensor, gate=None) -> torch.Tensor:
+    """swiglu: silu(gate) * up; relu2: relu(up)^2; gelu: the tanh
+    approximation (``jax.nn.gelu``'s default)."""
+    if kind == "swiglu":
+        return F.silu(gate) * up
+    if kind == "relu2":                      # nemotron squared-ReLU
+        r = F.relu(up)
+        return r * r
+    return F.gelu(up, approximate="tanh")
+
+
+def mlp_apply(mlp: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    up = proj(x, mlp.w_up)
+    gate = (proj(x, mlp.w_gate)
+            if cfg.mlp == "swiglu" else None)
+    return proj(activation(cfg.mlp, up, gate), mlp.w_down)
+
+
+# ----------------------------------------------------------------------------
+# Mixture of Experts: sort-based capacity dispatch (GShard semantics)
+# ----------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """Packed layout: (E*s, d, ff/s), slice j of expert e at row e*s + j."""
+
+    def __init__(self, cfg: ModelConfig, generator, device):
+        super().__init__()
+        d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        s, dt = cfg.moe_ff_shards, param_dtype(cfg)
+        self.router = dense_init(generator, d, (E,), torch.float32, device)
+        self.w_up = nn.Parameter((normal((E * s, d, ff // s), generator,
+                                         device) * d ** -0.5).to(dt))
+        self.w_down = nn.Parameter((normal((E * s, ff // s, d), generator,
+                                           device) * ff ** -0.5).to(dt))
+        if cfg.mlp == "swiglu":
+            self.w_gate = nn.Parameter((normal((E * s, d, ff // s),
+                                               generator, device)
+                                        * d ** -0.5).to(dt))
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest along the last axis, descending, the
+    lowest index first among equals (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_routing(router: torch.Tensor, xg: torch.Tensor, k: int, E: int):
+    """Routing for one group xg: (tg, d). Returns the entries sorted by
+    expert (stable), each entry's position in its expert's run, and the
+    Switch-style load-balance loss."""
+    tg = xg.shape[0]
+    logits = xg.float() @ router                                  # (tg, E)
+    gate_top, ids = top_k(logits, k)
+    gates = torch.softmax(gate_top, dim=-1)
+    flat_e = ids.reshape(-1)
+    flat_tok = torch.arange(tg * k, device=xg.device) // k
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    stok = flat_tok[order]
+    sgate = gates.reshape(-1)[order]
+    first = torch.searchsorted(se, se, side="left")
+    pos = torch.arange(tg * k, device=xg.device) - first
+    me = F.one_hot(ids[:, 0], E).float().mean(dim=0)
+    pe = torch.softmax(logits, dim=-1).mean(dim=0)
+    aux = E * torch.sum(me * pe)
+    return se, stok, sgate, pos, aux
+
+
+def _moe_dispatch(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
+                  capacity: int):
+    """Routing + capacity bucketing for one token group x: (tg, d).
+
+    Returns (xe (E, C, d) expert inputs, (slot, stok, sgate, keep) for the
+    combine, aux load-balance loss). An entry past its expert's capacity
+    goes to the spare row E*C, which is dropped.
+    """
+    tg, d = x.shape
+    E, C = cfg.n_experts, capacity
+    se, stok, sgate, pos, aux = _moe_routing(moe.router, x,
+                                             cfg.experts_per_token, E)
+    keep = pos < C
+    slot = torch.where(keep, se * C + pos, E * C)
+    xe = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    xe[slot] = x[stok]
+    return xe[:E * C].reshape(E, C, d), (slot, stok, sgate, keep), aux
+
+
+def _moe_combine(ye: torch.Tensor, route, tg: int, dtype) -> torch.Tensor:
+    """Expert outputs back to their tokens for one group; ye: (E, C, d).
+
+    Each token's k contributions are summed in a fixed order (by expert,
+    the order of the JAX package's scatter-add), without atomics, so two
+    runs give the same bits."""
+    slot, stok, sgate, keep = route
+    EC, d = ye.shape[0] * ye.shape[1], ye.shape[2]
+    ye_flat = torch.cat([ye.reshape(EC, d),
+                         torch.zeros((1, d), dtype=ye.dtype,
+                                     device=ye.device)])
+    contrib = (ye_flat[slot] * (sgate * keep)[:, None].to(ye.dtype)).to(dtype)
+    by_token = torch.argsort(stok, stable=True).reshape(tg, -1)  # (tg, k)
+    y = contrib[by_token[:, 0]]
+    for j in range(1, by_token.shape[1]):
+        y = y + contrib[by_token[:, j]]
+    return y
+
+
+def moe_apply(moe: MoE, x: torch.Tensor,
+              cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d). Groups = batch rows (sequence-local routing), so the
+    capacity C = int(S*k/E*cf) + 1 counts one row's S (1 at decode).
+
+    With moe_ff_shards = s > 1 every expert's FFN is s column slices whose
+    partial outputs are summed. One device: the plain path. The JAX
+    package's explicit expert-parallel path (``moe_apply_shard_map``) runs
+    only on a mesh, which this path does not take, as JAX falls through to
+    the plain path without one.
+    """
+    B, S, d = x.shape
+    E, s = cfg.n_experts, cfg.moe_ff_shards
+    k = cfg.experts_per_token
+    C = int(S * k / cfg.n_experts * cfg.moe_capacity_factor) + 1
+
+    groups = [_moe_dispatch(moe, x[b], cfg, C) for b in range(B)]
+    xe = torch.stack([g[0] for g in groups])                     # (G,E,C,d)
+    if s > 1:
+        xe = torch.repeat_interleave(xe, s, dim=1)               # (G,E*s,C,d)
+    up = torch.einsum("gecd,edf->gecf", xe, moe.w_up)
+    gate = (torch.einsum("gecd,edf->gecf", xe, moe.w_gate)
+            if cfg.mlp == "swiglu" else None)
+    ye = torch.einsum("gecf,efd->gecd", activation(cfg.mlp, up, gate),
+                      moe.w_down)                                # (G,E*s,C,d)
+    if s > 1:
+        ye = ye.reshape(B, E, s, C, d).sum(dim=2)
+    y = torch.stack([_moe_combine(ye[b], groups[b][1], S, x.dtype)
+                     for b in range(B)])
+    return y, torch.stack([g[2] for g in groups]).mean()

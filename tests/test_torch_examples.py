@@ -1,4 +1,4 @@
-"""The port's three examples (``examples/torch_*.py``) end to end at a small
+"""The port's four examples (``examples/torch_*.py``) end to end at a small
 size on the CPU (``--device cpu``: the kernels' plain versions), checking
 the lines each is there to show."""
 import importlib.util
@@ -60,8 +60,18 @@ def test_torch_image_search(capsys):
     assert out.count("recall@6 vs exact EMD") == 2
 
 
+def test_torch_serve_decode(capsys):
+    out = _run("torch_serve_decode", ["--device", "cpu", "--batch", "2",
+                                      "--gen-len", "4"], capsys)
+    assert "gemma3-27b (reduced) on cpu: prefill (2, 32)" in out
+    assert "decode 4 x 2 tokens" in out
+    assert "EMD retrieval over 128 docs" in out
+    assert out.rstrip().endswith("OK")
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_text_search",
-                                  "torch_image_search"])
+                                  "torch_image_search",
+                                  "torch_serve_decode"])
 def test_examples_import_no_jax(name):
     source = (EXAMPLES / f"{name}.py").read_text()
     assert "import jax" not in source and "from repro." not in source \

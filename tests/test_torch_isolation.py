@@ -35,7 +35,9 @@ def _imported_roots(path: Path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"lc.py", "ops.py", "index.py", "chip_smoke.py", "mesh.py",
-            "local.py", "annotate.py", "partition.py"} <= names
+            "local.py", "annotate.py", "partition.py", "model.py",
+            "layers.py", "ssm.py", "convert.py", "tokens.py",
+            "olmo_1b.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -52,7 +54,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving, repro_torch.checkpoint, "
             "repro_torch.launch.mesh, repro_torch.launch.local, "
             "repro_torch.launch.search, repro_torch.sharding.annotate, "
-            "repro_torch.kernels.partition; "
+            "repro_torch.kernels.partition, repro_torch.models.model, "
+            "repro_torch.models.convert, repro_torch.models.parity, "
+            "repro_torch.configs, "
+            "repro_torch.data.tokens; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
