@@ -150,24 +150,51 @@ up to four processes on it and stops them. Phases:
    olmo-1b at full width (16 layers, d_model 2048, vocab 50,304; bfloat16
    weights from a ``torch.Generator`` on the card, seed 0): 4 prompts of
    2,048 tokens from ``data.tokens.global_batch`` (seed 7), ``prefill``
-   (the chunked attention), the prompts decoded token by token into a
-   float32 decode cache, 32 greedy tokens twice from copies of that cache
-   (bitwise the same tokens and logits), every logit finite; a float32
-   copy of the weights decoded at every prompt position within 2e-2 of its
-   ``forward``; prefill seconds, decode ms a token at batch 4, peak memory
+   (the chunked attention), prefill of the first 1,536 handed to a float32
+   decode cache and the last 512 decoded token by token, 32 greedy tokens
+   twice from copies of that cache (bitwise the same tokens and logits),
+   every logit finite; a float32 copy of the weights the same way, decoded
+   at each of the last 512 prompt positions within 2e-2 of its
+   ``forward`` over the whole prompt (the chunked attention); prefill seconds, decode ms a token at batch 4, peak memory
    and the bfloat16 greedy tokens' agreement with the float32 copy's; (c)
    the same for zamba2-2.7b (54 Mamba2 layers, the shared attention block
-   every 6) at 1,024-token prompts; (d) the retrieval stage: (b)'s prompts
+   every 6) at 1,024-token prompts (the last 512 decoded); (d) the
+   retrieval stage: (b)'s prompts
    and continuations, modulo v, as queries (``docs_to_corpus`` on phase
    3's coordinates, hmax 500) searched by ``EmdIndex(backend="cuda")``
    act-2 top-3 against the reference backend, K1 and the fused K2 each
-   launched (counts set to 0 just before the search, read just after).
+   launched (counts set to 0 just before the search, read just after);
+14. LM training (``models.model.train_loss`` with remat, ``optim``,
+   ``launch.steps.make_train_step``, ``runtime.fault``; plain PyTorch, as
+   the JAX package's training path reaches no Pallas kernel): (a) each of
+   the ten architectures at ``smoke_config`` under float32, one train step
+   on the card against the CPU on the same weights and batch (loss, grad
+   norm, every parameter and both moments within atol / rtol 1e-4), and
+   ``train_loss`` with remat off, ``full`` and ``dots`` agreeing on the
+   card (loss within 1e-6, gradients 1e-5); smoke olmo under full remat
+   at 1 x 1,536 tokens (the chunked attention, its backward and its
+   recomputation), global and with a window of 1,024, one train step on
+   the card against the CPU the same way; 30 smoke olmo steps under
+   ``FaultTolerantRunner`` with failures injected at steps 7 and 18,
+   bitwise the failure-free run on the card; (b) olmo-1b at full width
+   (1.18 B parameters, bfloat16 weights, float32 moments, remat full as
+   its config says): 4 x 4,096 tokens of ``data.tokens.global_batch``
+   (seed 0; train_4k's rows, cut from 256 to 4 for time and memory), 1
+   warm-up and 8 timed steps of AdamW (peak_lr 3e-4, warm-up 2, 8 steps):
+   every loss finite, step 1's within 1.0 of ln 50,304, the last below
+   the first; the next batch's step at n_micro=2 and at 1 from the same
+   parameters (loss within 1e-2, grad norm within 1 %); seconds a step,
+   tokens a second, 6ND TFLOP/s, peak GiB above the resident weights and
+   moments under remat full and under ``dots``; one more step traced
+   with ``torch.profiler`` (its own wall ms, the card's busy ms and idle
+   share of it, its matmul kernels' ms, the kernels of most device time).
 
 Any failed check exits non-zero before the last line. The last lines are the
 card's name and power limit, a JSON line of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
 import asyncio
+import collections
 import copy
 import dataclasses
 import functools
@@ -3450,9 +3477,15 @@ def p12_check_served(mesh_name, ranks, want, serve, label):
 # LM stack reaches no pallas_call): its matmuls are cuBLAS's, in full float32
 # under float32 (phase 0 checks the matmul precision; the SSM's convolution
 # is elementwise).
-#: The full-width runs: prompt tokens of each of the LM_BATCH prompts.
+#: The full-width runs: prompt tokens of each of the LM_BATCH prompts
+#: (olmo-1b's past layers.FLASH_THRESHOLD: prefill and the float32 forward
+#: run the chunked attention).
 LM_FULL = {"olmo-1b": 2048, "zamba2-2.7b": 1024}
 LM_BATCH, LM_GEN = 4, 32
+#: The prompt positions decoded token by token: the last LM_TAIL, after
+#: prefill of the rest hands its caches to the decode cache (the host-bound
+#: token-by-token passes were most of the phase's time over whole prompts).
+LM_TAIL = 512
 #: decode_step against forward under float32: the JAX package's own bar
 #: (tests/test_models.py:71).
 LM_F32_TOL = 2e-2
@@ -3485,6 +3518,24 @@ def phase13_smoke(dev):
 
 def p13_step(model, tokens, t, cache):
     return lm.decode_step(model, {"tokens": tokens, "cache_index": t}, cache)
+
+
+def p13_decode_cache(model, prompts, upto, cap):
+    """A float32 decode cache for ``cap`` past tokens holding ``prefill``'s
+    caches of the first ``upto`` prompt tokens: the attention's K and V in
+    slots 0 .. upto-1, the SSM state and conv window after token upto-1."""
+    cfg = model.cfg
+    _, caches = lm.prefill(model, {"tokens": prompts[:, :upto]})
+    ssm, kv = {"ssm": (caches, None), "hybrid": caches}.get(
+        cfg.family, (None, caches))
+    cache = lm.init_decode_cache(cfg, prompts.shape[0], cap, torch.float32,
+                                 device=prompts.device)
+    with torch.no_grad():
+        for name, t in (kv or {}).items():
+            cache["attn"][name][..., :upto, :, :].copy_(t)
+        for name, t in (ssm or {}).items():
+            cache["ssm"][name].copy_(t)
+    return cache
 
 
 def p13_greedy(model, logits, cache, start):
@@ -3537,12 +3588,15 @@ def p13_device_time(model, logits, cache, start):
 def phase13_full(name, dev):
     """(b), (c) One architecture at full width: bfloat16 weights from a
     torch.Generator on the card (seed 0), LM_BATCH prompts of LM_FULL[name]
-    tokens; prefill, the prompt decoded token by token into a float32
-    cache, LM_GEN greedy tokens twice from copies of that cache (bitwise),
-    then a float32 copy of the weights: decode_step against forward at
-    every prompt position, and its greedy tokens against the bfloat16
-    run's. Returns (figures, the bfloat16 run's prompts + continuations)."""
+    tokens; prefill, then prefill of all but the last LM_TAIL prompt tokens
+    handed to a float32 decode cache and those LM_TAIL decoded token by
+    token, LM_GEN greedy tokens twice from copies of that cache (bitwise),
+    then a float32 copy of the weights the same way: decode_step against
+    forward at each of the last LM_TAIL prompt positions, and its greedy
+    tokens against the bfloat16 run's. Returns (figures, the bfloat16 run's
+    prompts + continuations)."""
     P = LM_FULL[name]
+    H = P - LM_TAIL
     cfg = get_config(name)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3566,17 +3620,16 @@ def phase13_full(name, dev):
           f"phase 13 {name}: non-finite prefill logits")
     peak_prefill = torch.cuda.max_memory_allocated() - base
     del caches
+    cache = p13_decode_cache(model, prompts, H, P + LM_GEN)
     torch.cuda.reset_peak_memory_stats()
-    cache = lm.init_decode_cache(cfg, LM_BATCH, P + LM_GEN, torch.float32,
-                                 device=dev)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(P):
+    for t in range(H, P):
         logits, cache = p13_step(model, prompts[:, t:t + 1], t, cache)
         finite &= torch.isfinite(logits).all()
     torch.cuda.synchronize()
-    prompt_ms = 1e3 * (time.perf_counter() - t0) / P
+    prompt_ms = 1e3 * (time.perf_counter() - t0) / LM_TAIL
     # The last prompt position, decoded against prefill's (bfloat16: shown).
     last_d = float((logits[:, -1].float() - logits_p[:, -1].float()).abs()
                    .max())
@@ -3596,10 +3649,9 @@ def phase13_full(name, dev):
     model32 = copy.deepcopy(model).float()
     del model
     full32, _, _ = lm.forward(model32, batch)
-    cache32 = lm.init_decode_cache(cfg, LM_BATCH, P + LM_GEN, torch.float32,
-                                   device=dev)
+    cache32 = p13_decode_cache(model32, prompts, H, P + LM_GEN)
     err = torch.zeros((), device=dev)
-    for t in range(P):
+    for t in range(H, P):
         dl, cache32 = p13_step(model32, prompts[:, t:t + 1], t, cache32)
         err = torch.maximum(err, (dl[:, 0] - full32[:, t]).abs().max())
     err = float(err)
@@ -3611,7 +3663,8 @@ def phase13_full(name, dev):
     del model32, cache32
     gib = 2**30
     out = dict(layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
-               params=cfg.param_count(), prompt_len=P, batch=LM_BATCH,
+               params=cfg.param_count(), prompt_len=P,
+               prompt_decoded=LM_TAIL, batch=LM_BATCH,
                gen=LM_GEN, init_s=init_s, prefill_s=prefill_s,
                prompt_decode_ms_per_token=prompt_ms,
                decode_ms_per_token=decode_ms,
@@ -3624,7 +3677,8 @@ def phase13_full(name, dev):
     print(f"phase 13: {name} full width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.param_count() / 1e9:.2f} B params, bf16): "
           f"init {init_s:.2f} s; prefill {LM_BATCH} x {P} tokens "
-          f"{prefill_s:.3f} s; the prompt token by token "
+          f"{prefill_s:.3f} s; prefill of the first {H} handed to the "
+          f"decode cache, the last {LM_TAIL} token by token "
           f"{prompt_ms:.2f} ms a step; greedy decode {decode_ms:.2f} ms a "
           f"token at batch {LM_BATCH}, bitwise on a second run; the "
           f"card busy {device_ms} ms a step over {device_ops} device "
@@ -3634,8 +3688,8 @@ def phase13_full(name, dev):
           f"{peak_decode / gib:.2f} GiB in decode (the float32 cache, its "
           f"copy and the copy's copy); "
           f"last prompt logits vs prefill's max|d| {last_d:.3g} (bf16); "
-          f"f32 copy: decode vs forward max|d| {err:.3g} over {P} "
-          f"positions (bar {LM_F32_TOL}), greedy tokens agree with bf16 at "
+          f"f32 copy: decode vs forward max|d| {err:.3g} over the last "
+          f"{LM_TAIL} of {P} positions (bar {LM_F32_TOL}), greedy tokens agree with bf16 at "
           f"{agree:.3f}", flush=True)
     return out, torch.cat([prompts, toks], dim=1)
 
@@ -3693,6 +3747,276 @@ def phase13(host_corpus, dev):
     out["retrieval"] = phase13_retrieval(host_corpus, seqs, dev)
     out["seconds"] = time.perf_counter() - t_start
     print(f"phase 13: done in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# -------------------------------------------------------------- phase 14
+# Slice 13: LM training on one card. (a) every architecture at smoke width
+# under float32: one train step on the card against the port's CPU run on
+# the same weights and batch (and smoke olmo at 1,536 tokens under full
+# remat), the three remat settings on the card, and a
+# FaultTolerantRunner run through two injected failures bitwise the
+# failure-free one; (b) olmo-1b at full width with its config's bfloat16
+# weights, float32 moments and full remat. Plain PyTorch again: the JAX
+# package's training path is autodiff of the same LM stack (no custom_vjp,
+# no pallas_call in models/ or optim/).
+#: (b)'s batch: train_4k's 4,096-token rows, 4 of them (train_4k has 256).
+TRAIN_SEQ, TRAIN_ROWS, TRAIN_ROWS_CELL = 4096, 4, 256
+#: (b)'s warm-up and timed steps and their schedule.
+TRAIN_TIMED = 8
+TRAIN_OPT = dict(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_TIMED)
+#: (b)'s first loss within this of ln(vocab); n_micro=2 against 1: the
+#: loss within TRAIN_MICRO_ATOL, the grad norm within TRAIN_MICRO_RTOL.
+TRAIN_INIT_ATOL, TRAIN_MICRO_ATOL, TRAIN_MICRO_RTOL = 1.0, 1e-2, 1e-2
+#: (a)'s replay: steps, and the steps whose first attempt fails.
+TRAIN_REPLAY_STEPS, TRAIN_REPLAY_FAILS = 30, (7, 18)
+
+
+def phase14_smoke(dev):
+    """(a) name -> the largest |card - CPU| of one train step, and the
+    remat settings' spread on the card; then the replay through failures.
+    """
+    out = {}
+    for name in ARCH_IDS:
+        cfg = smoke_config(name)
+        try:
+            err = lm_parity.train_card_vs_cpu(cfg, dev)
+        except AssertionError as e:
+            check(False, f"phase 14 {name} smoke f32 train step, card vs "
+                  f"CPU: {e}")
+        spread = lm_parity.remat_spread(cfg, dev)
+        check(spread["full_loss"] < 1e-6 and spread["dots_loss"] < 1e-6
+              and spread["full_grads"] < 1e-5
+              and spread["dots_grads"] < 1e-5,
+              f"phase 14 {name}: remat off / full / dots disagree on the "
+              f"card: {spread}")
+        out[name] = {"card_vs_cpu": err, "remat": spread}
+        print(f"phase 14: {name} smoke f32 train step: card vs CPU max|d| "
+              f"loss {err['loss']:.3g}, grad norm {err['grad_norm']:.3g}, "
+              f"params {err['params']:.3g}, moments {err['moments']:.3g}; "
+              f"remat full / dots vs off on the card: loss "
+              f"{spread['full_loss']:.3g} / {spread['dots_loss']:.3g}, "
+              f"grads {spread['full_grads']:.3g} / "
+              f"{spread['dots_grads']:.3g}", flush=True)
+    for label, window in lm_parity.LONG_WINDOWS.items():
+        try:
+            err = lm_parity.train_card_vs_cpu(
+                lm_parity.long_config(window), dev, lm_parity.LONG_SEQ,
+                lm_parity.LONG_BATCH)
+        except AssertionError as e:
+            check(False, f"phase 14 olmo-1b smoke f32 train step at "
+                  f"{lm_parity.LONG_SEQ} tokens ({label}), card vs CPU: {e}")
+        out[f"long_{label}"] = err
+        print(f"phase 14: olmo-1b smoke f32 train step, {lm_parity.LONG_BATCH}"
+              f" x {lm_parity.LONG_SEQ} tokens (the chunked attention), "
+              f"remat full, {label} (window {window}): card vs CPU max|d| "
+              f"loss {err['loss']:.3g}, grad norm {err['grad_norm']:.3g}, "
+              f"params {err['params']:.3g}, moments {err['moments']:.3g}",
+              flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replay_") as tmp:
+        try:
+            restarts, losses = lm_parity.replay_bitwise(
+                smoke_config("olmo-1b"), dev, tmp, TRAIN_REPLAY_STEPS,
+                TRAIN_REPLAY_FAILS)
+        except AssertionError as e:
+            check(False, f"phase 14 replay: {e}")
+    secs = time.perf_counter() - t0
+    out["replay"] = dict(steps=TRAIN_REPLAY_STEPS, restarts=restarts,
+                         bitwise=True, first_loss=losses[0],
+                         last_loss=losses[-1], seconds=secs)
+    print(f"phase 14: olmo-1b smoke, {TRAIN_REPLAY_STEPS} steps under "
+          f"FaultTolerantRunner with failures at steps "
+          f"{list(TRAIN_REPLAY_FAILS)}: {restarts} restarts, bitwise the "
+          f"failure-free run on the card (params, moments, step); loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; both runs {secs:.1f} s",
+          flush=True)
+    return out
+
+
+def p14_step(step, model, opt, batch):
+    """One timed train step: (opt, metrics, seconds, host floats)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, opt, metrics = step(model, opt, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return opt, {k: float(v) for k, v in metrics.items()}, secs
+
+
+#: Kernel-name fragments of the card's matmuls (cuBLAS, its Hopper
+#: ``nvjet`` kernels, CUTLASS).
+MATMUL_KERNELS = ("gemm", "Gemm", "cutlass", "xmma", "cublas", "nvjet")
+#: Kernels of most device time that the traced step names.
+TRACE_TOP = 8
+
+
+def p14_trace(step, model, opt, batch):
+    """One train step under torch.profiler: (opt, a dict of the traced
+    step's own wall ms (host clock, synchronized, the profiler's overhead
+    included), the card's busy ms (the union of its kernel, copy and set
+    intervals), its matmul kernels' ms, device operations and the
+    TRACE_TOP kernels of most device time as (name, ms)); the device keys
+    are None where the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt, _ = step(model, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return opt, dict(wall_ms=wall_ms, busy_ms=None, matmul_ms=None,
+                         device_ops=None, top=None)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = collections.Counter()
+    for e in events:
+        by_name[e.name] += e.time_range.end - e.time_range.start
+    matmul = sum(t for n, t in by_name.items()
+                 if any(f in n for f in MATMUL_KERNELS))
+    top = [(n[:100], t / 1e3) for n, t in by_name.most_common(TRACE_TOP)]
+    return opt, dict(wall_ms=wall_ms, busy_ms=busy / 1e3,
+                     matmul_ms=matmul / 1e3, device_ops=len(events), top=top)
+
+
+def phase14_full(dev):
+    """(b) olmo-1b at full width: 1 warm-up and TRAIN_TIMED timed steps of
+    TRAIN_ROWS x TRAIN_SEQ tokens, then the next batch's step at
+    n_micro=2 and at 1 from the same parameters, then one step under
+    remat_policy="dots" for its peak."""
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import adamw
+    cfg = get_config("olmo-1b")
+    check(cfg.remat and cfg.remat_policy == "full"
+          and cfg.param_dtype == "bfloat16"
+          and cfg.opt_state_dtype == "float32",
+          f"phase 14: olmo-1b's config is not bf16 / f32 moments / full "
+          f"remat: {cfg}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base0 = torch.cuda.memory_allocated()
+    model = lm.init(cfg, seed=0, device=dev)
+    params = dict(model.named_parameters())
+    opt = adamw.init(params, cfg.opt_state_dtype)
+    n_params = sum(p.numel() for p in params.values())
+    check(n_params == cfg.param_count(),
+          f"phase 14: {n_params} parameters, config says "
+          f"{cfg.param_count()}")
+    shape = InputShape("train_4k", TRAIN_SEQ, TRAIN_ROWS, "train")
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    step1 = train_steps.make_train_step(shape, opt_cfg, n_micro=1)
+    step2 = train_steps.make_train_step(shape, opt_cfg, n_micro=2)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_ROWS, seed=0)
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in global_batch(dc, i).items()}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, norms = [], [], []
+    for i in range(1 + TRAIN_TIMED):
+        b = batch(i)
+        opt, m, dt = p14_step(step1, model, opt, b)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        secs.append(dt)
+    peak_full = torch.cuda.max_memory_allocated() - resident
+    ln_v = float(np.log(cfg.vocab))
+    check(all(np.isfinite(losses)), f"phase 14: a non-finite loss {losses}")
+    check(abs(losses[0] - ln_v) < TRAIN_INIT_ATOL,
+          f"phase 14: step 1's loss {losses[0]} not within "
+          f"{TRAIN_INIT_ATOL} of ln {cfg.vocab} = {ln_v}")
+    check(losses[-1] < losses[0],
+          f"phase 14: the loss did not fall: {losses}")
+    # The next batch from the same parameters at n_micro=2, then 1.
+    b = batch(1 + TRAIN_TIMED)
+    snap = {k: p.detach().clone() for k, p in params.items()}
+    opt, m2, dt2 = p14_step(step2, model, opt, b)
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(snap[k])
+    del snap
+    opt, m1, dt1 = p14_step(step1, model, opt, b)
+    check(abs(m2["loss"] - m1["loss"]) < TRAIN_MICRO_ATOL
+          and abs(m2["grad_norm"] - m1["grad_norm"])
+          < TRAIN_MICRO_RTOL * m1["grad_norm"],
+          f"phase 14: n_micro=2 loss {m2['loss']} grad norm "
+          f"{m2['grad_norm']} against n_micro=1 {m1['loss']} "
+          f"{m1['grad_norm']}")
+    # One step under remat_policy="dots" (saving the projections).
+    model.cfg = dataclasses.replace(cfg, remat_policy="dots")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    opt, md, dtd = p14_step(step1, model, opt, batch(2 + TRAIN_TIMED))
+    peak_dots = torch.cuda.max_memory_allocated() - resident
+    check(np.isfinite(md["loss"]), f"phase 14: dots loss {md['loss']}")
+    model.cfg = cfg
+    # One more step (remat full) traced: where the card's time goes.
+    opt, trace = p14_trace(step1, model, opt, batch(3 + TRAIN_TIMED))
+    if trace["busy_ms"] is not None:
+        trace["idle_share"] = 1.0 - trace["busy_ms"] / trace["wall_ms"]
+    gib = 2**30
+    step_s = statistics.median(secs[1:])
+    tokens = TRAIN_ROWS * TRAIN_SEQ
+    flop = 6.0 * cfg.param_count() * tokens
+    out = dict(params=n_params, rows=TRAIN_ROWS, seq=TRAIN_SEQ,
+               rows_cut_from=TRAIN_ROWS_CELL, opt=TRAIN_OPT, losses=losses,
+               grad_norms=norms, seconds=secs, step_s_median=step_s,
+               tokens_per_s=tokens / step_s, flop_6nd_per_step=flop,
+               tflops_6nd=flop / step_s / 1e12,
+               resident_gib=(resident - base0) / gib,
+               peak_above_resident_gib=peak_full / gib,
+               n_micro2=dict(loss=m2["loss"], grad_norm=m2["grad_norm"],
+                             s=dt2),
+               n_micro1=dict(loss=m1["loss"], grad_norm=m1["grad_norm"],
+                             s=dt1),
+               dots=dict(loss=md["loss"], s=dtd,
+                         peak_above_resident_gib=peak_dots / gib),
+               trace=trace)
+    print(f"phase 14: olmo-1b full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B params, bf16 weights, "
+          f"f32 moments, remat full): batch {TRAIN_ROWS} x {TRAIN_SEQ} "
+          f"tokens of train_4k (rows cut from {TRAIN_ROWS_CELL} to "
+          f"{TRAIN_ROWS} for time and memory), AdamW {TRAIN_OPT}", flush=True)
+    print(f"phase 14: losses {[round(x, 4) for x in losses]} (ln V = "
+          f"{ln_v:.4f}); step seconds {[round(x, 3) for x in secs]} "
+          f"(first is the warm-up); median {step_s:.3f} s a step, "
+          f"{tokens / step_s:.0f} tokens/s, 6ND = {flop / 1e12:.1f} TFLOP "
+          f"a step -> {flop / step_s / 1e12:.1f} TFLOP/s; resident "
+          f"{(resident - base0) / gib:.2f} GiB (weights, moments), peak "
+          f"above it {peak_full / gib:.2f} GiB (remat full), "
+          f"{peak_dots / gib:.2f} GiB (remat dots, {dtd:.3f} s)", flush=True)
+    print(f"phase 14: n_micro=2 loss {m2['loss']:.5f} grad norm "
+          f"{m2['grad_norm']:.5f} ({dt2:.3f} s) against n_micro=1 "
+          f"{m1['loss']:.5f} {m1['grad_norm']:.5f} ({dt1:.3f} s)",
+          flush=True)
+    print(f"phase 14: a traced step (remat full): {trace['wall_ms']:.1f} "
+          f"ms on the host clock (under the profiler), the card busy "
+          f"{trace['busy_ms']} ms of it over {trace['device_ops']} device "
+          f"operations (idle share {trace.get('idle_share')}), "
+          f"{trace['matmul_ms']} ms in matmul kernels; most device time: "
+          f"{trace['top']}", flush=True)
+    del model, opt, params
+    return out
+
+
+def phase14(dev):
+    t_start = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls may use TF32")
+    out = {"smoke": phase14_smoke(dev), "olmo-1b": phase14_full(dev)}
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 14: done in {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -4102,6 +4426,10 @@ def main():
     p13 = phase13(host_corpus, dev)
     p13_launches = p13["retrieval"]["launches"]
 
+    # Phase 14: LM training (no kernel of its own; the JSON line of the
+    # kernels is phases 2-13's).
+    p14 = phase14(dev)
+
     def p10_launches(kname):
         """The kernel's launches in each run of phase 10 that made any."""
         return {r: c[kname] for r, c in p10_runs.items() if c[kname]}
@@ -4212,6 +4540,7 @@ def main():
             for m in MESHES}
     print(json.dumps({"phase12": p12}))
     print(json.dumps({"phase13": p13}))
+    print(json.dumps({"phase14": p14}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

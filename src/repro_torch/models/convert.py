@@ -1,4 +1,5 @@
-"""Carry a JAX parameter tree across to the port's model, and back.
+"""Carry a JAX parameter tree across to the port's model, and back; and
+the trees that share its layout: gradients and the AdamW state.
 
 The JAX package's ``models.model.init`` returns nested dicts whose block
 leaves are stacked on a leading layer axis. ``params_from_numpy`` takes
@@ -8,6 +9,15 @@ holding exactly those values, the layer axis split over
 ``model.blocks`` (for the hybrid, into groups of ``hybrid_attn_every``).
 ``params_to_numpy`` is its inverse. Both name the path of a missing or
 extra leaf, or of a wrong shape or dtype, in a ``ValueError``.
+
+The port keeps a gradient or a moment as a dict keyed by the model's
+parameter names (``model.named_parameters()``). ``to_tree`` stacks such a
+dict into JAX's layout (torch tensors, parameter-free norms as empty
+dicts) and ``from_tree`` splits it back; ``grads_to_numpy``,
+``opt_state_to_numpy`` and ``opt_state_from_numpy`` do the same for the
+gradients and for ``optim.adamw``'s state ``{"m", "v", "step"}`` as numpy
+trees, leaf for leaf those of ``jax.value_and_grad`` and JAX's
+``adamw.init`` / ``update``.
 """
 from __future__ import annotations
 
@@ -86,39 +96,51 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> M.LM:
-    """The port's model holding the JAX tree's values, on ``device``."""
-    model = M.init(cfg, device="meta")
+def _from_leaves(tree: dict, model: M.LM, device, dtype=None,
+                 what: str = "parameter") -> dict:
+    """A JAX-layout tree of numpy arrays -> tensors on ``device`` keyed by
+    the model's parameter names (a stacked leaf's layers are views of one
+    tensor). Each leaf must have the model's shape and ``dtype`` (default:
+    the parameter's own)."""
     layout = _layout(model)
     leaves = _flatten(tree)
     missing = sorted(set(layout) - set(leaves))
     extra = sorted(set(leaves) - set(layout))
     if missing or extra:
-        raise ValueError(f"parameter tree for {cfg.name}: missing leaves "
+        raise ValueError(f"{what} tree for {model.cfg.name}: missing leaves "
                          f"{['/'.join(p) for p in missing]}, extra leaves "
                          f"{['/'.join(p) for p in extra]}")
     device = M.resolve_device(device)
-    state = {}
-    for path, (shape, dtype, names) in layout.items():
+    out = {}
+    for path, (shape, p_dtype, names) in layout.items():
         a = np.asarray(leaves[path])
         stacked = names[0][1] is not None
         want = (len(names), *shape) if stacked else shape
         if tuple(a.shape) != want:
             raise ValueError(f"leaf {'/'.join(path)}: shape {a.shape}, the "
                              f"model wants {want}")
-        if a.dtype.name != _dtype_name(dtype):
+        want_dtype = _dtype_name(p_dtype if dtype is None else dtype)
+        if a.dtype.name != want_dtype:
             raise ValueError(f"leaf {'/'.join(path)}: dtype {a.dtype.name}, "
-                             f"the model wants {_dtype_name(dtype)}")
+                             f"the model wants {want_dtype}")
         t = _to_tensor(a).to(device)
         for name, layer in names:
-            state[name] = t[layer] if stacked else t
-    model.load_state_dict(state, assign=True)
+            out[name] = t[layer] if stacked else t
+    return out
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> M.LM:
+    """The port's model holding the JAX tree's values, on ``device``."""
+    model = M.init(cfg, device="meta")
+    model.load_state_dict(_from_leaves(tree, model, device), assign=True)
     return model
 
 
-def params_to_numpy(model: M.LM) -> dict:
-    """The JAX package's parameter tree of ``model``: nested dicts of numpy
-    arrays, block leaves stacked on a leading layer axis."""
+def to_tree(model: M.LM, tensors: dict) -> dict:
+    """``tensors`` keyed by the model's parameter names (its parameters,
+    their gradients or moments) -> JAX's tree layout: nested dicts of
+    tensors, block leaves stacked on a leading layer axis, each
+    parameter-free norm an empty dict."""
     tree: dict = {}
 
     def put(path: Path, value):
@@ -129,9 +151,62 @@ def params_to_numpy(model: M.LM) -> dict:
 
     for path in _empty_norms(model):
         put(path, {})
-    params = model.state_dict(keep_vars=True)
     for path, (_, _, names) in _layout(model).items():
-        ts = [params[name] for name, _ in names]      # in layer order
-        put(path, _to_numpy(torch.stack(ts) if names[0][1] is not None
-                            else ts[0]))
+        ts = [tensors[name] for name, _ in names]     # in layer order
+        put(path, torch.stack(ts) if names[0][1] is not None else ts[0])
     return tree
+
+
+def from_tree(model: M.LM, tree: dict) -> dict:
+    """``to_tree``'s inverse: a JAX-layout tree of tensors -> tensors keyed
+    by the model's parameter names (a stacked leaf's layers are views)."""
+    leaves = _flatten(tree)
+    out = {}
+    for path, (_, _, names) in _layout(model).items():
+        t = leaves[path]
+        for name, layer in names:
+            out[name] = t[layer] if layer is not None else t
+    return out
+
+
+def _numpy_tree(tree):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else _to_numpy(v)
+            for k, v in tree.items()}
+
+
+def params_to_numpy(model: M.LM) -> dict:
+    """The JAX package's parameter tree of ``model``: nested dicts of numpy
+    arrays, block leaves stacked on a leading layer axis."""
+    return _numpy_tree(to_tree(model, model.state_dict(keep_vars=True)))
+
+
+def grads_to_numpy(model: M.LM, grads: dict) -> dict:
+    """Gradients keyed by parameter name -> the numpy tree of
+    ``jax.value_and_grad`` over the JAX parameters."""
+    return _numpy_tree(to_tree(model, grads))
+
+
+def opt_state_to_numpy(model: M.LM, state: dict) -> dict:
+    """``optim.adamw``'s state of ``model`` -> JAX's ``{"m", "v", "step"}``
+    tree of numpy arrays (``step`` a 0-d int32)."""
+    return {"m": grads_to_numpy(model, state["m"]),
+            "v": grads_to_numpy(model, state["v"]),
+            "step": _to_numpy(state["step"])}
+
+
+def opt_state_from_numpy(tree: dict, model: M.LM, device="cuda") -> dict:
+    """JAX's AdamW state (numpy leaves) -> ``optim.adamw``'s state of
+    ``model`` on ``device``; the moments keep their stored dtype (the
+    config's ``opt_state_dtype``), which must be one dtype for all."""
+    dtypes = {np.asarray(a).dtype.name
+              for a in _flatten({"m": tree["m"], "v": tree["v"]}).values()}
+    if len(dtypes) != 1:
+        raise ValueError(f"moments of several dtypes {sorted(dtypes)}")
+    dtype = getattr(torch, dtypes.pop())
+    step = np.asarray(tree["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step: {step.dtype} {step.shape}, want a 0-d "
+                         "int32")
+    return {"m": _from_leaves(tree["m"], model, device, dtype, "m"),
+            "v": _from_leaves(tree["v"], model, device, dtype, "v"),
+            "step": _to_tensor(step).to(M.resolve_device(device))}

@@ -1,5 +1,5 @@
-"""Decoder LM assembly: per-family block wiring and the serving entry points
-(the JAX package's ``models/model.py``, its serving half).
+"""Decoder LM assembly: per-family block wiring, the training loss and the
+serving entry points (the JAX package's ``models/model.py``).
 
 The layers are an ``nn.ModuleList`` in place of JAX's stacked ``lax.scan``;
 gemma3's local:global pattern rides along as a per-layer window
@@ -10,8 +10,10 @@ layouts leaf for leaf: stacked on a leading layer axis (group and period
 axes for the hybrid).
 
 Entry points (``forward``, ``prefill`` and ``decode_step`` run under
-``torch.inference_mode``):
+``torch.inference_mode``; ``train_loss`` runs under autograd, each block
+or hybrid group under ``torch.utils.checkpoint`` where ``cfg.remat``):
   init(cfg, seed=, device=)                -> model
+  train_loss(model, batch)                 -> scalar float32 loss
   forward(model, batch, collect_cache=, last_token_logits=)
                                            -> (logits, aux, caches)
   prefill(model, batch)                    -> (last-token logits, caches)
@@ -26,8 +28,11 @@ one convolution is elementwise (``ssm._conv_full``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -138,11 +143,11 @@ def window_schedule(cfg: ModelConfig) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
-# Forward (prefill): the three stacks
+# Forward (train / prefill): the three stacks
 # ----------------------------------------------------------------------------
 
-def _attn_block(bp: AttnBlock, x, cfg: ModelConfig, positions, window: int,
-                collect_kv: bool):
+def _attn_block(bp: AttnBlock, x, positions, window: int, *,
+                cfg: ModelConfig, collect_kv: bool):
     h = bp.ln1(x)
     a, kv = L.attention_apply(bp.attn, h, cfg, positions=positions,
                               window=window, return_kv=collect_kv)
@@ -154,6 +159,44 @@ def _attn_block(bp: AttnBlock, x, cfg: ModelConfig, positions, window: int,
         y = L.mlp_apply(bp.mlp, h, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux, kv
+
+
+def _remat(body, cfg: ModelConfig):
+    """``body`` (one block, or one hybrid group) recomputed in backward
+    where ``cfg.remat``: ``remat_policy="full"`` saves only its inputs;
+    ``"dots"`` also saves the outputs of its matmuls without batch dims
+    (``aten.mm`` / ``addmm``: every projection), as JAX's
+    ``dots_with_no_batch_dims_saveable`` does, and recomputes the rest.
+    JAX's policy also saves the MoE combine named ``moe_out``, the output
+    of the expert-parallel ``shard_map`` path that runs only on a mesh;
+    the port's MoE takes the plain path, so there is nothing of that name
+    to save. Outside autograd (the serving entry points) the body runs as
+    it is."""
+    if not cfg.remat:
+        return body
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: 'full' or "
+                         "'dots'")
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return ckpt.checkpoint(body, *args, use_reentrant=False, **kw)
+    return run
+
+
+#: The matmuls without batch dims whose outputs ``remat_policy="dots"``
+#: saves.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _stack(trees: list):
@@ -168,8 +211,10 @@ def _run_attn_stack(model: LM, x, cfg: ModelConfig, positions,
                     collect_kv: bool):
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
+    block = _remat(functools.partial(_attn_block, cfg=cfg,
+                                     collect_kv=collect_kv), cfg)
     for bp, window in zip(model.blocks, window_schedule(cfg).tolist()):
-        x, aux, kv = _attn_block(bp, x, cfg, positions, window, collect_kv)
+        x, aux, kv = block(bp, x, positions, window)
         aux_sum = aux_sum + aux
         kvs.append(kv)
     return x, aux_sum, _stack(kvs)
@@ -182,8 +227,9 @@ def _ssm_block(bp: SSMBlock, x, cfg: ModelConfig):
 
 def _run_ssm_stack(model: LM, x, cfg: ModelConfig):
     caches = []
+    block = _remat(functools.partial(_ssm_block, cfg=cfg), cfg)
     for bp in model.blocks:
-        x, cache = _ssm_block(bp, x, cfg)
+        x, cache = block(bp, x)
         caches.append(cache)
     return x, _stack(caches)
 
@@ -202,15 +248,20 @@ def _run_hybrid_stack(model: LM, x, cfg: ModelConfig, positions,
     shared attention block at the end of each group. Caches:
     ({"state", "conv"} stacked (groups, every, ...), {"k", "v"} stacked
     (groups, ...) or None)."""
-    ssm_caches, kvs = [], []
-    for group in model.blocks:
+    def group_body(group, x):
         caches = []
         for bp in group:
             x, cache = _ssm_block(bp, x, cfg)
             caches.append(cache)
-        ssm_caches.append(_stack(caches))
         x, kv = _shared_attn(model.shared_attn, x, cfg, positions,
                              return_kv=collect_kv)
+        return x, _stack(caches), kv
+
+    body = _remat(group_body, cfg)
+    ssm_caches, kvs = [], []
+    for group in model.blocks:
+        x, caches, kv = body(group, x)
+        ssm_caches.append(caches)
         kvs.append(kv)
     return x, (_stack(ssm_caches), _stack(kvs))
 
@@ -231,18 +282,10 @@ def _logits(model: LM, x, cfg: ModelConfig):
     return L.proj(x, head)
 
 
-@torch.inference_mode()
-def forward(model: LM, batch: dict, collect_cache: bool = False,
-            last_token_logits: bool = False):
-    """Full-sequence forward. Returns (logits, aux_loss, caches).
-
-    batch: {"tokens": (B, S)} or, for the stub audio/vision frontends,
-    {"embeddings": (B, S, d)}; positions are 0 .. S-1.
-    ``last_token_logits``: the LM head only for the final position.
-    caches: the attention stack's {"k", "v"} (L, B, S, KV, hd) when
-    ``collect_cache`` (else None); the SSM stack's {"state", "conv"}
-    always; the hybrid's (ssm caches, kv or None).
-    """
+def _forward(model: LM, batch: dict, collect_cache: bool = False,
+             last_token_logits: bool = False):
+    """``forward``'s body, under whatever grad mode the caller runs:
+    ``train_loss`` runs it under autograd."""
     cfg = model.cfg
     x = _embed_inputs(model, batch, cfg)
     B, seq = x.shape[0], x.shape[1]
@@ -259,6 +302,51 @@ def forward(model: LM, batch: dict, collect_cache: bool = False,
     if last_token_logits:
         x = x[:, -1:, :]
     return _logits(model, x, cfg), aux, caches
+
+
+@torch.inference_mode()
+def forward(model: LM, batch: dict, collect_cache: bool = False,
+            last_token_logits: bool = False):
+    """Full-sequence forward. Returns (logits, aux_loss, caches).
+
+    batch: {"tokens": (B, S)} or, for the stub audio/vision frontends,
+    {"embeddings": (B, S, d)}; positions are 0 .. S-1.
+    ``last_token_logits``: the LM head only for the final position.
+    caches: the attention stack's {"k", "v"} (L, B, S, KV, hd) when
+    ``collect_cache`` (else None); the SSM stack's {"state", "conv"}
+    always; the hybrid's (ssm caches, kv or None).
+    """
+    return _forward(model, batch, collect_cache, last_token_logits)
+
+
+def train_loss(model: LM, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy (+ 0.01 x the MoE router's aux loss), a
+    float32 scalar under autograd.
+
+    batch: the inputs of ``forward``, ``"labels"`` (B, S) and optionally
+    ``"loss_mask"`` (B, S), which weights each position's loss and divides
+    by max(its sum, 1) in place of B x S. As the JAX package computes it:
+    float32 logits shifted by their max (a constant to autograd), the log
+    of the summed exponentials, less the gold logit (picked by a gather:
+    JAX's iota compare selects the same element; it keeps a sharded
+    vocabulary local on a mesh, and there is none here)."""
+    logits, aux, _ = _forward(model, batch)
+    dev = logits.device
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    logits_f = logits.float()
+    lmax = logits_f.amax(dim=-1, keepdim=True).detach()
+    shifted = logits_f - lmax
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    gold = torch.gather(shifted, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=dev).float()
+        nll = nll * mask
+        denom = torch.clamp_min(torch.sum(mask), 1.0)
+    else:
+        denom = nll.numel()
+    return torch.sum(nll) / denom + 0.01 * aux
 
 
 @torch.inference_mode()

@@ -14,7 +14,8 @@ the mesh's explicit process groups (``launch.mesh.Mesh``):
 * :func:`gather_blocks` - a rank's block of a result, gathered over the
   axes that split it, so every rank holds the whole result;
 * :func:`all_reduce_sum` - the candidate scores' exchange (each slot has
-  one owner, every other rank adds zeros).
+  one owner, every other rank adds zeros), and with :func:`all_reduce_max`
+  the int8-compressed gradient reduce (``optim/grad_utils.py``).
 
 JAX's ``emd_stacked_dist`` pins the (v, nq, h) tensor that each device
 computes its own tile of: no byte crosses there, so it has no counterpart.
@@ -82,16 +83,28 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
     return out.movedim(0, dim).contiguous()
 
 
-def all_reduce_sum(x: torch.Tensor, mesh, axis: str,
-                   label: str) -> torch.Tensor:
-    """The sum of ``x`` over this rank's ``axis`` group (a new tensor)."""
+def _all_reduce(x: torch.Tensor, mesh, axis: str, label: str,
+                op) -> torch.Tensor:
     size = mesh.size(axis)
     if size == 1:
         return x
     w = x.contiguous().cpu() if staged(mesh, x) else x.clone()
-    dist.all_reduce(w, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    dist.all_reduce(w, op=op, group=mesh.group(axis))
     TRAFFIC[label] += (size - 1) * w.nbytes
     return w.to(x.device)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axis: str,
+                   label: str) -> torch.Tensor:
+    """The sum of ``x`` over this rank's ``axis`` group (a new tensor)."""
+    return _all_reduce(x, mesh, axis, label, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axis: str,
+                   label: str) -> torch.Tensor:
+    """The elementwise max of ``x`` over this rank's ``axis`` group (a new
+    tensor)."""
+    return _all_reduce(x, mesh, axis, label, dist.ReduceOp.MAX)
 
 
 def emd_ladder(x: torch.Tensor, mesh) -> torch.Tensor:

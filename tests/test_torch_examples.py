@@ -1,4 +1,4 @@
-"""The port's four examples (``examples/torch_*.py``) end to end at a small
+"""The port's five examples (``examples/torch_*.py``) end to end at a small
 size on the CPU (``--device cpu``: the kernels' plain versions), checking
 the lines each is there to show."""
 import importlib.util
@@ -69,9 +69,18 @@ def test_torch_serve_decode(capsys):
     assert out.rstrip().endswith("OK")
 
 
+def test_torch_train_lm(capsys, tmp_path):
+    out = _run("torch_train_lm", ["--device", "cpu", "--steps", "120",
+                                  "--ckpt-dir", str(tmp_path)], capsys)
+    assert "mesh waits for the port's LM mesh slice" in out
+    assert "restarts=1 " in out
+    assert "over 120 steps" in out
+    assert out.rstrip().endswith("OK")
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_text_search",
                                   "torch_image_search",
-                                  "torch_serve_decode"])
+                                  "torch_serve_decode", "torch_train_lm"])
 def test_examples_import_no_jax(name):
     source = (EXAMPLES / f"{name}.py").read_text()
     assert "import jax" not in source and "from repro." not in source \

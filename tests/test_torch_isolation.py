@@ -37,7 +37,8 @@ def test_port_files_found():
     assert {"lc.py", "ops.py", "index.py", "chip_smoke.py", "mesh.py",
             "local.py", "annotate.py", "partition.py", "model.py",
             "layers.py", "ssm.py", "convert.py", "tokens.py",
-            "olmo_1b.py"} <= names
+            "olmo_1b.py", "adamw.py", "grad_utils.py", "steps.py",
+            "fault.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -56,6 +57,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.search, repro_torch.sharding.annotate, "
             "repro_torch.kernels.partition, repro_torch.models.model, "
             "repro_torch.models.convert, repro_torch.models.parity, "
+            "repro_torch.optim.adamw, repro_torch.optim.grad_utils, "
+            "repro_torch.launch.steps, repro_torch.runtime.fault, "
             "repro_torch.configs, "
             "repro_torch.data.tokens; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -1,5 +1,6 @@
 """Rank bodies of the port's mesh tests (``test_torch_mesh.py``,
-``test_torch_partition.py``, ``test_torch_analysis.py``).
+``test_torch_partition.py``, ``test_torch_analysis.py``,
+``test_torch_optim.py``).
 
 ``repro_torch.launch.local.run_local`` runs each function on every rank of
 a local gloo mesh on the CPU. They import only the port (never JAX), take
@@ -205,3 +206,19 @@ def seeded_step(case, workload, mesh):
         matrix(*ops[:5])             # the score matrix crosses the mesh
         return step(*ops)
     return seeded
+
+
+def compressed_psum(mesh, axis, leaves, seed):
+    """``optim.grad_utils.compressed_psum_tree`` of this rank's gradient
+    tree ({name: numpy array}, the rank's own in ``leaves[rank]``) over
+    ``axis``, with a generator seeded by ``seed`` + rank; returns the
+    reduced tree and this rank's bytes by label."""
+    import torch.distributed as dist
+
+    from repro_torch.optim.grad_utils import compressed_psum_tree
+    annotate.reset_traffic()
+    mine = {k: torch.as_tensor(v) for k, v in
+            leaves[dist.get_rank()].items()}
+    gen = torch.Generator().manual_seed(seed + dist.get_rank())
+    out = compressed_psum_tree(mine, gen, mesh, axis)
+    return {k: _np(v.float()) for k, v in out.items()}, annotate.traffic()
