@@ -69,8 +69,10 @@ up to four processes on it and stops them. Phases:
    10,000 dense MNIST-shaped images, each against the reference backend
    (a 2,000-row prefix whole, its diagonal exactly 0 for LC-RWMD on both
    backends), the symmetric LC-RWMD search, the full-corpus rwmd_rev and
-   ict searches, K4's all-rows form, and each chunk kernel's time, bound
-   and library yardstick at a 256-row chunk;
+   ict searches, K4's all-rows form (``csrc/cand_dist_all.cu``) bitwise
+   the candidate form at every row under float32 and bfloat16 costs and
+   timed beside it (the old design's yardstick), and each chunk kernel's
+   time, bound and library yardstick at a 256-row chunk;
 9. the single-query engines (each method's 16 queries one at a time
    through ``EmdIndex.scores``, K1 at nq=1 and, for LC-ACT, the unfused
    K2), against the batched rows and the reference backend, with search
@@ -98,7 +100,8 @@ up to four processes on it and stops them. Phases:
    bitwise, the fallback past a corrupt snapshot, and an LSH-sourced
    primary restored without a refit;
 11. the tiles: (a) every variant of K1, the fused K2, K3's corpus-row
-   entry and the valid-bin K4 that ``analysis/smem.check_launch`` admits
+   entry and the valid-bin K4 (both its libraries: the candidate form and
+   the all-rows form) that ``analysis/smem.check_launch`` admits
    (at most ``autotune.MAX_VARIANTS`` a family, in the tuner's order),
    built together and launched at the shapes of phases 2-8 under float32
    and bfloat16 ladders: bitwise the default tile's output, the model's
@@ -296,9 +299,9 @@ CAND_KERNELS = {
                             "src/repro/kernels/cand_pour.py:214"),
     "cand_dist_valid.rev_min": ("cand_dist_valid",
                                 "src/repro/kernels/cand_pour.py:214"),
-    "cand_dist_valid.all_ict": ("cand_dist_valid",
+    "cand_dist_valid.all_ict": ("cand_dist_all",
                                 "src/repro/kernels/cand_pour.py:214"),
-    "cand_dist_valid.all_rev_min": ("cand_dist_valid",
+    "cand_dist_valid.all_rev_min": ("cand_dist_all",
                                     "src/repro/kernels/cand_pour.py:214"),
     "act_phase2_cand": ("act_phase2", "src/repro/kernels/act_phase2.py:110"),
     **{f"cand_pour_rows.{m}": ("cand_pour_rows",
@@ -1377,40 +1380,105 @@ def valid_rows_work(corpus, valid, ops_per_bin, row_ops_per_bin):
     return nbytes, (ops_per_bin * nnz + row_ops_per_bin * corpus.n) * bins
 
 
+def group_quads(bounds, starts):
+    """Aligned quads of each column group of K4's all-rows plan (the
+    columns every live entry's gather copies for the group)."""
+    out = []
+    for a, b in zip(starts, starts[1:]):
+        full = [q for q in range(a, b) if bounds[q + 1] > bounds[q]]
+        out.append((bounds[full[-1] + 1] - 1) // 4 - bounds[full[0]] // 4 + 1
+                   if full else 0)
+    return out
+
+
 def check_all_rows_k4(corpus, q_ids, q_w):
-    """Phase 8 (e): K4's all-rows form, both modes, against its plain
-    version on the 16-query batch over every corpus row: max |d|, the bare
-    launch, the wrapper, the plain version (one call), the bound."""
-    valid = lc.phase1_valid_dist(corpus.coords, q_ids, q_w)
-    args = (corpus.ids, corpus.w, None) + tuple(valid)
+    """Phase 8 (e): K4's all-rows form (``csrc/cand_dist_all.cu``), both
+    modes, on the 16-query batch over every corpus row, under float32 and
+    bfloat16 costs: bitwise the candidate form (``csrc/cand_dist_valid.cu``)
+    at cand = every row, and (f32) against its plain version. Times, in
+    turns (the candidate form, the kernel, the kernel, the candidate form):
+    the bare launch of each, the candidate form being the old design's
+    yardstick; then the wrapper, the plain version (one call), the bound,
+    the compiler's registers and blocks an SM, and the costs the kernel
+    gathers from the L2 (every live entry's quads of its column group) over
+    its time."""
+    every = torch.arange(corpus.n, device=corpus.w.device).expand(
+        NQ, corpus.n).contiguous()
+    nnz = int((corpus.w > 0).sum())
     out = {}
-    for mode, op, plain, per_bin, per_row in (
-            ("rev_min", ops.cand_rev_min_valid,
-             cand_pour.cand_rev_min_valid_plain, 1, 2),
-            ("ict", ops.cand_ict_valid, cand_pour.cand_ict_valid_plain,
-             2, 0)):
-        name = f"cand_dist_valid.all_{mode}"
-        got = op(*args)
-        want, plain_s, _ = timed(lambda: plain(*args))
-        err = (got - want).abs().max().item()
-        check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
-              f"{name}: max |d| {err} from its plain version beyond rtol "
-              f"{RTOL} atol {ATOL}")
-        check(bool(torch.isfinite(got).all()) and got.max().item() < 1e3,
-              f"{name}: a score reached the sentinel scale")
-        ms = cuda_ms(lambda: cand_pour.cand_dist_valid_cuda(*args, mode),
-                     reps=20)
-        wrapped = host_ms(lambda: op(*args), reps=5)
-        nbytes, flops = valid_rows_work(corpus, valid, per_bin, per_row)
-        b_ms, b_by = bound_ms(nbytes, flops)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=1e3 * plain_s,
-                         bound_ms=b_ms, bound_by=b_by, wrapper_ms=wrapped)
-        print(f"phase 8: {name} nq={NQ} n={corpus.n} "
-              f"({valid[0].shape[1]} valid bins): max|d| vs plain "
-              f"{err:.3g}; the bare launch {ms:.4f} ms, the wrapper "
-              f"{wrapped:.4f} ms, plain {1e3 * plain_s:.1f} ms (one call); "
-              f"bound {b_ms:.4f} by {b_by} ({nbytes / 1e9:.3f} GB, "
-              f"{flops / 1e9:.3f} GFLOP)", flush=True)
+    for precision in ("f32", "bf16"):
+        dt = torch.float32 if precision == "f32" else torch.bfloat16
+        valid = lc.phase1_valid_dist(corpus.coords, q_ids, q_w, precision)
+        Dv, qoff, qwv = valid
+        bounds = qoff.tolist()
+        plan = cand_pour.all_rows_plan(bounds, Dv.device)
+        quads = group_quads(bounds, cand_pour.column_groups(bounds)[0])
+        gathered = nnz * 4 * sum(quads) * Dv.element_size()
+        args = (corpus.ids, corpus.w, None) + tuple(valid)
+        for mode, op, plain, per_bin, per_row in (
+                ("rev_min", ops.cand_rev_min_valid,
+                 cand_pour.cand_rev_min_valid_plain, 1, 2),
+                ("ict", ops.cand_ict_valid, cand_pour.cand_ict_valid_plain,
+                 2, 0)):
+            name = f"cand_dist_valid.all_{mode}"
+            got = op(*args)
+
+            def new():
+                return cand_pour.cand_dist_all_cuda(corpus.ids, corpus.w, Dv,
+                                                    qoff, qwv, mode, plan)
+
+            def old():
+                return cand_pour.cand_dist_valid_cuda(
+                    corpus.ids, corpus.w, every, Dv, qoff, qwv, mode)
+            same = old()
+            check(torch.equal(got, same) and torch.equal(new(), got),
+                  f"{name} {precision}: not bitwise the candidate form at "
+                  f"every row ({int((got != same).sum())} of {got.numel()} "
+                  "differ)")
+            old_ms = [cuda_ms(old, reps=10)]
+            new_ms = [cuda_ms(new, reps=20), cuda_ms(new, reps=20)]
+            old_ms.append(cuda_ms(old, reps=10))
+            a = cand_pour.all_attrs(mode, plan[1], dt)
+            layout = ops.block_layout("cand_dist", nq=NQ, b=corpus.n, h=HMAX,
+                                      mode=mode, form="all", quads=plan[1],
+                                      bf16=precision == "bf16")
+            per_sm = smem.blocks_per_sm(layout, regs=a["regs"])
+            ms = min(new_ms)
+            row = dict(ms=ms, old_design_ms=min(old_ms), regs=a["regs"],
+                       blocks_per_sm=per_sm, gathered_gb=gathered / 1e9,
+                       gathered_gbps=gathered / 1e6 / ms)
+            note = ""
+            if precision == "f32":
+                want, plain_s, _ = timed(lambda: plain(*args))
+                err = (got - want).abs().max().item()
+                check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                      f"{name}: max |d| {err} from its plain version beyond "
+                      f"rtol {RTOL} atol {ATOL}")
+                check(bool(torch.isfinite(got).all())
+                      and got.max().item() < 1e3,
+                      f"{name}: a score reached the sentinel scale")
+                wrapped = host_ms(lambda: op(*args), reps=5)
+                nbytes, flops = valid_rows_work(corpus, valid, per_bin,
+                                                per_row)
+                b_ms, b_by = bound_ms(nbytes, flops)
+                out[name] = dict(max_abs_err=err, plain_ms=1e3 * plain_s,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 wrapper_ms=wrapped, **row)
+                note = (f"; max|d| vs plain {err:.3g}, the wrapper "
+                        f"{wrapped:.4f} ms, plain {1e3 * plain_s:.1f} ms "
+                        f"(one call); bound {b_ms:.4f} by {b_by} "
+                        f"({nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP)")
+            else:
+                out[name].update({f"{k}_bf16": v for k, v in row.items()})
+            print(f"phase 8: {name} {precision} nq={NQ} n={corpus.n} "
+                  f"({Dv.shape[1]} valid bins, column groups of "
+                  f"{quads} quads): bitwise the candidate form at every "
+                  f"row; the bare launch {new_ms[0]:.4f} / {new_ms[1]:.4f} "
+                  f"ms, the old design (the candidate form at cand = every "
+                  f"row) {old_ms[0]:.4f} / {old_ms[1]:.4f} ms; "
+                  f"{a['regs']} registers, {layout.smem_bytes} B shared, "
+                  f"{per_sm} blocks/SM; gathers {gathered / 1e9:.3f} GB of "
+                  f"costs, {gathered / 1e6 / ms:.0f} GB/s{note}", flush=True)
     return out
 
 
@@ -2619,14 +2687,19 @@ def tile_cases(corpus, q_ids, q_w, wide, narrow, precision):
                     h=HMAX, iters=it, mode=m, form="all" if a else "cand"))
         for name, (m, it, a) in ROWS_CASES.items()}
     out["cand_dist"] = {}
+    widest = cand_pour.column_groups(valid[1].tolist())[1]
     for mode, op in (("ict", ops.cand_ict_valid),
                      ("rev_min", ops.cand_rev_min_valid)):
-        for form, cand in (("", narrow), ("all_", None)):
-            out["cand_dist"][f"cand_dist_valid.{form}{mode}"] = (
-                lambda op=op, cand=cand, **t: op(ids, w, cand, *valid, **t),
-                lambda var, mode=mode: cand_pour.valid_attrs(mode, dt, var),
-                dict(nq=NQ, b=n if cand is None else B_NARROW, h=HMAX,
-                     mode=mode))
+        out["cand_dist"][f"cand_dist_valid.{mode}"] = (
+            lambda op=op, **t: op(ids, w, narrow, *valid, **t),
+            lambda var, mode=mode: cand_pour.valid_attrs(mode, dt, var),
+            dict(nq=NQ, b=B_NARROW, h=HMAX, mode=mode))
+        out["cand_dist"][f"cand_dist_valid.all_{mode}"] = (
+            lambda op=op, **t: op(ids, w, None, *valid, **t),
+            lambda var, mode=mode: cand_pour.all_attrs(mode, widest, dt,
+                                                       var),
+            dict(nq=NQ, b=n, h=HMAX, mode=mode, form="all", quads=widest,
+                 bf16=precision == "bf16"))
     return out
 
 
@@ -2648,9 +2721,13 @@ def phase11_variants(corpus, q_ids, q_w, wide, narrow, logs, bounds):
     configs = {f: autotune.admissible_configs(f, d)[:autotune.MAX_VARIANTS]
                for f, d in dims.items()}
     t0 = time.perf_counter()
+    # K4's all-rows form is a library of its own on the family's macro.
+    sources = {f: [ops.family_source(f, form) for form in (
+        ("cand", "all") if f == "cand_dist" else ("cand",))]
+        for f in configs}
     vlogs = _build.build_variants([
-        (ops.FAMILY_ENTRIES[f][1], dict(ops.variant(f, **c)))
-        for f, cfgs in configs.items() for c in cfgs])
+        (src, dict(ops.variant(f, **c)))
+        for f, cfgs in configs.items() for c in cfgs for src in sources[f]])
     build_s = time.perf_counter() - t0
     print(f"phase 11: built {len(vlogs)} variants of "
           f"{ {f: len(c) for f, c in configs.items()} } in {build_s:.1f} s "
@@ -2659,8 +2736,8 @@ def phase11_variants(corpus, q_ids, q_w, wide, narrow, logs, bounds):
     for precision in ("f32", "bf16"):
         for family, cases in tile_cases(corpus, q_ids, q_w, wide, narrow,
                                         precision).items():
-            source = ops.FAMILY_ENTRIES[family][1]
             for name, (call, attrs, cdims) in cases.items():
+                source = ops.family_source(family, cdims.get("form", "cand"))
                 want = as_tuple(call())
                 for cfg in configs[family]:
                     got = as_tuple(call(**cfg))

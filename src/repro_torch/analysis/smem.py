@@ -30,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.analysis.violations import Violation
-from repro_torch.kernels import ops
+from repro_torch.kernels import cand_pour, ops
 
 #: sm_90's limits (NVIDIA's CUDA programming guide, compute capability
 #: 9.0).
@@ -126,26 +126,33 @@ def check_launch(label: str, family: str, dims: dict, *,
     return out
 
 
-#: Nominal dims of each family: the shape-independent checks of a tile
-#: (:func:`check_tiles`) build its layout at these. A variant's library
-#: holds every mode's kernel, so the mode with the most shared memory
-#: decides (K4's ict keeps its queue's weights, rev_min does not).
+#: Nominal dims of each family's kernels: the shape-independent checks of
+#: a tile (:func:`check_tiles`) build its layouts at these. A variant's
+#: library holds every mode's kernel, so the mode with the most shared
+#: memory decides (K4's ict keeps its queue's weights, rev_min does not);
+#: K4's all-rows form is a library of its own on the same macro, checked
+#: at its widest column group of float32 costs.
 _NOMINAL = {
-    "dist_topk": dict(nq=1, v=1, h=1, m=1, k=1),
-    "act_phase2": dict(nq=1, n=1, h=1, iters=1),
-    "act_phase2_cand": dict(nq=1, n=1, h=1, iters=1),
-    "cand_pour": dict(nq=1, b=1, h=1, iters=1),
-    "cand_dist": dict(nq=1, b=1, h=1, mode="ict"),
+    "dist_topk": (dict(nq=1, v=1, h=1, m=1, k=1),),
+    "act_phase2": (dict(nq=1, n=1, h=1, iters=1),),
+    "act_phase2_cand": (dict(nq=1, n=1, h=1, iters=1),),
+    "cand_pour": (dict(nq=1, b=1, h=1, iters=1),),
+    "cand_dist": (dict(nq=1, b=1, h=1, mode="ict"),
+                  dict(nq=1, b=1, h=1, mode="ict", form="all",
+                       quads=cand_pour.GROUP_QUADS)),
 }
 
 
 def check_tiles(family: str, tiles: dict, *,
                 budget: Budget = Budget()) -> list[Violation]:
-    """Whether ``family``'s library can be built with the tile ``tiles``
-    and each of its kernels launched, whatever the shape: every check of
+    """Whether ``family``'s libraries can be built with the tile ``tiles``
+    and each of their kernels launched, whatever the shape: every check of
     :func:`check_launch` but the grid's."""
-    return check_launch(f"{family}:{tiles}", family,
-                        {**_NOMINAL[family], **tiles}, budget=budget)
+    out: list[Violation] = []
+    for dims in _NOMINAL[family]:
+        out += check_launch(f"{family}:{tiles}", family, {**dims, **tiles},
+                            budget=budget)
+    return out
 
 
 def check_configs() -> list[tuple[str, str, dict]]:
@@ -174,7 +181,7 @@ def check_configs() -> list[tuple[str, str, dict]]:
                              form="all")))
         for mode in ("rev_min", "ict"):
             out.append((f"{name}:cand_dist:all_{mode}", "cand_dist",
-                        dict(nq=nq, b=n, h=cfg.hmax, mode=mode)))
+                        dict(nq=nq, b=n, h=cfg.hmax, mode=mode, form="all")))
     # The cascade's candidate stages: 5 % and 20 % of the 20News corpus.
     for b in (941, 3766):
         for mode, iters in (("pour", 0), ("pour", 3), ("omr", 1)):

@@ -9,11 +9,9 @@
 // cand_rev_min_valid_plain and cand_ict_valid_plain.
 //
 // Inputs. The corpus, ids (n, hmax) int32 and w (n, hmax) f32; the
-// candidate rows cand (nq, b) int64, or none for the all-rows form (every
-// corpus row, b = n: the full-corpus rwmd_rev and ict engines, whose JAX
-// counterparts reduce the whole stacked (v, nq, h) tensor and have no
-// kernel); the valid-bin handoff of
-// core/lc.py::phase1_valid_dist: Dv (v, P) f32 or bf16 with a row stride
+// candidate rows cand (nq, b) int64 (every corpus row is cand_dist_all.cu's
+// form, which gives this kernel's bits at cand[q] = every row); the
+// valid-bin handoff of core/lc.py::phase1_valid_dist: Dv (v, P) f32 or bf16 with a row stride
 // ld that is a multiple of 4, the distances of every vocabulary row to the
 // batch's P valid query bins, query q owning columns [qoff[q], qoff[q+1])
 // in the order of its bins, and qwv (P,) their query weights. For query q,
@@ -61,9 +59,7 @@
 //   pour.
 // * The candidate rows are gathered in the kernel: cand, ids and w are
 //   read directly (ids only at slots with x > 0), streamed past with
-//   evict-first loads, so no (nq, b, hmax) tensor exists. The all-rows
-//   form takes row c of warp q * n + c, without cand; its warps in flight
-//   are one query's, so they share that query's columns of Dv in the L2.
+//   evict-first loads, so no (nq, b, hmax) tensor exists.
 // * One launch per stage and batch, warps numbered query-major, so the
 //   warps in flight read one or two queries' columns of Dv, which stay in
 //   the L2 (the 20 Newsgroups batch's longest query, 134 columns, touches
@@ -266,8 +262,7 @@ cand_dist_valid_kernel(const int* __restrict__ ids,
   qy.tmax = (nquad + qy.G - 1) / qy.G;
   const int ng = 32 / qy.G, g = lane / qy.G;
   const float* qwq = qwv + qy.lo;
-  const size_t row = cand ? (size_t)__ldcs(cand + warp)
-                          : (size_t)(warp - (long long)q * b);
+  const size_t row = (size_t)__ldcs(cand + warp);
   const float* xr = w + row * hmax;
   const int* ir = ids + row * hmax;
   const unsigned below = (1u << lane) - 1u;
@@ -375,8 +370,7 @@ cudaError_t launch(const int* ids, const float* w, const long long* cand,
 }  // namespace
 
 // ids (n, hmax) int32 with ids in [0, v), w (n, hmax) f32, cand (nq, b)
-// int64 in [0, n) or null for every row (then b = n), qoff (nq + 1,) int32
-// rising from 0 to P, qwv (P,) f32,
+// int64 in [0, n), qoff (nq + 1,) int32 rising from 0 to P, qwv (P,) f32,
 // all contiguous; dv (v, P) f32 or bf16 (bf16 = 1) with rows of stride
 // ld, ld % 4 == 0, 16-byte aligned; no query's columns may touch more than
 // 32 * QPL = 256 aligned quads (1,020 columns always fit). big = the f32

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: Every kernel source of the port (``csrc/<name>.cu``).
 SOURCES = ("dist_topk", "act_phase2", "cand_pour", "cand_dist",
-           "cand_dist_valid", "cand_pour_rows")
+           "cand_dist_valid", "cand_dist_all", "cand_pour_rows")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

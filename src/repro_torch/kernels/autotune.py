@@ -220,8 +220,7 @@ def _engine_plan(corpus, method: str, iters: int, nq: int,
     elif method == "omr":
         out.append(("cand_pour", dict(rows, iters=1, mode="omr")))
     elif method in ("rwmd_rev", "ict"):
-        out.append(("cand_dist", dict(nq=nq, b=rows["b"], h=h,
-                                      mode="ict" if method == "ict"
+        out.append(("cand_dist", dict(rows, mode="ict" if method == "ict"
                                       else "rev_min")))
     return out
 
@@ -315,7 +314,7 @@ def _runner(family: str, dims: dict, corpus, configs: list[dict]):
 
     def make_run(cfg):
         if not built:
-            source = ops.FAMILY_ENTRIES[family][1]
+            source = ops.family_source(family, dims.get("form", "cand"))
             _build.build_variants(
                 [(source, dict(ops.variant(family, **c))) for c in configs])
             built.append(True)

@@ -19,11 +19,13 @@ Counterparts of the JAX package's ``kernels/cand_pour.py``:
   the layout ``core.lc.phase1_valid_dist`` writes: Dv (v, P) holds only
   the batch's P valid query bins, query q owning columns
   [qoff[q], qoff[q+1]), with their weights qwv (P,). It reads the
-  candidate rows from the corpus (ids, w) at cand (nq, b) itself, or
-  every row when cand is None (the all-rows form, (nq, n) out: the
-  full-corpus ``rwmd_rev`` and ``ict`` engines). An empty query scores 0,
-  as its padded bins add exactly 0 on the stacked handoff. This is the
-  entry the engines call.
+  candidate rows from the corpus (ids, w) at cand (nq, b) itself. When
+  cand is None (the all-rows form, (nq, n) out: the full-corpus
+  ``rwmd_rev`` and ``ict`` engines) the card runs ``csrc/cand_dist_all.cu``
+  instead, which reads each corpus row once for a column group of
+  queries (:func:`column_groups`) and gives the candidate kernel's bits at
+  cand[q] = every row. An empty query scores 0, as its padded bins add
+  exactly 0 on the stacked handoff. This is the entry the engines call.
 * ``cand_pour_rows`` (K3 reading the corpus rows itself; CUDA
   ``csrc/cand_pour_rows.cu``) is ``cand_pour`` on the corpus (ids, w) at
   the candidate rows cand (nq, b), or at every row when cand is None (the
@@ -71,6 +73,12 @@ valid_launches = {"rev_min": 0, "ict": 0, "all_rev_min": 0, "all_ict": 0}
 #: aligned quads of an entry's costs, and 1,020 columns touch at most 256
 #: quads, 8 for each of 32 lanes, whatever their alignment.
 MAX_LEN = 1020
+
+#: K4's all-rows form (``csrc/cand_dist_all.cu`` GQ, QG): the aligned quads
+#: a column group spans at most (1,024 columns, so a query of MAX_LEN
+#: columns fits alone at any alignment) and the queries it holds at most.
+GROUP_QUADS = 256
+GROUP_QUERIES = 16
 
 #: Launches of K3's corpus-row entry since the counts were last set to 0:
 #: the candidate form by mode (``pour``, ``pour0`` = pour at iters=0,
@@ -161,6 +169,32 @@ def cand_ict_valid_plain(ids: torch.Tensor, w: torch.Tensor,
     return _reduce_valid(lc.ict_reduce, ids, w, cand, dv, qoff, qwv)
 
 
+def column_groups(bounds) -> tuple[list[int], int]:
+    """Plan K4's all-rows launch from qoff's values ``bounds`` (nq + 1
+    ints): runs of whole queries, in order, of at most GROUP_QUERIES
+    queries whose valid columns span at most GROUP_QUADS aligned quads,
+    from the first non-empty query's first quad to the last one's last.
+    An empty query takes no column. Returns (the first query of each group
+    followed by nq, the quads of the widest group)."""
+    nq = len(bounds) - 1
+    starts, widest = [0], 0
+    first = last = None                        # the open group's quads
+    for q in range(nq):
+        lo, hi = bounds[q], bounds[q + 1]
+        full = q - starts[-1] == GROUP_QUERIES or (
+            hi > lo and first is not None
+            and (hi - 1) // 4 - first + 1 > GROUP_QUADS)
+        if full:
+            widest = max(widest, 0 if first is None else last - first + 1)
+            starts.append(q)
+            first = last = None
+        if hi > lo:
+            first = lo // 4 if first is None else first
+            last = (hi - 1) // 4
+    widest = max(widest, 0 if first is None else last - first + 1)
+    return starts + [nq], widest
+
+
 def _rows_blocks(fn, ids, w, cand, tables, width):
     """``fn(idsg, xg, *tables)`` one query at a time on the query's rows of
     the corpus (every row when cand is None), in row chunks of at most
@@ -249,25 +283,62 @@ def cand_dist_valid_cuda(ids: torch.Tensor, w: torch.Tensor,
                          cand: torch.Tensor, dv: torch.Tensor,
                          qoff: torch.Tensor, qwv: torch.Tensor,
                          mode: str, variant=()) -> torch.Tensor:
-    """Launch the valid-bin K4 on the current stream, at the candidate rows
-    cand or, with cand None, at every corpus row. The caller
-    (``ops.cand_rev_min_valid`` / ``ops.cand_ict_valid``) has checked
-    devices, dtypes, shapes, strides, the range of cand and qoff, and
-    that no query has more than MAX_LEN valid bins, and picked the tile
-    ``variant`` (``ops.variant``; () for the default tile)."""
+    """Launch the valid-bin K4 on the current stream at the candidate rows
+    cand. The caller (``ops.cand_rev_min_valid`` / ``ops.cand_ict_valid``)
+    has checked devices, dtypes, shapes, strides, the range of cand and
+    qoff, and that no query has more than MAX_LEN valid bins, and picked
+    the tile ``variant`` (``ops.variant``; () for the default tile)."""
     lib = _lib("cand_dist_valid", variant)
-    nq = qoff.shape[0] - 1
-    b = ids.shape[0] if cand is None else cand.shape[1]
+    nq, b = cand.shape
     t = torch.empty((nq, b), dtype=torch.float32, device=w.device)
     err = lib.cand_dist_valid_launch(
-        ids.data_ptr(), w.data_ptr(), 0 if cand is None else cand.data_ptr(),
-        dv.data_ptr(), qoff.data_ptr(), qwv.data_ptr(), t.data_ptr(), nq, b,
-        ids.shape[1], dv.stride(0), pad_dist_for(torch.float32),
-        _MODES[mode], int(dv.dtype == torch.bfloat16), _stream(w))
+        ids.data_ptr(), w.data_ptr(), cand.data_ptr(), dv.data_ptr(),
+        qoff.data_ptr(), qwv.data_ptr(), t.data_ptr(), nq, b, ids.shape[1],
+        dv.stride(0), pad_dist_for(torch.float32), _MODES[mode],
+        int(dv.dtype == torch.bfloat16), _stream(w))
     if err:
         raise _build.KernelError(f"cand_dist_valid kernel launch failed: "
                            f"{lib.cand_dist_valid_error(err).decode()}")
-    valid_launches[mode if cand is not None else f"all_{mode}"] += 1
+    valid_launches[mode] += 1
+    return t
+
+
+def all_rows_plan(bounds, device) -> tuple[torch.Tensor, int]:
+    """:func:`column_groups` of qoff's values ``bounds`` as the all-rows
+    kernel takes it: (the groups' first queries, nq and the kernel's two
+    work counters (0; the kernel leaves them 0, so a plan serves any
+    number of launches in stream order), int32 on ``device``; the quads
+    of the widest group)."""
+    starts, widest = column_groups(bounds)
+    return (torch.tensor(starts + [0, 0], dtype=torch.int32, device=device),
+            widest)
+
+
+def cand_dist_all_cuda(ids: torch.Tensor, w: torch.Tensor, dv: torch.Tensor,
+                       qoff: torch.Tensor, qwv: torch.Tensor, mode: str,
+                       plan, variant=()) -> torch.Tensor:
+    """Launch K4's all-rows form (``csrc/cand_dist_all.cu``) on the current
+    stream: every corpus row against the batch -> (nq, n) float32, bitwise
+    the candidate kernel at cand[q] = every row. ``plan``: the launch's
+    :func:`all_rows_plan`. The caller (``ops.cand_rev_min_valid`` /
+    ``ops.cand_ict_valid`` with cand None) has checked devices, dtypes,
+    shapes, strides, qoff, and that no query has more than MAX_LEN valid
+    bins, and picked the tile ``variant`` (``ops.variant``; () for the
+    default tile)."""
+    lib = _lib("cand_dist_all", variant)
+    groups, widest = plan
+    nq, (n, hmax) = qoff.shape[0] - 1, ids.shape
+    t = torch.empty((nq, n), dtype=torch.float32, device=w.device)
+    err = lib.cand_dist_all_launch(
+        ids.data_ptr(), w.data_ptr(), dv.data_ptr(), qoff.data_ptr(),
+        qwv.data_ptr(), groups.data_ptr(), t.data_ptr(), n, hmax,
+        dv.stride(0), groups.shape[0] - 3, widest,
+        pad_dist_for(torch.float32), _MODES[mode],
+        int(dv.dtype == torch.bfloat16), _stream(w))
+    if err:
+        raise _build.KernelError(f"cand_dist_all kernel launch failed: "
+                           f"{lib.cand_dist_all_error(err).decode()}")
+    valid_launches[f"all_{mode}"] += 1
     return t
 
 
@@ -331,6 +402,16 @@ def valid_attrs(mode: str, dtype: torch.dtype = torch.float32,
                              int(dtype == torch.bfloat16))
 
 
+def all_attrs(mode: str, widest: int, dtype: torch.dtype = torch.float32,
+              variant=()) -> dict:
+    """The compiler's figures (``_build.ATTR_KEYS``) for the kernel that
+    K4's all-rows form runs in this mode, its dynamic shared bytes at a
+    widest column group of ``widest`` quads, in the tile ``variant``."""
+    lib = _lib("cand_dist_all", variant)
+    return _build.func_attrs(lib.cand_dist_all_attrs, _MODES[mode],
+                             int(dtype == torch.bfloat16), widest)
+
+
 @functools.cache
 def _lib(name: str, variant=()) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/<name>.cu`` with the tile
@@ -346,6 +427,8 @@ def _lib(name: str, variant=()) -> ctypes.CDLL:
     elif name == "cand_pour_rows":
         launch.argtypes = [p] * 5 + [ctypes.c_longlong] * 4 + [p] + [i] * 6 \
             + [p]
+    elif name == "cand_dist_all":
+        launch.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float, i, i, p]
     else:
         launch.argtypes = [p, p, p, p, p] + [i] * 5 + [ctypes.c_float, i, i,
                                                        p]
@@ -356,6 +439,9 @@ def _lib(name: str, variant=()) -> ctypes.CDLL:
     elif name == "cand_dist_valid":
         lib.cand_dist_valid_attrs.argtypes = [i, i, p]
         lib.cand_dist_valid_attrs.restype = i
+    elif name == "cand_dist_all":
+        lib.cand_dist_all_attrs.argtypes = [i, i, i, p]
+        lib.cand_dist_all_attrs.restype = i
     error.argtypes = [i]
     error.restype = ctypes.c_char_p
     return lib

@@ -345,9 +345,10 @@ def cand_ict(idsg: torch.Tensor, xg: torch.Tensor, Dq: torch.Tensor,
 # ------------------------------------- K4 on the valid-bin distance handoff
 #
 # ids (n, hmax) int32 and w (n, hmax) float32 are the corpus, cand (nq, b)
-# int64 each query's candidate rows, or None for every row (the all-rows
-# form of the full-corpus engines); Dv (v, P), qoff (nq+1,) and qwv (P,)
-# the handoff of ``core.lc.phase1_valid_dist``. The ids must lie in
+# int64 each query's candidate rows (``csrc/cand_dist_valid.cu``), or None
+# for every row (the all-rows form of the full-corpus engines,
+# ``csrc/cand_dist_all.cu``); Dv (v, P), qoff (nq+1,) and qwv (P,) the
+# handoff of ``core.lc.phase1_valid_dist``. The ids must lie in
 # [0, v): the kernel loads at them unchecked, as the stacked entries do.
 
 
@@ -401,6 +402,10 @@ def _cand_dist_valid(ids, w, cand, dv, qoff, qwv, mode, plain, block_n):
              f"at most {cand_k.MAX_LEN}")
     if on_cpu:
         return plain(ids, w, cand, dv, qoff, qwv)
+    if cand is None:
+        return cand_k.cand_dist_all_cuda(
+            ids, w, dv, qoff, qwv, mode,
+            cand_k.all_rows_plan(bounds, w.device), var)
     return cand_k.cand_dist_valid_cuda(ids, w, cand, dv, qoff, qwv, mode,
                                        var)
 
@@ -412,8 +417,9 @@ def cand_rev_min_valid(ids: torch.Tensor, w: torch.Tensor,
     """K4 mode ``rev_min`` on the valid-bin handoff: the reverse-RWMD
     masked (min,+) reduction of :func:`cand_rev_min` at the candidate rows
     cand, reading each query's valid bins only -> (nq, b) float32; with
-    cand None, at every corpus row -> (nq, n). An empty query scores 0.
-    ``block_n``: rows (warps) a block (None: the default tile)."""
+    cand None, at every corpus row -> (nq, n), bitwise the candidate form
+    at cand[q] = every row. An empty query scores 0. ``block_n``: rows a
+    block (None: the default tile)."""
     return _cand_dist_valid(ids, w, cand, dv, qoff, qwv, "rev_min",
                             cand_k.cand_rev_min_valid_plain, block_n)
 
@@ -424,9 +430,9 @@ def cand_ict_valid(ids: torch.Tensor, w: torch.Tensor,
                    block_n: int | None = None) -> torch.Tensor:
     """K4 mode ``ict`` on the valid-bin handoff: the LC-ICT full-ladder
     pour of :func:`cand_ict` at the candidate rows cand -> (nq, b)
-    float32; with cand None, at every corpus row -> (nq, n). An empty
-    query scores 0. ``block_n``: rows (warps) a block (None: the default
-    tile)."""
+    float32; with cand None, at every corpus row -> (nq, n), bitwise the
+    candidate form at cand[q] = every row. An empty query scores 0.
+    ``block_n``: rows a block (None: the default tile)."""
     return _cand_dist_valid(ids, w, cand, dv, qoff, qwv, "ict",
                             cand_k.cand_ict_valid_plain, block_n)
 
@@ -561,9 +567,12 @@ SMS = 132
 #:   per block. Its slots per pass (CH) and queries per warp (QB_ALL)
 #:   decide which lane sums which entries. ``block_v`` (the TPU kernel's
 #:   one-hot vocabulary slab) has no counterpart: the card loads directly.
-#: * ``cand_dist``: K4's valid-bin entry ``cand_dist_valid``; rows (warps)
-#:   per block. Its quads per lane (QPL) and slots per pass (CH) order its
-#:   sums; ``block_v`` as for ``cand_pour``.
+#: * ``cand_dist``: K4's valid-bin entry ``cand_dist_valid``; rows per
+#:   block (warps in the candidate form; warps, at most 4, each taking
+#:   rows on its own, in the all-rows form ``csrc/cand_dist_all.cu``, the
+#:   same macro). Its quads per lane (QPL) and slots per pass (CH) order
+#:   its sums, which the all-rows form replays; that form's column groups
+#:   (GQ, QG) and ring are constants; ``block_v`` as for ``cand_pour``.
 FAMILY_ENTRIES = {
     "dist_topk": ("dist_topk_batched", "dist_topk"),
     "act_phase2": ("act_phase2_gather", "act_phase2"),
@@ -571,6 +580,17 @@ FAMILY_ENTRIES = {
     "cand_pour": ("cand_pour_rows", "cand_pour_rows"),
     "cand_dist": ("cand_dist_valid", "cand_dist_valid"),
 }
+
+
+def family_source(family: str, form: str = "cand") -> str:
+    """The ``csrc`` source of ``family``'s launch in ``form``: K4's all-rows
+    form (``form="all"``) is a kernel of its own, built from the family's
+    macros."""
+    if (family, form) == ("cand_dist", "all"):
+        return "cand_dist_all"
+    return FAMILY_ENTRIES[family][1]
+
+
 TILE_MACROS = {
     "dist_topk": {"block_v": "DIST_TOPK_BV", "block_h": "DIST_TOPK_BH"},
     "act_phase2": {"block_n": "ACT_PHASE2_GATHER_WARPS"},
@@ -600,7 +620,7 @@ FIXED_TILES = {
         "256 threads; off the path since K4 reads the valid-bin handoff",
 }
 
-_DTYPE_BYTES = {"float32": 4, "int32": 4, "bfloat16": 2}
+_DTYPE_BYTES = {"float64": 8, "float32": 4, "int32": 4, "bfloat16": 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -734,6 +754,10 @@ def _act_phase2_layout(*, nq: int, n: int, h: int, iters: int,
 _ROWS_CH, _ROWS_QB = 16, 16
 #: K4's valid-bin entry: slots a lane reads per pass (cand_dist_valid CH).
 _VALID_CH = 8
+#: K4's all-rows form (csrc/cand_dist_all.cu WARPS, STAGES, BATCH of ict):
+#: most warps a block, entries in flight a warp (the cp.async ring),
+#: entries an ict step.
+_ALL_WARPS, _ALL_STAGES, _ALL_BATCH = 4, 4, 2
 
 
 def _cand_pour_layout(*, nq: int, b: int, h: int, iters: int,
@@ -760,19 +784,57 @@ def _cand_pour_layout(*, nq: int, b: int, h: int, iters: int,
 
 
 def _cand_dist_layout(*, nq: int, b: int, h: int, mode: str = "rev_min",
-                      block_n: int | None = None) -> KernelBlocks:
+                      block_n: int | None = None, form: str = "cand",
+                      quads: int | None = None,
+                      bf16: bool = False) -> KernelBlocks:
+    """K4's valid-bin entry: ``form="cand"`` at b candidate rows a query
+    (``cand_dist_valid.cu``), ``form="all"`` at every one of b = n corpus
+    rows (``cand_dist_all.cu``), whose shared memory follows the launch's
+    widest column group, ``quads`` aligned quads (None: the widest nq
+    queries of h bins can make, at most GROUP_QUADS), and its cost type
+    (``bf16``)."""
     _positive(nq=nq, b=b, h=h)
-    if mode not in ("rev_min", "ict"):
-        raise ValueError(f"cand_dist: mode must be rev_min or ict, got "
-                         f"{mode!r}")
-    warps = _warps("cand_dist", block_n)
+    if mode not in ("rev_min", "ict") or form not in ("cand", "all"):
+        raise ValueError(f"cand_dist: mode must be rev_min or ict and form "
+                         f"cand or all, got {mode!r}, {form!r}")
+    rows = _warps("cand_dist", block_n)
+    ict = mode == "ict"
+    if form == "all":
+        if quads is None:
+            quads = min(cand_k.GROUP_QUADS, nq * (_cdiv(h, 4) + 1))
+        if not 0 <= quads <= cand_k.GROUP_QUADS:
+            raise ValueError(f"cand_dist: a column group spans at most "
+                             f"{cand_k.GROUP_QUADS} quads, got {quads}")
+        groups = _cdiv(nq, cand_k.GROUP_QUERIES)   # the fewest a plan makes
+        warps, batch = min(rows, _ALL_WARPS), _ALL_BATCH
+        qg = cand_k.GROUP_QUERIES
+        parts = (warps, batch, 32)        # (entry, chunk) partials
+        top2 = parts + (2,)               # their two least costs, columns
+        # csrc/cand_dist_all.cu's Layout, in its order; all dynamic, every
+        # array a warp's own.
+        dyn = functools.partial(BlockBuffer, role="dynamic")
+        ring = dyn("ring", (warps, _ALL_STAGES, 4 * quads),
+                   "bfloat16" if bf16 else "float32")
+        table = (dyn("table", (warps, 4 * qg + 4), "int32"),
+                 dyn("sid", (warps, 32 * _VALID_CH), "int32"))
+        buffers = ((dyn("accs", (warps, qg, 32), "float64"),
+                    dyn("cont", (warps, batch, qg), "float64"), ring,
+                    *table, dyn("sx", (warps, 32 * _VALID_CH)),
+                    dyn("pbest", top2), dyn("parg", top2, "int32"),
+                    dyn("pmax", parts)) if ict else (ring, *table))
+        # One warp a (group, row) work item; the launch caps the grid at
+        # the blocks the card holds at once.
+        return KernelBlocks(
+            family="cand_dist", kernel="cand_dist_all_kernel",
+            grid=(_cdiv(groups * b, warps),), threads=32 * warps,
+            buffers=buffers)
     # The queue's weights are read by the ict pour only: in rev_min the
     # compiler drops sx.
-    queue = (BlockBuffer("sx", (warps, 32 * _VALID_CH)),) * (mode == "ict")
+    queue = (BlockBuffer("sx", (rows, 32 * _VALID_CH)),) * ict
     return KernelBlocks(
         family="cand_dist", kernel="cand_dist_valid_kernel",
-        grid=(_cdiv(nq * b, warps),), threads=32 * warps,
-        buffers=queue + (BlockBuffer("sid", (warps, 32 * _VALID_CH),
+        grid=(_cdiv(nq * b, rows),), threads=32 * rows,
+        buffers=queue + (BlockBuffer("sid", (rows, 32 * _VALID_CH),
                                      "int32"),))
 
 
