@@ -27,7 +27,8 @@ up to four processes on it and stops them. Phases:
 4. times (CUDA events after warm-up): each kernel, its plain version, its
    bound and, for K1, one library call (``torch.cdist`` + ``torch.topk``)
    as a yardstick the port never calls, on the valid work and at full
-   width; K1 again with all slots valid; seconds per 16-query search; peak
+   width; K1 again with all slots valid; the fused K2 also walking every
+   row to hmax (no row stop); seconds per 16-query search; peak
    device memory above the resident index;
 5. the candidate kernels against their plain versions on the card, on the
    inputs the cascade gives them at that width, under float32 and bfloat16
@@ -74,15 +75,19 @@ up to four processes on it and stops them. Phases:
    timed beside it (the old design's yardstick), and each chunk kernel's
    time, bound and library yardstick at a 256-row chunk;
 9. the single-query engines (each method's 16 queries one at a time
-   through ``EmdIndex.scores``, K1 at nq=1 and, for LC-ACT, the unfused
-   K2), against the batched rows and the reference backend, with search
-   times; K1 at nq=1 (k = 1, 2, 8) and the unfused K2 at nq=1 timed and
-   held to their plain versions; the scan engine (bitwise a loop of
-   single queries; all-pairs on the prefix); ``bf16_agg`` searches (act-7,
-   rwmd, omr, chain, tight) on both backends against f32 and K1 on
-   bfloat16 coordinates; the prefix's rwmd and rwmd_rev self-distances
-   exactly 0 on both backends; the per-pair relaxations and the exact LP
-   against the engines, and ``wmd_search``;
+   through ``EmdIndex.scores``: K1 at nq=1, then for LC-ACT the fused K2
+   at nq=1 and for LC-RWMD and LC-OMR K3's all-rows form, with no
+   (n, hmax, k) gather), against the batched rows and the reference
+   backend, with search times and peaks beside the parent's route (the
+   gather and the unfused K2) and, for act, the fused K2 walking every row
+   to hmax (no row stop); K1 at nq=1 (k = 1, 2, 8), the fused K2 at nq=1
+   (with and without the row stop) and the unfused K2 at nq=1 timed and
+   held to their plain versions and bitwise to each other; the scan engine
+   (bitwise a loop of single queries; all-pairs on the prefix);
+   ``bf16_agg`` searches (act-7, rwmd, omr, chain, tight) on both backends
+   against f32 and K1 on bfloat16 coordinates; the prefix's rwmd and
+   rwmd_rev self-distances exactly 0 on both backends; the per-pair
+   relaxations and the exact LP against the engines, and ``wmd_search``;
 10. the serving path: (a) cascades fed by candidate sources (a k-means
    LSH and a cluster tree, ~> rwmd(256) -> act-3, and the LSH ~> rwmd(256)
    -> act(64, 3) -> ict) built at 20 Newsgroups width, on both backends:
@@ -99,9 +104,10 @@ up to four processes on it and stops them. Phases:
    the same padded batch; (d) append, delete, snapshot and restore,
    bitwise, the fallback past a corrupt snapshot, and an LSH-sourced
    primary restored without a refit;
-11. the tiles: (a) every variant of K1, the fused K2, K3's corpus-row
-   entry and the valid-bin K4 (both its libraries: the candidate form and
-   the all-rows form) that ``analysis/smem.check_launch`` admits
+11. the tiles: (a) every variant of K1, the fused K2 (on the batch and at
+   nq=1), K3's corpus-row entry and the valid-bin K4 (both its libraries:
+   the candidate form and the all-rows form) that
+   ``analysis/smem.check_launch`` admits
    (at most ``autotune.MAX_VARIANTS`` a family, in the tuner's order),
    built together and launched at the shapes of phases 2-8 under float32
    and bfloat16 ladders: bitwise the default tile's output, the model's
@@ -357,6 +363,14 @@ SINGLE_METHODS = {"act": ITERS, "rwmd": 0, "rwmd_rev": 0, "omr": 0,
                   "ict": 0, "bow": 0, "wcd": 0}
 #: The single-query engines that launch K1, with its k.
 SINGLE_K = {"act": ITERS + 1, "omr": 2, "rwmd": 1}
+#: What each of them launches after K1 at nq=1: LC-ACT the fused K2,
+#: LC-RWMD and LC-OMR K3's all-rows form; once a query.
+SINGLE_ROUTE = {"act": ("act_phase2_gather",),
+                "rwmd": ("cand_pour_rows.all_pour_iters0",),
+                "omr": ("cand_pour_rows.all_omr",)}
+#: Interleaved rounds in which phase 9 (a) times one LC-ACT query with
+#: and without the fused K2's row stop.
+ROUTE_PAIRS = 40
 #: bf16_agg against f32: the reference's measured band
 #: (tests/test_precision.py), and the searches held to it.
 AGG_ATOL = 0.4
@@ -1241,10 +1255,13 @@ def chunk_kernel_times(name, host, dev):
     Z2, W2 = lc._phase1_batched_dispatch(corpus, q_ids, q_w, 2, True)
     W0 = W2[..., 0].contiguous()
 
-    def rows_bytes(width):
-        """x once, the ids of its live slots, ``width`` ladder values of
-        each distinct (query, id) they name; t out."""
-        return 4 * x.numel() + 4 * nnz + 4 * width * nq * n_ids + 4 * nq * n
+    # The fused K2 reads x only up to each row's length, and the lengths.
+    x_to_lens = 4 * int(act_phase2.row_lens(x).sum()) + 4 * n
+
+    def rows_bytes(width, x_bytes=4 * x.numel()):
+        """x once (``x_bytes``), the ids of its live slots, ``width``
+        ladder values of each distinct (query, id) they name; t out."""
+        return x_bytes + 4 * nnz + 4 * width * nq * n_ids + 4 * nq * n
     cases = {
         "dist_topk": (lambda: ops.dist_topk_batched(corpus.coords, qcs,
                                                     qmask, k),
@@ -1252,7 +1269,7 @@ def chunk_kernel_times(name, host, dev):
                       + qmask.numel() + 8 * nq * v * k,
                       (2 * m + 1) * v * nv),
         "act_phase2_gather": (lambda: ops.act_phase2_gather(x, ids, Z, W),
-                              rows_bytes(2 * ITERS + 1),
+                              rows_bytes(2 * ITERS + 1, x_to_lens),
                               5 * nq * nnz * (ITERS + 1)),
         "cand_pour_rows.all_pour_iters0": (
             lambda: ops.cand_pour_rows(ids, x, None, Z1, None, 0),
@@ -1790,13 +1807,61 @@ def phase8(host_corpus, labels, corpus, q_ids, q_w, rows, dev):
 # --------------------------------------------------------------- phase 9
 
 
+def parent_single_scores(corpus, q_ids, q_w, method, iters):
+    """One query's scores by the parent tree's single-query route, the
+    yardstick of phase 9 (a): K1 at nq=1, then the (n, hmax, k) ladders
+    gathered at the corpus ids by plain indexing and poured by the unfused
+    K2 (LC-ACT), dumped (LC-RWMD) or reduced (LC-OMR) in plain PyTorch."""
+    Z, S = ops.dist_topk(corpus.coords, corpus.coords[q_ids], q_w > 0,
+                         SINGLE_K[method], qids=q_ids)
+    W = q_w[S.long()]
+    Zg = Z[corpus.ids]                                   # (n, hmax, k)
+    if method == "rwmd":
+        return torch.sum(corpus.w * Zg[..., 0], dim=-1)
+    if method == "omr":
+        return lc.omr_entries(corpus.w, Zg, W[:, 0][corpus.ids])
+    return ops.act_phase2(corpus.w, Zg, W[:, :iters][corpus.ids])
+
+
+def act_route_scores(corpus, q_ids, q_w, iters, lens):
+    """One LC-ACT query's scores by the single-query engine's kernel
+    route, the fused K2 walking each row up to ``lens``: with
+    ``act_phase2.row_lens`` the engine's own, with hmax everywhere the same
+    kernel without its row stop (phase 9 (a)'s yardstick for it)."""
+    Z, S = ops.dist_topk(corpus.coords, corpus.coords[q_ids], q_w > 0,
+                         iters + 1, qids=q_ids)
+    W = q_w[S.long()]
+    return act_phase2.act_phase2_gather_cuda(corpus.w, corpus.ids, lens,
+                                             Z[None], W[None])[0]
+
+
+def paired_seconds(fns, rounds=ROUTE_PAIRS):
+    """Host seconds of one call of each of ``fns`` and a synchronize,
+    interleaved over ``rounds`` rounds after a warm-up, the order reversed
+    every other round: (first quartile, median, third quartile) each."""
+    secs = [[] for _ in fns]
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    for r in range(rounds):
+        for i in (range(len(fns)) if r % 2 == 0
+                  else reversed(range(len(fns)))):
+            t0 = time.perf_counter()
+            fns[i]()
+            torch.cuda.synchronize()
+            secs[i].append(time.perf_counter() - t0)
+    return [tuple(statistics.quantiles(t, n=4)) for t in secs]
+
+
 def phase9_single(index, q_ids, q_w, runs):
     """Phase 9 (a): each method's 16 queries scored one at a time through
     ``EmdIndex.scores`` (the single-query engines) on the cuda backend,
     the counts set to 0 before and read after; held against the batched
     row and the reference backend's single queries; top-16 equal where the
     reference is separated; search seconds (one query, median of 3) and
-    the peak above the resident; symmetric LC-RWMD on one query."""
+    the peak above the resident, for act, rwmd and omr beside the parent's
+    route (:func:`parent_single_scores`, which LC-ACT equals bitwise);
+    symmetric LC-RWMD on one query."""
     gib = 2**30
     out, rows_of_method = {}, {}
     for method, iters in SINGLE_METHODS.items():
@@ -1806,9 +1871,10 @@ def phase9_single(index, q_ids, q_w, runs):
         one, _, peak = timed(lambda: torch.stack(
             [ix.scores(q_ids[i], q_w[i]) for i in range(NQ)]))
         runs[f"single.{method}"] = counts = read_counts()
-        want = dict(dist_topk=NQ if method in SINGLE_K else 0,
-                    act_phase2=NQ if method == "act" else 0)
-        check(nonzero(counts) == nonzero(want),
+        want = {name: NQ for name in SINGLE_ROUTE.get(method, ())}
+        if method in SINGLE_K:
+            want["dist_topk"] = NQ
+        check(nonzero(counts) == want,
               f"single {method}: launches {nonzero(counts)}, not "
               f"{nonzero(want)}")
         batch = ix.scores(q_ids, q_w)
@@ -1834,17 +1900,59 @@ def phase9_single(index, q_ids, q_w, runs):
         ref_secs, _ = search_seconds(lambda: ref.search(q_ids[0], q_w[0]))
         out[method] = dict(search_seconds=secs, reference_seconds=ref_secs,
                            peak_gib=max(peak, search_peak / gib),
+                           search_peak_gib=search_peak / gib,
                            batched_err=err_b, reference_err=err_r,
                            firm=int(firm.sum()), launches=nonzero(counts))
+        parent = ""
+        if method in SINGLE_ROUTE:
+            old = torch.stack([parent_single_scores(
+                index.corpus, q_ids[i], q_w[i], method, iters)
+                for i in range(NQ)])
+            err_p = (one - old).abs().max().item()
+            check(torch.equal(one, old) if method == "act" else
+                  torch.allclose(one, old, rtol=RTOL, atol=ATOL),
+                  f"single {method}: vs the parent's route max |d| {err_p}")
+            p_secs, p_peak = search_seconds(
+                lambda: retrieval.top_l_smallest(parent_single_scores(
+                    index.corpus, q_ids[0], q_w[0], method, iters), TOP_L))
+            out[method].update(parent_seconds=p_secs,
+                               parent_peak_gib=p_peak / gib,
+                               parent_err=err_p)
+            parent = (f"; the parent's route (the (n, hmax, k) gather"
+                      f"{', the unfused K2' if method == 'act' else ''}) "
+                      f"{p_secs:.5f} s, peak {p_peak / gib:.3f} GiB, vs it "
+                      f"max|d|={err_p:.3g}"
+                      f"{' (bitwise)' if err_p == 0 else ''}")
+        if method == "act":
+            check(search_peak / gib < 0.1, f"single act: one query's peak "
+                  f"above the resident {search_peak / gib:.3f} GiB")
+            c = index.corpus
+            lens = act_phase2.row_lens(c.w)
+            whole = torch.full_like(lens, c.w.shape[1])
+            check(torch.equal(act_route_scores(c, q_ids[0], q_w[0], iters,
+                                               lens), one[0]),
+                  "single act: the kernel route is not bitwise the engine")
+            stop, no_stop = paired_seconds([
+                lambda lens=l: retrieval.top_l_smallest(act_route_scores(
+                    c, q_ids[0], q_w[0], iters, lens), TOP_L)
+                for l in (lens, whole)])
+            out[method].update(route_seconds_quartiles=stop,
+                               no_stop_seconds_quartiles=no_stop)
+            parent += (f"; the kernel route ({ROUTE_PAIRS} interleaved "
+                       f"rounds, quartiles) {stop[0]:.6f} / {stop[1]:.6f} / "
+                       f"{stop[2]:.6f} s, without the fused K2's row stop "
+                       f"{no_stop[0]:.6f} / {no_stop[1]:.6f} / "
+                       f"{no_stop[2]:.6f} s")
         rows_of_method[method] = one
         print(f"phase 9: single {method}-{iters}: {NQ} queries one at a "
               f"time, vs the batched rows max|d|={err_b:.3g}, vs the "
               f"reference's single queries max|d|={err_r:.3g}; top-{TOP_L} "
               f"equal at {int(firm.sum())} separated ranks of "
-              f"{firm.numel()}; search of one query cuda {secs:.4f} s, "
-              f"reference {ref_secs:.4f} s (median of 3); peak above the "
-              f"resident {out[method]['peak_gib']:.3f} GiB; launches "
-              f"{nonzero(counts)}", flush=True)
+              f"{firm.numel()}; search of one query cuda {secs:.5f} s, "
+              f"peak above the resident {search_peak / gib:.4f} GiB, "
+              f"reference {ref_secs:.4f} s (median of 3){parent}; the "
+              f"{NQ} queries' peak {out[method]['peak_gib']:.3f} GiB; "
+              f"launches {nonzero(counts)}", flush=True)
     sym = index.with_config(method="rwmd", symmetric=True)
     zero_counts()
     s1 = sym.scores(q_ids[0], q_w[0])
@@ -1864,10 +1972,12 @@ def phase9_single(index, q_ids, q_w, runs):
 
 
 def phase9_kernels(corpus, q_ids, q_w):
-    """Phase 9 (b): K1 at nq=1 (k = 1, 2, 8) and the unfused K2 at nq=1 on
-    the first query: against their plain versions (K2 also bitwise against
-    the fused K2 at nq=1), times, bounds and, for K1, the library
-    yardstick (cdist + topk over the query's valid bins)."""
+    """Phase 9 (b): K1 at nq=1 (k = 1, 2, 8), the fused K2 at nq=1 (as the
+    single-query engine launches it, and walking every row to hmax: no
+    row stop) and the unfused K2 at nq=1 on the first query:
+    against their plain versions and bitwise against each other, times,
+    bounds and, for K1, the library yardstick (cdist + topk over the
+    query's valid bins)."""
     coords, x, ids = corpus.coords, corpus.w, corpus.ids
     v, m = coords.shape
     qi, qw = q_ids[0], q_w[0]
@@ -1897,29 +2007,76 @@ def phase9_kernels(corpus, q_ids, q_w):
               f"{b_ms:.4f} by {b_by}", flush=True)
     Z, S = ops.dist_topk(coords, qc, qmask, ITERS + 1, qids=qi)
     W = qw[S.long()]
+    Z1, W1 = Z[None], W[None]                    # the engine's (1, v, k)
     zg, wg = Z[ids], W[:, :ITERS][ids]
+    lens = act_phase2.row_lens(x)
+    whole = torch.full_like(lens, x.shape[1])    # no row stop
     t = ops.act_phase2(x, zg, wg)
-    tf = ops.act_phase2_gather(x, ids, Z[None].contiguous(),
-                               W[None].contiguous())[0]
+    tf = ops.act_phase2_gather(x, ids, Z1, W1)[0]
+    tw = act_phase2.act_phase2_gather_cuda(x, ids, whole, Z1, W1)[0]
     tp = act_phase2.act_phase2_plain(x, zg[None], wg[None])[0]
+    tgp = act_phase2.act_phase2_gather_plain(x, ids, Z1, W1)[0]
     torch.cuda.synchronize()
     err = (t - tp).abs().max().item()
-    check(torch.equal(t, tf), "K2 nq=1: not bitwise the fused K2 at nq=1 "
-          f"(max |d| {(t - tf).abs().max().item()})")
-    check(torch.allclose(t, tp, rtol=RTOL, atol=ATOL),
-          f"K2 nq=1: max |dt| {err} from its plain version")
+    err_g = (tf - tgp).abs().max().item()
+    check(torch.equal(t, tf) and torch.equal(tw, tf),
+          "K2 nq=1: the unfused K2, the fused K2 and the fused K2 walking "
+          f"every row to hmax are not bitwise equal (max |d| "
+          f"{(t - tf).abs().max().item()}, {(tw - tf).abs().max().item()})")
+    check(torch.allclose(t, tp, rtol=RTOL, atol=ATOL)
+          and torch.allclose(tf, tgp, rtol=RTOL, atol=ATOL),
+          f"K2 nq=1: max |dt| {err}, fused {err_g} from the plain versions")
     ms = cuda_ms(lambda: ops.act_phase2(x, zg, wg), reps=20)
+    ms_graph = graph_ms(lambda: act_phase2.act_phase2_cuda(x, zg[None],
+                                                           wg[None]))
     plain = cuda_ms(lambda: act_phase2.act_phase2_plain(x, zg[None],
                                                         wg[None]), reps=3)
-    nnz = int((x > 0).sum())
+    live = x > 0
+    nnz = int(live.sum())
     b_ms, b_by = bound_ms(4 * x.numel() + 4 * nnz * (2 * ITERS + 1)
                           + 4 * corpus.n, 5.0 * nnz * (ITERS + 1))
     out["act_phase2.nq1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                  bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=None)
+                                 library_ms=None, ms_graph=ms_graph)
     print(f"phase 9: K2 nq=1 iters={ITERS} on the gathered ladders: bitwise "
-          f"the fused K2 at nq=1, max|dt| vs plain {err:.3g}; {ms:.4f} ms, "
-          f"plain {plain:.3f}, bound {b_ms:.4f} by {b_by}", flush=True)
+          f"the fused K2 at nq=1, max|dt| vs plain {err:.3g}; {ms:.4f} ms "
+          f"(device {ms_graph:.4f}), plain {plain:.3f}, bound {b_ms:.4f} by "
+          f"{b_by}", flush=True)
+    # The fused K2 at nq=1, by the fused row's rule: x up to each row's
+    # length and the lengths, the ids of the live entries, the ladder rows
+    # of each distinct id once; t written.
+    slots = int(lens.sum())
+    n_ids = int(torch.unique(ids[live]).numel())
+    g_bytes = 4 * slots + 4 * corpus.n + 4 * nnz \
+        + n_ids * (2 * ITERS + 1) * Z.element_size() + 4 * corpus.n
+    gb_ms, gb_by = bound_ms(g_bytes, 5.0 * nnz * (ITERS + 1))
+    # "ms": one launch through the wrapper between two events, its host
+    # time (the checks, the cached row lengths) included; "ms_graph": a
+    # launch of the bare kernel in a CUDA graph of 20, the device alone.
+    g_ms = cuda_ms(lambda: ops.act_phase2_gather(x, ids, Z1, W1), reps=20)
+    g_graph = graph_ms(lambda: act_phase2.act_phase2_gather_cuda(
+        x, ids, lens, Z1, W1))
+    w_graph = graph_ms(lambda: act_phase2.act_phase2_gather_cuda(
+        x, ids, whole, Z1, W1))
+    g_plain = cuda_ms(lambda: act_phase2.act_phase2_gather_plain(
+        x, ids, Z1, W1), reps=3)
+    lens_ms = graph_ms(lambda: act_phase2.row_lens(x))
+    attrs = act_phase2.gather_attrs(ITERS + 1, ITERS + 1)
+    out["act_phase2_gather.nq1"] = dict(
+        max_abs_err=err_g, ms=g_ms, plain_ms=g_plain, bound_ms=gb_ms,
+        bound_by=gb_by, library_ms=None, ms_graph=g_graph,
+        whole_rows_ms_graph=w_graph, row_lens_ms_graph=lens_ms,
+        slots_read=slots, registers=attrs["regs"],
+        spill_bytes=attrs["local_bytes"])
+    print(f"phase 9: K2 fused nq=1 iters={ITERS}: {g_ms:.4f} ms through the "
+          f"wrapper, {g_graph:.4f} on the device (every row walked to hmax, "
+          f"no row stop: {w_graph:.4f}), bitwise each other and the unfused "
+          f"K2, max|dt| vs plain {err_g:.3g}; plain {g_plain:.3f}, bound "
+          f"{gb_ms:.4f} by {gb_by} ({g_bytes / 1e6:.1f} MB: x to the rows' "
+          f"lengths, {slots} of {x.numel()} slots, {nnz} live; "
+          f"{n_ids} distinct ids); the rows' lengths, once per corpus, "
+          f"{lens_ms:.4f} ms on the device; {attrs['regs']} registers, "
+          f"{attrs['local_bytes']} B spilled", flush=True)
     return out
 
 
@@ -1932,6 +2089,8 @@ def phase9_scan(host_corpus, corpus, q_ids, q_w, dev, runs):
     zero_counts()
     scan = retrieval.batch_scores(corpus, q_ids, q_w, engine="scan", **kw)
     runs["scan.act"] = counts = read_counts()
+    check(nonzero(counts) == {"dist_topk": NQ, "act_phase2_gather": NQ},
+          f"scan engine: launches {nonzero(counts)}")
     loop = torch.stack([retrieval.query_scores(corpus, q_ids[i], q_w[i],
                                                **kw) for i in range(NQ)])
     batched = retrieval.batch_scores(corpus, q_ids, q_w, **kw)
@@ -2675,10 +2834,12 @@ def tile_cases(corpus, q_ids, q_w, wide, narrow, precision):
                                                    out_dtype=dt, **t),
             lambda var, k=k: dist_topk.attrs(k, torch.float32, dt, var),
             dict(nq=NQ, v=v, h=HMAX, m=DIM, k=k)) for k in (ITERS + 1, 2, 1)}}
-    out["act_phase2"] = {"act_phase2_gather": (
-        lambda **t: ops.act_phase2_gather(w, ids, Z, W, **t),
+    out["act_phase2"] = {name: (
+        lambda nq=nq, **t: ops.act_phase2_gather(w, ids, Z[:nq], W[:nq], **t),
         lambda var: act_phase2.gather_attrs(ITERS + 1, W.shape[2], dt, var),
-        dict(nq=NQ, n=n, h=HMAX, iters=ITERS))}
+        dict(nq=nq, n=n, h=HMAX, iters=ITERS))
+        for name, nq in (("act_phase2_gather", NQ),
+                         ("act_phase2_gather.nq1", 1))}
     out["cand_pour"] = {
         name: (cases[name][0],
                lambda var, m=m, it=it, a=a: cand_pour.rows_attrs(m, it, a, dt,
@@ -4292,14 +4453,24 @@ def main():
     k2_flops = 5.0 * BLOCK_Q * nnz * (ITERS + 1)
     k2_bound, k2_by = bound_ms(k2_bytes, k2_flops)
     # The fused gather, on the whole batch as the engine launches it, reads
-    # x once, the ids of the entries with x > 0 and the ladder rows
-    # (iters+1 costs, iters capacities) of each distinct (query, id) they
-    # name, once; it writes t.
+    # x once up to each row's length and the lengths, the ids of the
+    # entries with x > 0 and the ladder rows (iters+1 costs, iters
+    # capacities) of each distinct (query, id) they name, once; it writes
+    # t.
     n_ids = int(torch.unique(ids[live]).numel())
-    kg_bytes = 4 * x.numel() + 4 * nnz \
+    lens = act_phase2.row_lens(x)
+    kg_bytes = 4 * int(lens.sum()) + 4 * corpus.n + 4 * nnz \
         + NQ * n_ids * (2 * ITERS + 1) * Z.element_size() + 4 * NQ * corpus.n
     kg_bound, kg_by = bound_ms(kg_bytes, 5.0 * NQ * nnz * (ITERS + 1))
     kg_ms = cuda_ms(lambda: ops.act_phase2_gather(x, ids, Z, W), reps=20)
+    # The same kernel walking every row to hmax (no row stop), bitwise.
+    whole = torch.full_like(lens, x.shape[1])
+    check(torch.equal(act_phase2.act_phase2_gather_cuda(x, ids, whole, Z, W),
+                      ops.act_phase2_gather(x, ids, Z, W)),
+          "act_phase2_gather: the row stop changed a bit")
+    kg_stop_ms, kg_whole_ms = (
+        cuda_ms(lambda l=l: act_phase2.act_phase2_gather_cuda(
+            x, ids, l, Z, W), reps=20) for l in (lens, whole))
     kg_plain = cuda_ms(lambda: act_phase2.act_phase2_gather_plain(x, ids, Z,
                                                                   W), reps=3)
     print(f"phase 4: K1 {k1_ms:.4f} ms on the batch ({nv} valid bins of "
@@ -4313,7 +4484,9 @@ def main():
           f"{x.numel()} entries, {BLOCK_Q} queries); fused gather over all "
           f"{NQ} queries {kg_ms:.4f} ms (plain, gather + pour, "
           f"{kg_plain:.3f}, bound {kg_bound:.4f} by {kg_by}: "
-          f"{kg_bytes / 1e6:.1f} MB, {n_ids} distinct ids)", flush=True)
+          f"{kg_bytes / 1e6:.1f} MB, {n_ids} distinct ids; the bare kernel "
+          f"{kg_stop_ms:.4f}, walking every row to hmax {kg_whole_ms:.4f})",
+          flush=True)
     for method, (cuda_index, ref_index) in results.items():
         secs, peak = [], []
         for index in (cuda_index, ref_index) * 3:
@@ -4488,6 +4661,8 @@ def main():
     # path's; its tuned builds search outside the counted runs).
     bounds = {f"dist_topk.k{ITERS + 1}": k1_bound,
               "act_phase2_gather": kg_bound,
+              "act_phase2_gather.nq1":
+                  p9_kernels["act_phase2_gather.nq1"]["bound_ms"],
               **{name: t[2] for name, t in cand_times.items()},
               **{name: t["bound_ms"] for name, t in k4_rows.items()}}
     p11 = phase11(corpus, host_corpus, q_ids, q_w, wide, narrow, logs,
@@ -4552,12 +4727,14 @@ def main():
          "launches_phase13": p13_launches["act_phase2_gather"],
          "max_abs_err": kg_err, "ms": kg_ms, "plain_ms": kg_plain,
          "bound_ms": kg_bound, "bound_by": kg_by, "library_ms": None,
+         "bare_ms": kg_stop_ms, "whole_rows_ms": kg_whole_ms,
          "all_pairs_chunk": chunk_times("act_phase2_gather"),
          "variants": variants["act_phase2_gather"]},
     ]
     # The main path's runs: the phase-3 searches, the cascades, the
-    # phase-8 all-pairs and searches and the phase-10 serving path.
-    runs = {**launches, **cascade_counts, **p8_runs, **p10_runs}
+    # phase-8 all-pairs and searches, phase 9's (the single queries among
+    # them) and the phase-10 serving path.
+    runs = {**launches, **cascade_counts, **p8_runs, **p9_runs, **p10_runs}
     for name, (k_ms, p_ms, b_ms, b_by, l_ms) in cand_times.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -4582,26 +4759,35 @@ def main():
                                    if c[name]},
             "library_ms": None, **t,
             **({"variants": variants[name]} if name in variants else {})})
-    # Phase 9's kernels: K1 and the unfused K2 at nq=1 on the single-query
-    # path, and K1 on bfloat16 coordinates under bf16_agg.
+    # Phase 9's kernels: K1 and the fused K2 at nq=1 on the single-query
+    # path, the unfused K2 at nq=1 (off the path since the fused K2 took
+    # it: 0 launches, like K5), and K1 on bfloat16 coordinates under
+    # bf16_agg.
     p9_launches = {
         "dist_topk.nq1.k1": p9_runs["single.rwmd"]["dist_topk"],
         "dist_topk.nq1.k2": p9_runs["single.omr"]["dist_topk"],
         f"dist_topk.nq1.k{ITERS + 1}": p9_runs["single.act"]["dist_topk"],
+        "act_phase2_gather.nq1": sum(
+            p9_runs[r]["act_phase2_gather"]
+            for r in ("single.act", "scan.act")),
         "act_phase2.nq1": p9_runs["single.act"]["act_phase2"],
         "dist_topk.bf16_coords": sum(p9_runs[f"bf16_agg.{name}"]["dist_topk"]
                                      for name in AGG_SEARCHES),
     }
     for name, t in p9_kernels.items():
         base = name.split(".")[0]
-        check(p9_launches[name] > 0, f"{name} was never launched on its path")
+        check(p9_launches[name] > 0 or name == "act_phase2.nq1",
+              f"{name} was never launched on its path")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{base}.cu",
+            "source": ("src/repro_torch/csrc/dist_topk.cu"
+                       if base == "dist_topk"
+                       else "src/repro_torch/csrc/act_phase2.cu"),
             "replaces": ("src/repro/kernels/dist_topk.py:121"
                          if base == "dist_topk"
                          else "src/repro/kernels/act_phase2.py:73"),
-            "launches": p9_launches[name], **t})
+            "launches": p9_launches[name], **t,
+            **({"variants": variants[name]} if name in variants else {})})
     print(json.dumps({"phase8": p8}))
     print(json.dumps({"phase9": p9}))
     print(json.dumps({"phase10": p10}))

@@ -355,10 +355,12 @@ def pour(x: torch.Tensor, Zg: torch.Tensor, Wg: torch.Tensor,
 # One query (h,) against every corpus row, the JAX package's full-precision
 # parity oracle: float32 always, whatever the batch's precision policy.
 # ``retrieval.query_scores`` dispatches to them and the scan engine loops
-# over them. Under ``use_kernels`` LC-ACT takes the ``dist_topk`` kernel at
-# nq=1 and the unfused ``act_phase2`` kernel on the gathered (n, hmax, k)
-# ladders, as the JAX package does; LC-RWMD and LC-OMR the ``dist_topk``
-# kernel. rwmd_rev and ict have no kernel here, as in the JAX package.
+# over them. Under ``use_kernels`` each takes the ``dist_topk`` kernel at
+# nq=1, and then a kernel that reads the (v, k) ladders at the corpus ids
+# itself, so no (n, hmax, k) tensor is built (the JAX package gathers one
+# for its Pallas kernel): LC-ACT the fused-gather ``act_phase2`` at nq=1,
+# LC-RWMD and LC-OMR the all-rows form of ``cand_pour``'s corpus-row
+# entry. rwmd_rev and ict have no kernel here, as in the JAX package.
 
 
 def phase1(coords: torch.Tensor, q_ids: torch.Tensor, q_w: torch.Tensor,
@@ -393,18 +395,24 @@ def lc_act_scores(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
     """LC-ACT of one query: lower bounds on EMD(x_u, q), the cost of
     moving each corpus row INTO the query, for all n rows -> (n,).
 
-    Phase 2/3 gather the (n, hmax, k) ladders and pour them; under
-    ``use_kernels`` the pour is the unfused ``act_phase2`` kernel on those
-    ladders. At iters=0 (LC-RWMD) the nearest cost is dumped and no pour
-    runs. ``block_v`` / ``block_h``: K1's tile."""
+    Phase 2/3 gather the (n, hmax, k) ladders and pour them. Under
+    ``use_kernels`` one launch reads the (v, k) ladders at the corpus ids
+    instead: the fused-gather ``act_phase2`` at nq=1 (bitwise the unfused
+    kernel on the gathered ladders), or at iters=0 (LC-RWMD: the nearest
+    cost is dumped, no pour runs) the all-rows ``cand_pour_rows``.
+    ``block_v`` / ``block_h``: K1's tile."""
     Z, W = _phase1_one(corpus, q_ids, q_w, iters + 1, use_kernels, block_v,
                        block_h)
+    if use_kernels and iters == 0:
+        return kops.cand_pour_rows(corpus.ids, corpus.w, None, Z[None], None,
+                                   0)[0]
+    if use_kernels:
+        return kops.act_phase2_gather(corpus.w, corpus.ids, Z[None],
+                                      W[None])[0]
     Zg = Z[corpus.ids]                                   # (n, hmax, k)
     if iters == 0:
         return torch.sum(corpus.w * Zg[..., 0], dim=-1)
     Wg = W[:, :iters][corpus.ids]                        # (n, hmax, iters)
-    if use_kernels:
-        return kops.act_phase2(corpus.w, Zg, Wg)
     return pour(corpus.w, Zg, Wg, iters)
 
 
@@ -442,9 +450,13 @@ def lc_omr_scores(corpus: Corpus, q_ids: torch.Tensor, q_w: torch.Tensor,
                   *, use_kernels: bool = False, block_v: int | None = None,
                   block_h: int | None = None) -> torch.Tensor:
     """LC-OMR of one query: Algorithm 1 over every corpus row on the top-2
-    Phase-1 ladders (the ``dist_topk`` kernel at k=2 under
-    ``use_kernels``)."""
+    Phase-1 ladders (under ``use_kernels`` the ``dist_topk`` kernel at
+    k=2, then the all-rows ``cand_omr_rows``, which reads them at the
+    corpus ids itself)."""
     Z, W = _phase1_one(corpus, q_ids, q_w, 2, use_kernels, block_v, block_h)
+    if use_kernels:
+        return kops.cand_omr_rows(corpus.ids, corpus.w, None, Z[None],
+                                  W[None, :, 0].contiguous())[0]
     return omr_entries(corpus.w, Z[corpus.ids], W[:, 0][corpus.ids])
 
 

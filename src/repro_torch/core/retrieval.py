@@ -49,7 +49,8 @@ class MethodSpec:
                  (rwmd <-> rwmd_rev).
     fn:          one (h,) query -> (n,) scores, always float32; under
                  ``use_kernels`` act, rwmd and omr take the ``dist_topk``
-                 kernel at nq=1 (act also the unfused ``act_phase2``).
+                 kernel at nq=1, then act the fused-gather ``act_phase2``
+                 at nq=1, rwmd and omr ``cand_pour``'s all-rows form.
     batch_fn:    (nq, h) queries -> (nq, n) scores.
     symmetric_batch_fn: the symmetric measure (max of both directions) of
                  a reverse-linked pair, sharing work between the two:

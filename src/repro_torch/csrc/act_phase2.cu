@@ -50,6 +50,17 @@
 // wide, a lane reads each row in 16-byte (or narrower) vectors instead of
 // value by value. Every variant pours through the same pour_entry, so its
 // output is bitwise the same.
+//
+// Row lengths. The gathering entry takes lens (n,), each row's length: one
+// past its last slot with x != 0 (kernels/act_phase2.py row_lens, computed
+// once per corpus by the wrapper), and a warp walks its row only up to it.
+// The slots past it have x == 0, which the pour skips, so they change no
+// bit; they are the padding of short rows, about 81 % of the slots of the
+// 20 Newsgroups-shaped corpus (1.77 M of 9.41 M slots lie before the rows'
+// ends). Without the stop every lane read its whole strided share of x:
+// about 16 slots at hmax 500 for about 3 live ones. chip_smoke.py times
+// the entry against itself with every length set to hmax (no stop): phase
+// 9 (b) at nq = 1, phase 4 on the batch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -189,6 +200,7 @@ template <typename T>
 __global__ void __launch_bounds__(GATHER_THREADS)
 act_phase2_gather_kernel(const float* __restrict__ x,
                          const int* __restrict__ ids,
+                         const int* __restrict__ lens,
                          const T* __restrict__ Z, const T* __restrict__ W,
                          float* __restrict__ t, int nq, int n, int v,
                          int hmax, int iters, int ws) {
@@ -200,7 +212,8 @@ act_phase2_gather_kernel(const float* __restrict__ x,
   const Ladders<T, true> lad{Z + (size_t)q * v * (iters + 1),
                              W + (size_t)q * v * ws,
                              ids + (size_t)u * hmax, iters + 1, ws};
-  const float sum = pour_row(x + (size_t)u * hmax, lad, hmax, iters, lane);
+  const float sum =
+      pour_row(x + (size_t)u * hmax, lad, __ldg(lens + u), iters, lane);
   if (lane == 0) t[warp] = sum;
 }
 
@@ -210,6 +223,7 @@ template <typename T, int K>
 __global__ void __launch_bounds__(GATHER_THREADS)
 act_phase2_gather_vec_kernel(const float* __restrict__ x,
                              const int* __restrict__ ids,
+                             const int* __restrict__ lens,
                              const T* __restrict__ Z, const T* __restrict__ W,
                              float* __restrict__ t, int nq, int n, int v,
                              int hmax) {
@@ -222,8 +236,9 @@ act_phase2_gather_vec_kernel(const float* __restrict__ x,
   const int* ir = ids + (size_t)u * hmax;
   const T* Zq = Z + (size_t)q * v * K;
   const T* Wq = W + (size_t)q * v * K;
+  const int len = __ldg(lens + u);
   float sum = 0.f;
-  for (int j = lane; j < hmax; j += 32) {
+  for (int j = lane; j < len; j += 32) {
     const float xv = __ldcs(xr + j);
     if (xv == 0.f) continue;
     const size_t id = (size_t)__ldcs(ir + j);
@@ -251,9 +266,9 @@ cudaError_t launch(const float* x, const void* zg, const void* wg, float* t,
 }
 
 template <typename T, int K>
-bool launch_gather_vec(const float* x, const int* ids, const void* Z,
-                       const void* W, float* t, int nq, int n, int v,
-                       int hmax, int iters, int ws, unsigned blocks,
+bool launch_gather_vec(const float* x, const int* ids, const int* lens,
+                       const void* Z, const void* W, float* t, int nq, int n,
+                       int v, int hmax, int iters, int ws, unsigned blocks,
                        cudaStream_t stream) {
   constexpr uintptr_t ALIGN = K * sizeof(T) < 16 ? K * sizeof(T) : 16;
   if (iters + 1 != K || ws != K ||
@@ -261,30 +276,31 @@ bool launch_gather_vec(const float* x, const int* ids, const void* Z,
       reinterpret_cast<uintptr_t>(W) % ALIGN)
     return false;
   act_phase2_gather_vec_kernel<T, K><<<blocks, GATHER_THREADS, 0, stream>>>(
-      x, ids, static_cast<const T*>(Z), static_cast<const T*>(W), t, nq, n,
-      v, hmax);
+      x, ids, lens, static_cast<const T*>(Z), static_cast<const T*>(W), t,
+      nq, n, v, hmax);
   return true;
 }
 
 template <typename T>
-cudaError_t launch_gather(const float* x, const int* ids, const void* Z,
-                          const void* W, float* t, int nq, int n, int v,
-                          int hmax, int iters, int ws, cudaStream_t stream) {
+cudaError_t launch_gather(const float* x, const int* ids, const int* lens,
+                          const void* Z, const void* W, float* t, int nq,
+                          int n, int v, int hmax, int iters, int ws,
+                          cudaStream_t stream) {
   const long long warps = (long long)nq * n;
   const unsigned blocks =
       (unsigned)((warps + GATHER_WARPS - 1) / GATHER_WARPS);
-  if (launch_gather_vec<T, 2>(x, ids, Z, W, t, nq, n, v, hmax, iters, ws,
-                              blocks, stream) ||
-      launch_gather_vec<T, 4>(x, ids, Z, W, t, nq, n, v, hmax, iters, ws,
-                              blocks, stream) ||
-      launch_gather_vec<T, 8>(x, ids, Z, W, t, nq, n, v, hmax, iters, ws,
-                              blocks, stream) ||
-      launch_gather_vec<T, 16>(x, ids, Z, W, t, nq, n, v, hmax, iters, ws,
-                               blocks, stream))
+  if (launch_gather_vec<T, 2>(x, ids, lens, Z, W, t, nq, n, v, hmax, iters,
+                              ws, blocks, stream) ||
+      launch_gather_vec<T, 4>(x, ids, lens, Z, W, t, nq, n, v, hmax, iters,
+                              ws, blocks, stream) ||
+      launch_gather_vec<T, 8>(x, ids, lens, Z, W, t, nq, n, v, hmax, iters,
+                              ws, blocks, stream) ||
+      launch_gather_vec<T, 16>(x, ids, lens, Z, W, t, nq, n, v, hmax, iters,
+                               ws, blocks, stream))
     return cudaGetLastError();
   act_phase2_gather_kernel<T><<<blocks, GATHER_THREADS, 0, stream>>>(
-      x, ids, static_cast<const T*>(Z), static_cast<const T*>(W), t, nq, n,
-      v, hmax, iters, ws);
+      x, ids, lens, static_cast<const T*>(Z), static_cast<const T*>(W), t,
+      nq, n, v, hmax, iters, ws);
   return cudaGetLastError();
 }
 
@@ -320,23 +336,25 @@ extern "C" int act_phase2_cand_launch(const void* xg, const void* zg,
 }
 
 // The fused entry: x (n, hmax) f32, ids (n, hmax) int32 in [0, v) wherever
-// x > 0; Z (nq, v, iters+1) and W (nq, v, ws >= iters), both f32 or both
-// bf16; all contiguous. Writes t (nq, n) f32. iters >= 1. Returns the
+// x > 0, lens (n,) int32 in [0, hmax] with x[u, j] == 0 for every
+// j >= lens[u]; Z (nq, v, iters+1) and W (nq, v, ws >= iters), both f32 or
+// both bf16; all contiguous. Writes t (nq, n) f32. iters >= 1. Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int act_phase2_gather_launch(const void* x, const void* ids,
-                                        const void* Z, const void* W, void* t,
-                                        int nq, int n, int v, int hmax,
-                                        int iters, int ws, int bf16,
-                                        void* stream) {
+                                        const void* lens, const void* Z,
+                                        const void* W, void* t, int nq, int n,
+                                        int v, int hmax, int iters, int ws,
+                                        int bf16, void* stream) {
   const float* xf = static_cast<const float*>(x);
   const int* id = static_cast<const int*>(ids);
+  const int* ln = static_cast<const int*>(lens);
   float* tf = static_cast<float*>(t);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_gather<__nv_bfloat16>(xf, id, Z, W, tf, nq, n, v, hmax,
+    return launch_gather<__nv_bfloat16>(xf, id, ln, Z, W, tf, nq, n, v, hmax,
                                         iters, ws, st);
-  return launch_gather<float>(xf, id, Z, W, tf, nq, n, v, hmax, iters, ws,
-                              st);
+  return launch_gather<float>(xf, id, ln, Z, W, tf, nq, n, v, hmax, iters,
+                              ws, st);
 }
 
 // The compiler's figures for the fused-gather kernel that

@@ -23,7 +23,9 @@ Z (nq, v, iters+1), W (nq, v, >= iters) -> t (nq, n), the value of K2 on
 ``Z[:, ids]`` and ``W[:, ids, :iters]``. The kernel reads the ladder rows at
 the ids itself, so the (nq, n, hmax, k) tensors that the JAX engine
 materializes for its TPU kernel never exist; :func:`act_phase2_gather_plain`
-is that gather followed by :func:`act_phase2_plain`.
+is that gather followed by :func:`act_phase2_plain`. The kernel walks each
+row only up to its length (:func:`row_lens`: one past its last slot with
+x != 0), which changes no bit: the pour skips a slot with x == 0.
 """
 from __future__ import annotations
 
@@ -128,10 +130,20 @@ def act_phase2_gather_plain(x: torch.Tensor, ids: torch.Tensor,
                                         W.split(PLAIN_BLOCK_Q))])
 
 
+def row_lens(x: torch.Tensor) -> torch.Tensor:
+    """(n,) int32: one past the last slot of each row of x (n, hmax) with
+    x != 0, 0 for a row without one."""
+    slot = torch.arange(1, x.shape[1] + 1, dtype=torch.int32,
+                        device=x.device)
+    return torch.where(x != 0, slot, 0).amax(dim=1).to(torch.int32)
+
+
 def act_phase2_gather_cuda(x: torch.Tensor, ids: torch.Tensor,
-                           Z: torch.Tensor, W: torch.Tensor,
-                           variant=()) -> torch.Tensor:
-    """Launch the fused-gather kernel on the current stream. The caller
+                           lens: torch.Tensor, Z: torch.Tensor,
+                           W: torch.Tensor, variant=()) -> torch.Tensor:
+    """Launch the fused-gather kernel on the current stream; each row is
+    walked up to ``lens`` ((n,) int32 in [0, hmax], every slot of x past it
+    0: :func:`row_lens`, or hmax for the whole row). The caller
     (``ops.act_phase2_gather``) has checked devices, dtypes, shapes, the
     range of the ids and contiguity, and picked the tile ``variant``
     (``ops.variant``; () for the default tile)."""
@@ -140,9 +152,10 @@ def act_phase2_gather_cuda(x: torch.Tensor, ids: torch.Tensor,
     n, hmax = x.shape
     nq, v, k = Z.shape
     t = torch.empty((nq, n), dtype=torch.float32, device=x.device)
+    assert lens.shape == (n,) and lens.dtype == torch.int32
     err = lib.act_phase2_gather_launch(
-        x.data_ptr(), ids.data_ptr(), Z.data_ptr(), W.data_ptr(),
-        t.data_ptr(), nq, n, v, hmax, k - 1, W.shape[2],
+        x.data_ptr(), ids.data_ptr(), lens.data_ptr(), Z.data_ptr(),
+        W.data_ptr(), t.data_ptr(), nq, n, v, hmax, k - 1, W.shape[2],
         int(Z.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
@@ -172,8 +185,8 @@ def _lib(variant=()) -> ctypes.CDLL:
     lib.act_phase2_launch.restype = i
     lib.act_phase2_cand_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.act_phase2_cand_launch.restype = i
-    lib.act_phase2_gather_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                             i, p]
+    lib.act_phase2_gather_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                             i, i, p]
     lib.act_phase2_gather_launch.restype = i
     lib.act_phase2_gather_attrs.argtypes = [i, i, i, p]
     lib.act_phase2_gather_attrs.restype = i

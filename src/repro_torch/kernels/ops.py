@@ -38,22 +38,36 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return device.type == "cpu"
 
 
-#: The corpus id tensors whose range the entries that read the corpus ids
-#: (the fused K2, K3 on the corpus rows) have checked: ids -> (its version
-#: counter then, its least and largest id). An in-place change bumps the
-#: version and so checks it again.
-_ID_RANGE = WeakIdKeyDictionary()
+#: Facts of a corpus tensor that the entries reading the corpus rows (the
+#: fused K2, K3 on the corpus rows) compute once and keep while it is
+#: unchanged: tensor -> {fact: (its version counter then, the value)}. An
+#: in-place change bumps the version and so computes them again.
+_CORPUS_FACTS = WeakIdKeyDictionary()
+
+
+def _corpus_fact(t: torch.Tensor, fact: str, compute):
+    """``compute(t)``, computed the first time ``t`` is seen (and after it
+    changes), looked up after that."""
+    facts = _CORPUS_FACTS.get(t)
+    if facts is None:
+        facts = _CORPUS_FACTS[t] = {}
+    seen = facts.get(fact)
+    if seen is None or seen[0] != t._version:
+        seen = facts[fact] = (t._version, compute(t))
+    return seen[1]
 
 
 def _check_ids_range(ids: torch.Tensor, v: int) -> None:
     """ids must lie in [0, v): a pass and a sync the first time a corpus
     is seen (and after it changes), a lookup after that."""
-    seen = _ID_RANGE.get(ids)
-    if seen is None or seen[0] != ids._version:
-        seen = (ids._version, *(int(e) for e in torch.aminmax(ids)))
-        _ID_RANGE[ids] = seen
-    _require(0 <= seen[1] and seen[2] < v,
-             f"ids must lie in [0, {v}), got [{seen[1]}, {seen[2]}]")
+    lo, hi = _corpus_fact(ids, "range", lambda t: tuple(
+        int(e) for e in torch.aminmax(t)))
+    _require(0 <= lo and hi < v, f"ids must lie in [0, {v}), got [{lo}, {hi}]")
+
+
+def _row_lens(x: torch.Tensor) -> torch.Tensor:
+    """``act_phase2.row_lens(x)``, kept per corpus weight tensor."""
+    return _corpus_fact(x, "row_lens", act_k.row_lens)
 
 
 def dist_topk_batched(coords: torch.Tensor, qcs: torch.Tensor,
@@ -175,6 +189,10 @@ def act_phase2_gather(x: torch.Tensor, ids: torch.Tensor, Z: torch.Tensor,
     both float32 or both bfloat16, ``iters >= 1`` -> t (nq, n) float32.
     ``block_n``: rows (warps) a block (None: the default tile); every
     admitted tile gives the same bits, the plain version ignores it.
+
+    On the card the kernel walks each row only up to its last slot with
+    x != 0 (the row lengths are computed once per x tensor and kept while
+    it is unchanged), which gives the same bits.
     """
     _require(x.dim() == 2 and x.dtype == torch.float32,
              f"x must be (n, hmax) float32, got {tuple(x.shape)} {x.dtype}")
@@ -200,7 +218,7 @@ def act_phase2_gather(x: torch.Tensor, ids: torch.Tensor, Z: torch.Tensor,
     _check_ids_range(ids, Z.shape[1])
     if on_cpu:
         return act_k.act_phase2_gather_plain(x, ids, Z, W)
-    return act_k.act_phase2_gather_cuda(x, ids, Z, W, var)
+    return act_k.act_phase2_gather_cuda(x, ids, _row_lens(x), Z, W, var)
 
 
 def act_phase2_cand(xg: torch.Tensor, zg: torch.Tensor,
@@ -610,8 +628,8 @@ DEFAULT_TILES = {
 #: tile knobs reach.
 FIXED_TILES = {
     "act_phase2 (csrc/act_phase2.cu act_phase2_kernel, K2 unfused)":
-        "256 threads; the single-query LC-ACT path's pour on gathered "
-        "ladders, one launch per query",
+        "256 threads; off the path since the single-query LC-ACT pours "
+        "through the fused-gather entry at nq=1",
     "act_phase2_cand (csrc/act_phase2.cu, K5)":
         "256 threads; no engine launches it, in either package",
     "cand_pour (csrc/cand_pour.cu, stacked K3)":

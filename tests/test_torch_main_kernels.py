@@ -329,3 +329,40 @@ def test_act_phase2_gather_cuda_is_bitwise_the_unfused_kernel(
         before[0] + 1, before[1] + 1)
     assert torch.equal(got, unfused)
     torch.testing.assert_close(got, want, **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [1, 3])
+@pytest.mark.parametrize("n,v,hmax,iters,wdepth", [
+    (10, 20, 7, 1, 2), (333, 1000, 500, 7, 8), (65, 300, 33, 15, 16),
+    (50, 100, 40, 3, 4), (50, 100, 784, 2, 3), (40, 100, 130, 5, 7),
+    (40, 100, 300, 1, 1),
+])
+def test_act_phase2_gather_row_stop_is_bitwise_the_whole_row(
+        rng, cuda, nq, n, v, hmax, iters, wdepth, dtype):
+    """The fused K2 walks each row only up to its last live slot
+    (``row_lens``): bitwise the same kernel walking every row to hmax and
+    the unfused kernel, on rows whose lengths run from 0 to hmax, with
+    zero slots inside them too (vector rows at k = 2, 4, 8, 16; any k
+    value by value)."""
+    x, ids, Z, W = _gather_inputs(rng, nq, n, v, hmax, iters, wdepth, dtype)
+    cut = rng.integers(0, hmax + 1, size=n)
+    cut[:2] = (0, hmax)
+    x[torch.arange(hmax)[None, :] >= torch.tensor(cut)[:, None]] = 0.0
+    x, ids, Z, W = (t.to(cuda) for t in (x, ids, Z, W))
+    lens = act_phase2.row_lens(x)
+    assert lens.tolist() == [max((j + 1 for j in range(hmax) if r[j] != 0),
+                                 default=0) for r in x.tolist()]
+    whole = torch.full_like(lens, hmax)
+    before = (act_phase2.launches, act_phase2.gather_launches)
+    got = tops.act_phase2_gather(x, ids, Z, W)
+    entry = act_phase2.act_phase2_gather_cuda(x, ids, whole, Z, W)
+    unfused = tops.act_phase2_batched(x, Z[:, ids].contiguous(),
+                                      W[:, ids, :iters].contiguous())
+    want = act_phase2.act_phase2_gather_plain(x, ids, Z, W)
+    torch.cuda.synchronize()
+    assert (act_phase2.launches, act_phase2.gather_launches) == (
+        before[0] + 1, before[1] + 2)
+    assert torch.equal(got, entry) and torch.equal(got, unfused)
+    torch.testing.assert_close(got, want, **F32_TOL)

@@ -13,6 +13,9 @@ inputs.
   all-pairs and the cascade's stage 1 through the scan engine.
 * ``ops.dist_topk`` / ``ops.act_phase2``: the single-query views of the
   batched wrappers.
+* The kernel path's route: K1 at nq=1, then the fused-gather K2 at nq=1
+  (LC-ACT) or K3's all-rows form (LC-RWMD, LC-OMR), each reading the
+  ladders at the corpus ids; no unfused K2 and no (n, hmax, k) gather.
 
 Tolerances: float32 rtol 1e-5 plus atol 1e-6 (the frameworks sum in other
 orders; a self-match scores ~1e-8 on one side and 0 on the other). Scores
@@ -33,7 +36,7 @@ from repro.data import synth as jsynth
 from repro_torch.api import EmdIndex, EngineConfig, corpus_from_numpy
 from repro_torch.core import lc
 from repro_torch.core import retrieval as tr
-from repro_torch.kernels import act_phase2, dist_topk
+from repro_torch.kernels import act_phase2, cand_pour, dist_topk
 from repro_torch.kernels import ops as tops
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -327,12 +330,89 @@ def test_single_kernel_entries_are_batches_of_one(rng):
         tops.dist_topk(coords, coords[qids], qmask, 4, qids=qids[:3])
 
 
+def _launch_counts():
+    return (dist_topk.launches, act_phase2.launches,
+            act_phase2.gather_launches, dict(cand_pour.rows_launches))
+
+
 def test_single_query_kernel_path_counts_no_launch_on_the_cpu():
-    """On the CPU the single-query kernel path runs the plain versions."""
+    """On the CPU the single-query kernel path runs the plain versions:
+    K1, the unfused and the fused K2 and K3's corpus-row entry count no
+    launch."""
     _, tc = _corpora()
-    before = (dist_topk.launches, act_phase2.launches)
-    tr.query_scores(tc, tc.ids[0], tc.w[0], iters=3, use_kernels=True)
-    assert (dist_topk.launches, act_phase2.launches) == before
+    before = _launch_counts()
+    for method, iters in (("act", 3), ("act", 7), ("rwmd", 0), ("omr", 0)):
+        tr.query_scores(tc, tc.ids[0], tc.w[0], method=method, iters=iters,
+                        use_kernels=True)
+    assert _launch_counts() == before
+
+
+#: The kernel wrappers a single query may reach, spied on below.
+_SPIED = ("dist_topk", "act_phase2", "act_phase2_batched",
+          "act_phase2_gather", "cand_pour_rows", "cand_omr_rows")
+
+
+@pytest.mark.parametrize("method,iters,entry", [
+    ("act", 1, "act_phase2_gather"), ("act", 7, "act_phase2_gather"),
+    ("rwmd", 0, "cand_pour_rows"), ("omr", 0, "cand_omr_rows")])
+def test_single_query_kernel_path_reads_the_ladders_at_the_ids(
+        monkeypatch, method, iters, entry):
+    """On the kernel path one query calls K1 once at nq=1 and then one
+    entry that reads the (1, v, k) ladders at the corpus ids itself: the
+    fused-gather K2 at nq=1 for LC-ACT (never the unfused K2), K3's
+    corpus-row entry with cand=None for LC-RWMD and LC-OMR. The scores
+    equal the reference path's within F32_TOL, and JAX's where JAX's two
+    paths agree."""
+    jc, tc = _corpora()
+    calls = {name: [] for name in _SPIED}
+    for name in _SPIED:
+        def spy(*args, _name=name, _real=getattr(tops, name), **kw):
+            calls[_name].append(args)
+            return _real(*args, **kw)
+        monkeypatch.setattr(tops, name, spy)
+    for _, ids, w in _queries():
+        for name in _SPIED:
+            calls[name].clear()
+        got = tr.query_scores(tc, torch.tensor(ids), torch.tensor(w),
+                              method=method, iters=iters, use_kernels=True)
+        assert {n: len(c) for n, c in calls.items() if c} == {
+            "dist_topk": 1, entry: 1}
+        args = calls[entry][0]
+        k = iters + 1 if method == "act" else (2 if method == "omr" else 1)
+        if method == "act":
+            x, cids, Z, W = args
+            assert W.shape == (1, tc.v, k)
+        else:
+            cids, x, cand, Z = args[:4]
+            assert cand is None
+        assert x is tc.w and cids is tc.ids and Z.shape == (1, tc.v, k)
+        ref = tr.query_scores(tc, torch.tensor(ids), torch.tensor(w),
+                              method=method, iters=iters, use_kernels=False)
+        torch.testing.assert_close(got, ref, **F32_TOL)
+        kw = dict(method=method, iters=iters)
+        want, other = (np.asarray(jr.query_scores(
+            jc, jnp.asarray(ids), jnp.asarray(w), use_kernels=uk, **kw))
+            for uk in (True, False))
+        promised = _sane(want, other)
+        np.testing.assert_allclose(got.numpy()[promised], want[promised],
+                                   **F32_TOL)
+
+
+def test_row_lens_end_each_row_at_its_last_live_slot(rng):
+    """``act_phase2.row_lens``: one past each row's last slot with x != 0,
+    0 for an empty row; the wrapper keeps them per x tensor and computes
+    them again after an in-place change."""
+    x = torch.tensor([[0.1, 0.0, 0.2, 0.0], [0.0] * 4, [0.3, 0.1, 0.2, 0.4],
+                      [0.0, 0.0, 0.0, 0.5]])
+    lens = act_phase2.row_lens(x)
+    assert lens.dtype == torch.int32 and lens.tolist() == [3, 0, 4, 4]
+    assert tops._row_lens(x) is tops._row_lens(x)
+    x[1, 2] = 0.7
+    assert tops._row_lens(x).tolist() == [3, 3, 4, 4]
+    r = rng.uniform(size=(50, 37)) * (rng.uniform(size=(50, 37)) < 0.3)
+    want = [max((j + 1 for j in range(37) if row[j] != 0), default=0)
+            for row in r]
+    assert act_phase2.row_lens(torch.tensor(r)).tolist() == want
 
 
 @pytest.fixture
@@ -346,16 +426,23 @@ def cuda():
 @pytest.mark.parametrize("method,iters,k2", [("act", 7, 1), ("rwmd", 0, 0),
                                               ("omr", 0, 0)])
 def test_single_query_kernel_path_on_the_card(cuda, method, iters, k2):
-    """One query through the kernels: K1 once (at nq=1), and for LC-ACT
-    the unfused K2 once; the scores equal the plain path's within
-    tolerance."""
+    """One query through the kernels: K1 once (at nq=1), then for LC-ACT
+    the fused K2 once (``k2``) and the unfused K2 never, for LC-RWMD and
+    LC-OMR K3's all-rows form once; the scores
+    equal the plain path's within tolerance."""
     _, tc = _corpora()
     c = tc.to(cuda)
-    d0, k0 = dist_topk.launches, act_phase2.launches
+    before = _launch_counts()
     got = tr.query_scores(c, c.ids[6], c.w[6], method=method, iters=iters,
                           use_kernels=True)
     torch.cuda.synchronize()
-    assert dist_topk.launches - d0 == 1 and act_phase2.launches - k0 == k2
+    d, k, g, rows = (
+        a - b if isinstance(a, int) else {m: a[m] - b[m] for m in a}
+        for a, b in zip(_launch_counts(), before))
+    assert (d, k, g) == (1, 0, k2)
+    assert rows == {"pour": 0, "pour0": 0, "omr": 0,
+                    "all_pour0": int(method == "rwmd"),
+                    "all_omr": int(method == "omr")}
     want = tr.query_scores(tc, tc.ids[6], tc.w[6], method=method,
                            iters=iters, use_kernels=False)
     torch.testing.assert_close(got.cpu(), want, **F32_TOL)
