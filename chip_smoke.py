@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``); phase 12 starts
-up to four processes on it and stops them. Phases:
+Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``); phases 12 and
+15 start up to four processes on it and stop them. Phases:
 
 0. the card: ``nvidia-smi`` name and power limit, the device name;
 1. build: the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
@@ -196,7 +196,23 @@ up to four processes on it and stops them. Phases:
    tokens a second, 6ND TFLOP/s, peak GiB above the resident weights and
    moments under remat full and under ``dots``; one more step traced
    with ``torch.profiler`` (its own wall ms, the card's busy ms and idle
-   share of it, its matmul kernels' ms, the kernels of most device time).
+   share of it, its matmul kernels' ms, the kernels of most device time);
+15. LM training on a (data, model) mesh (``sharding.rules``,
+   ``launch.steps.make_mesh_train_step``, ``runtime.elastic``; plain
+   PyTorch and collectives, no kernel): (a) olmo-1b whole on a 1x1 NCCL
+   mesh, mode tp, 4 x 4,096 tokens: a warm-up and 2 timed mesh steps, the
+   warm-up's loss, grad norm and parameters against phase 14's
+   single-card step from the same weights (parameters within 1 bf16 ulp;
+   bitwise on the card); (b) a 2x2 gloo world whose four ranks share the
+   card, olmo-1b at full width with its depth cut to ``P15_LAYERS``
+   (printed), modes tp and fsdp: step 1 against a 1x1 step at that depth
+   and batch, then 2 timed, each rank's resident and peak GiB, seconds
+   and bytes a step by label; a checkpoint of the fsdp state, the world
+   re-planned 1x4, ``restore_on_mesh`` and a step against the 2x2
+   continuation; (c) mixtral at smoke width with ``moe_shard_map`` on
+   that 1x4 mesh (one expert row a rank) under remat dots and full, with
+   and without torch's early stop of the recomputation, against the
+   plain path, and the ``moe_out`` bytes.
 
 Any failed check exits non-zero before the last line. The last lines are the
 card's name and power limit, a JSON line of the kernels and
@@ -210,6 +226,7 @@ import functools
 import gc
 import hashlib
 import json
+import math
 import os
 import re
 import resource
@@ -251,6 +268,7 @@ from repro_torch.launch.local import run_local  # noqa: E402
 from repro_torch.configs import (ARCH_IDS, get_config,  # noqa: E402
                                  smoke_config)
 from repro_torch.data.tokens import DataConfig, global_batch  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import parity as lm_parity  # noqa: E402
 from repro_torch.serving import (ChaosInjector, ChaosSchedule,  # noqa: E402
@@ -4258,6 +4276,451 @@ def phase14(dev):
     return out
 
 
+# ----------------------------------------------------------------------------
+# Phase 15: LM training on a (data, model) mesh
+# ----------------------------------------------------------------------------
+# (a) olmo-1b whole (16 layers) on a 1x1 NCCL mesh, the mesh step against
+# phase 14's single-card step; (b) a 2x2 gloo world whose four ranks share
+# the card, olmo-1b at full width with its depth cut to P15_LAYERS, modes
+# tp and fsdp against a 1x1 step, then re-planned 1x4 and restored from the
+# 2x2 checkpoint; (c) mixtral at smoke width, expert-parallel over the 1x4
+# mesh against the plain path. No kernel of its own (the kernels line is
+# phases 2-13's): the mesh step is plain PyTorch and collectives.
+#: (b)'s depth: cut from olmo-1b's 16 layers so that the whole script,
+#: phases 1-14 included, runs within 1,200 s (a 16-layer 2x2 step moves
+#: four times the bytes through gloo's host staging, and its checkpoint is
+#: 11.8 GB).
+P15_LAYERS = 4
+#: (b)'s steps a mode: b0 held to the 1x1 step, then P15_TIMED timed.
+P15_TIMED = 2
+#: Bars against a 1x1 step on bfloat16 weights (test_torch_train's
+#: BF16_LOSS_ATOL: two orders of bf16 summation, here split batch rows,
+#: round the loss apart by up to ~3e-3); a parameter after one AdamW step
+#: moves by about lr x sign(g), so a gradient near 0 whose sign flips
+#: between two summation orders moves it by up to 2 lr: the bar is that
+#: plus one bfloat16 ulp.
+P15_LOSS_ATOL, P15_LR_FLIPS = 2e-2, 2.0
+#: The grad norm against a 1x1 step's: each rank's whole-leaf gradient is
+#: a bfloat16 partial over its rows (the embedding's accumulates its
+#: token rows in bfloat16), summed in bfloat16 over the batch ranks;
+#: twice test_torch_train's bfloat16 norm bar (1e-2).
+P15_NORM_RTOL = 2e-2
+#: (c): smoke mixtral's batch, and its bars against the plain path
+#: (test_torch_mesh_train's: float32).
+P15_EP_ROWS, P15_EP_SEQ, P15_EP_RTOL, P15_EP_LR_FRACTION = 4, 64, 1e-4, 0.25
+#: (c)'s runs: name -> (remat policy, torch's checkpoint early stop). With
+#: the early stop (torch's default) the recomputation ends before a
+#: block's last all-reduce; without it, "full" sums the partial outputs
+#: again and "dots" does not (it saves ``moe_out``).
+P15_EP = {"dots": ("dots", True), "full": ("full", True),
+          "dots, no early stop": ("dots", False),
+          "full, no early stop": ("full", False)}
+P15_TIMEOUT = 900.0
+
+
+def p15_batches(cfg, n, rows=TRAIN_ROWS, seq=TRAIN_SEQ):
+    dc = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=rows, seed=0)
+    return [{k: torch.as_tensor(v) for k, v in global_batch(dc, i).items()}
+            for i in range(n)]
+
+
+def p15_timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+#: A float dtype's bits as an integer dtype, and the mask of its magnitude.
+FLOAT_BITS = {torch.bfloat16: (torch.int16, 0x7FFF),
+              torch.float32: (torch.int32, 0x7FFFFFFF)}
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of their (bfloat16 or float32)
+    dtype, element by element (+0 and -0 equal)."""
+    it, mag = FLOAT_BITS[a.dtype]
+
+    def ordered(x):
+        i = x.contiguous().view(it).long()
+        return torch.where(i < 0, -(i & mag), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def ulp_at(w: torch.Tensor) -> torch.Tensor:
+    """One unit in the last place of ``w``'s dtype at |w|, in float32."""
+    it, mag = FLOAT_BITS[w.dtype]
+    i = w.contiguous().view(it) & mag
+    return (i + 1).view(w.dtype).float() - i.view(w.dtype).float()
+
+
+def p15_compare(got: dict, want: dict, lr: float) -> dict:
+    """Parameters {name: tensor} against the reference's: the largest
+    ulps apart, the share bitwise equal, the share more than 1 ulp apart,
+    and the largest |d| over the bar P15_LR_FLIPS * lr + 1 ulp at the
+    larger magnitude (must be <= 1)."""
+    worst_ulps, same, far, n, over = 0, 0, 0, 0, 0.0
+    for name, w in want.items():
+        g, w = got[name].detach(), w.detach()
+        u = ulps(g, w)
+        worst_ulps = max(worst_ulps, int(u.max()))
+        same += int((u == 0).sum())
+        far += int((u > 1).sum())
+        n += u.numel()
+        bar = P15_LR_FLIPS * lr + ulp_at(torch.maximum(g.abs(), w.abs()))
+        over = max(over, float(((g.float() - w.float()).abs() / bar).max()))
+    return dict(max_ulps=worst_ulps, bitwise_share=same / n,
+                beyond_1ulp_share=far / n, of_bar=over)
+
+
+def phase15_one(mesh):
+    """(a) One rank of a 1x1 NCCL mesh: olmo-1b whole, the mesh step
+    (1 warm-up, P15_TIMED timed) from seed 0, and phase 14's single-card
+    step from the same parameters on the warm-up's batch: loss, grad norm
+    and every parameter after it."""
+    from repro_torch.launch import steps as St
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import annotate
+    cfg = get_config("olmo-1b")
+    shape = InputShape("train_4k", TRAIN_SEQ, TRAIN_ROWS, "train")
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    batches = p15_batches(cfg, 1 + P15_TIMED)
+    model = lm.init(cfg, seed=0, device=mesh.device)
+    state = St.MeshTrainState.from_model(model, mesh, "tp")
+    opt = adamw.init(dict(model.named_parameters()), cfg.opt_state_dtype)
+    mesh_step = St.make_mesh_train_step(shape, mesh, opt_cfg=opt_cfg,
+                                        n_micro=1)
+    one_step = St.make_train_step(shape, opt_cfg, n_micro=1)
+    annotate.reset_traffic()
+    _, warm = p15_timed(lambda: mesh_step(state, batches[0]))
+    got = {k: float(v) for k, v in state.metrics.items()}
+    (_, opt, m), single = p15_timed(lambda: one_step(model, opt, batches[0]))
+    want = {k: float(v) for k, v in m.items()}
+    cmp = p15_compare(state.blocks, dict(model.named_parameters()),
+                      want["lr"])
+    loss_bitwise = bool(torch.equal(state.metrics["loss"], m["loss"]))
+    secs = []
+    for b in batches[1:]:
+        _, dt = p15_timed(lambda b=b: mesh_step(state, b))
+        secs.append(dt)
+    (_, opt, _), single2 = p15_timed(lambda: one_step(model, opt,
+                                                      batches[1]))
+    return dict(mesh=got, single=want, loss_bitwise=loss_bitwise,
+                params=cmp, warm_s=warm, mesh_s=secs,
+                single_s=[single, single2], traffic=annotate.traffic(),
+                losses=[got["loss"], float(state.metrics["loss"])])
+
+
+def p15_mode(mesh, cfg, mode, ref_dir, batches, ckpt_dir=None):
+    """One mode of (b) on this rank: the state from seed 0, step b0
+    against the 1x1 reference (its parameters' blocks read from
+    ``ref_dir``), P15_TIMED timed steps with each one's bytes by label;
+    resident and peak GiB. With ``ckpt_dir``: a checkpoint at the step
+    reached, then the next batch's step (the 2x2 continuation); returns
+    the state too."""
+    from repro_torch.launch import steps as St
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic
+    from repro_torch.sharding import annotate
+    shape = InputShape("train_4k", TRAIN_SEQ, TRAIN_ROWS, "train")
+    step = St.make_mesh_train_step(shape, mesh, mode=mode,
+                                   opt_cfg=adamw.AdamWConfig(**TRAIN_OPT),
+                                   n_micro=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = St.MeshTrainState.init(cfg, mesh, mode, seed=0)
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    _, first = p15_timed(lambda: step(state, batches[0]))
+    ref = elastic.restore_on_mesh(ref_dir, 1, state.layout, mesh, mode)
+    out = dict(first_s=first, first_loss=float(state.metrics["loss"]),
+               first_norm=float(state.metrics["grad_norm"]),
+               vs_ref=p15_compare(state.blocks, ref,
+                                  float(state.metrics["lr"])),
+               resident_gib=resident / 2**30, seconds=[], bytes=[],
+               losses=[float(state.metrics["loss"])])
+    del ref
+    for b in batches[1:1 + P15_TIMED]:
+        annotate.reset_traffic()
+        _, dt = p15_timed(lambda b=b: step(state, b))
+        out["seconds"].append(dt)
+        out["bytes"].append(annotate.traffic())
+        out["losses"].append(float(state.metrics["loss"]))
+    out["peak_above_gib"] = (torch.cuda.max_memory_allocated() - base
+                             - resident) / 2**30
+    out["blocks"] = sum(b.numel() for b in state.blocks.values())
+    if ckpt_dir is None:
+        del state
+        return out
+    at = 1 + P15_TIMED
+    annotate.reset_traffic()
+    _, out["save_s"] = p15_timed(lambda: state.save(ckpt_dir, at))
+    out["save_bytes"] = annotate.traffic()
+    step(state, batches[at])
+    out["continuation_loss"] = float(state.metrics["loss"])
+    return out, state
+
+
+def p15_ep(mesh, policy, early_stop):
+    """(c) on this rank of the 1x4 mesh: smoke mixtral with moe_shard_map,
+    remat ``policy`` (torch's recomputation stopping early or not), one
+    mesh step against the plain path's single-card step from the same
+    weights; this rank's blocks against the plain step's slices; the
+    ``moe_out`` and ``moe_in`` bytes."""
+    from repro_torch.launch import steps as St
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import annotate, rules
+    from torch.utils import checkpoint as remat_ckpt
+    cfg = dataclasses.replace(smoke_config("mixtral-8x22b"),
+                              moe_shard_map=True, remat=True,
+                              remat_policy=policy)
+    shape = InputShape("t", P15_EP_SEQ, P15_EP_ROWS, "train")
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    b = p15_batches(cfg, 1, P15_EP_ROWS, P15_EP_SEQ)[0]
+    model = lm.init(cfg, seed=0, device=mesh.device)
+    opt = adamw.init(dict(model.named_parameters()), cfg.opt_state_dtype)
+    _, _, want = St.make_train_step(shape, opt_cfg, n_micro=1)(model, opt, b)
+    state = St.MeshTrainState.init(cfg, mesh, "tp", seed=0)
+    check(all(m.ep_mesh is mesh for m in state.model.modules()
+              if isinstance(m, lm_layers.MoE)),
+          "phase 15 (c): a MoE layer without the expert-parallel path")
+    step = St.make_mesh_train_step(shape, mesh, opt_cfg=opt_cfg, n_micro=1)
+    annotate.reset_traffic()
+    with remat_ckpt.set_checkpoint_early_stop(early_stop):
+        step(state, b)
+    moved = annotate.traffic()
+    lr = float(want["lr"])
+    worst = 0.0
+    for name, p in model.named_parameters():
+        sl = rules.block_slices(p.shape, state.specs[name], mesh)
+        d = (state.blocks[name].detach() - p.detach()[sl]).abs().max()
+        worst = max(worst, float(d) / (P15_EP_LR_FRACTION * lr))
+    return dict(loss=float(state.metrics["loss"]), want_loss=float(
+        want["loss"]), norm=float(state.metrics["grad_norm"]),
+        want_norm=float(want["grad_norm"]), params_of_bar=worst,
+        expert_rows=int(state.blocks["blocks.0.moe.w_up"].shape[0]),
+        moe_out=moved.get("moe_out", 0), moe_in=moved.get("moe_in", 0),
+        bytes=moved)
+
+
+def phase15_world(mesh, ref_dir, ckpt_dir):
+    """(b) and (c) on one rank of a 2x2 gloo world sharing the card."""
+    from repro_torch.launch.mesh import join_mesh, plan_mesh
+    from repro_torch.launch import steps as St
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=P15_LAYERS)
+    batches = p15_batches(cfg, 2 + P15_TIMED)
+    out = {"coords": {a: mesh.index(a) for a in ("data", "model")},
+           "tp": p15_mode(mesh, cfg, "tp", ref_dir, batches)}
+    out["fsdp"], state = p15_mode(mesh, cfg, "fsdp", ref_dir, batches,
+                                  ckpt_dir)
+    # The same world re-planned as 1x4: the 2x2 checkpoint's blocks.
+    wide = join_mesh(plan_mesh(1, 4, backend="gloo", device=mesh.device))
+    at = 1 + P15_TIMED
+    (restored, restore_s) = p15_timed(lambda: elastic.restore_on_mesh(
+        ckpt_dir, at, state, wide, "fsdp"))
+    del state
+    step = St.make_mesh_train_step(
+        InputShape("train_4k", TRAIN_SEQ, TRAIN_ROWS, "train"), wide,
+        mode="fsdp", opt_cfg=adamw.AdamWConfig(**TRAIN_OPT), n_micro=1)
+    counter = int(restored.opt["step"])
+    _, dt = p15_timed(lambda: step(restored, batches[at]))
+    out["restore_1x4"] = dict(restore_s=restore_s, step_s=dt,
+                              loss=float(restored.metrics["loss"]),
+                              step=counter)
+    del restored, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ep"] = {name: p15_ep(wide, *run) for name, run in P15_EP.items()}
+    return out
+
+
+def p15_predict(cfg, mode, n_layers):
+    """GiB a rank of a 2x2 mesh holds in ``mode`` at ``n_layers`` by the
+    rules: its blocks of the bfloat16 weights and the two float32
+    moments."""
+    from repro_torch.launch.mesh import plan_mesh
+    from repro_torch.sharding import rules
+    layout = lm.init(dataclasses.replace(cfg, n_layers=n_layers),
+                     device="meta")
+    plan = plan_mesh(2, 2)
+    specs = rules.model_specs(layout, plan, mode)
+    moment = torch.empty((), dtype=getattr(torch, cfg.opt_state_dtype))
+    total = 0
+    for name, p in layout.named_parameters():
+        parts = math.prod(plan.size(a) for a in rules.spec_axes(specs[name]))
+        total += p.numel() // parts * (p.element_size()
+                                       + 2 * moment.element_size())
+    return total / 2**30
+
+
+def phase15(dev, smi):
+    """Phase 15: (a) on a 1x1 NCCL mesh, (b) and (c) on a 2x2 gloo world
+    (module comment above P15_LAYERS)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.models import convert
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import adamw
+    t_start = time.perf_counter()
+    tag = f"[{smi}]"
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    # (a) olmo-1b whole on a 1x1 NCCL mesh against the single-card step.
+    t0 = time.perf_counter()
+    a, = run_local(phase15_one, 1, 1, backend="nccl", device="cuda",
+                   timeout=P15_TIMEOUT)
+    a["wall_s"] = time.perf_counter() - t0
+    out["1x1"] = a
+    d_loss = abs(a["mesh"]["loss"] - a["single"]["loss"])
+    check(d_loss <= P15_LOSS_ATOL and a["params"]["max_ulps"] <= 1
+          and abs(a["mesh"]["grad_norm"] - a["single"]["grad_norm"])
+          <= TRAIN_MICRO_RTOL * a["single"]["grad_norm"]
+          and all(np.isfinite(a["losses"])),
+          f"phase 15 (a): the 1x1 mesh step against the single-card step: "
+          f"{a}")
+    check(not a["traffic"], f"phase 15 (a): bytes crossed a one-rank mesh: "
+          f"{a['traffic']}")
+    print(f"phase 15: (a) olmo-1b whole ({get_config('olmo-1b').n_layers} "
+          f"layers, d_model 2048, vocab 50,304, bf16 weights, f32 moments, "
+          f"remat full), {TRAIN_ROWS} x {TRAIN_SEQ} tokens, mode tp, on a "
+          f"1x1 NCCL mesh (one rank: no collective moves a byte): loss "
+          f"{a['mesh']['loss']:.6f} against the single-card step's "
+          f"{a['single']['loss']:.6f} ({'bitwise' if a['loss_bitwise'] else f'|d| {d_loss:.3g}'}), "
+          f"grad norm {a['mesh']['grad_norm']:.6f} / "
+          f"{a['single']['grad_norm']:.6f}; parameters after it "
+          f"{a['params']['max_ulps']} bf16 ulp apart at most, "
+          f"{100 * a['params']['bitwise_share']:.4f} % bitwise; seconds a "
+          f"step: mesh warm-up {a['warm_s']:.3f}, timed "
+          f"{[round(x, 3) for x in a['mesh_s']]}, single card "
+          f"{[round(x, 3) for x in a['single_s']]} {tag}", flush=True)
+    # (b)'s reference: a 1x1 step at (b)'s depth and batch, on this card.
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=P15_LAYERS)
+    batch = p15_batches(cfg, 1)[0]
+    model = lm.init(cfg, seed=0, device=dev)
+    opt = adamw.init(dict(model.named_parameters()), cfg.opt_state_dtype)
+    step = train_steps.make_train_step(
+        InputShape("train_4k", TRAIN_SEQ, TRAIN_ROWS, "train"),
+        adamw.AdamWConfig(**TRAIN_OPT), n_micro=1)
+    (_, _, m), ref_s = p15_timed(lambda: step(model, opt, batch))
+    ref = {k: float(v) for k, v in m.items()}
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_p15_ref_")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_p15_ckpt_")
+    store.save(ref_dir, 1, convert.to_tree(
+        model, {n: p.detach() for n, p in model.named_parameters()}))
+    del model, opt, m, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    predicted = {mode: {"cut": p15_predict(cfg, mode, P15_LAYERS),
+                        "whole": p15_predict(cfg, mode, 16)}
+                 for mode in ("tp", "fsdp")}
+    print(f"phase 15: (b) olmo-1b at full width, depth cut from 16 to "
+          f"{P15_LAYERS} layers (a 2x2 step stages every gathered leaf and "
+          f"gradient through the host for four ranks on one card, and the "
+          f"whole model's checkpoint is 11.8 GB: the script must end within "
+          f"1,200 s, phases 1-14 included); the 1x1 step at that depth: "
+          f"loss {ref['loss']:.6f}, grad norm {ref['grad_norm']:.6f}, "
+          f"{ref_s:.3f} s {tag}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        world = run_local(phase15_world, 2, 2, backend="gloo", device="cuda",
+                          args=(ref_dir, ckpt_dir), timeout=P15_TIMEOUT)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for mode in ("tp", "fsdp"):
+        runs = [r[mode] for r in world]
+        check(all(r["losses"] == runs[0]["losses"] for r in runs),
+              f"phase 15 (b) {mode}: the ranks' losses differ")
+        r0 = runs[0]
+        check(abs(r0["first_loss"] - ref["loss"]) <= P15_LOSS_ATOL
+              and abs(r0["first_norm"] - ref["grad_norm"])
+              <= P15_NORM_RTOL * ref["grad_norm"]
+              and all(r["vs_ref"]["of_bar"] <= 1.0 for r in runs)
+              and all(np.isfinite(r0["losses"])),
+              f"phase 15 (b) {mode} against the 1x1 step: {runs}")
+        print(f"phase 15: (b) 2x2 gloo ({mode}, the four ranks share the "
+              f"card, gloo staging through the host): step 1 loss "
+              f"{r0['first_loss']:.6f} (1x1 {ref['loss']:.6f}, |d| "
+              f"{abs(r0['first_loss'] - ref['loss']):.3g}), grad norm "
+              f"{r0['first_norm']:.6f} (|d| "
+              f"{abs(r0['first_norm'] - ref['grad_norm']) / ref['grad_norm']:.3g}"
+              f" of it); parameters against the 1x1 step's: "
+              f"{100 * min(r['vs_ref']['bitwise_share'] for r in runs):.4f} % "
+              f"bitwise, {100 * max(r['vs_ref']['beyond_1ulp_share'] for r in runs):.4f} % "
+              f"more than 1 bf16 ulp apart, the largest "
+              f"{max(r['vs_ref']['of_bar'] for r in runs):.3g} of "
+              f"{P15_LR_FLIPS:g} lr + 1 ulp; losses "
+              f"{[round(x, 5) for x in r0['losses']]}; "
+              f"predicted resident {predicted[mode]['cut']:.3f} GiB a rank "
+              f"({predicted[mode]['whole']:.3f} at 16 layers) {tag}",
+              flush=True)
+        for r, run in enumerate(runs):
+            per_step = {k: int(np.mean([b.get(k, 0) for b in run["bytes"]]))
+                        for k in sorted(set().union(*run["bytes"]))}
+            print(f"phase 15: (b) {mode} rank {r} {world[r]['coords']}: "
+                  f"resident {run['resident_gib']:.3f} GiB, peak "
+                  f"{run['peak_above_gib']:.3f} GiB above it, seconds a "
+                  f"step {[round(x, 3) for x in run['seconds']]} (step 1 "
+                  f"{run['first_s']:.3f}), bytes received a step {per_step} "
+                  f"{tag}", flush=True)
+    fs = [r["fsdp"] for r in world]
+    rs = [r["restore_1x4"] for r in world]
+    at = 1 + P15_TIMED
+    check(all(abs(x["loss"] - f["continuation_loss"]) <= P15_LOSS_ATOL
+              and x["step"] == at for x, f in zip(rs, fs)),
+          f"phase 15 (b) restore on 1x4: {rs} against {fs}")
+    print(f"phase 15: (b) checkpoint of the 2x2 fsdp state at step {at}: "
+          f"{fs[0]['save_s']:.2f} s (the leader receives "
+          f"{fs[0]['save_bytes']} bytes); the world re-planned 1x4 "
+          f"(plan_mesh / join_mesh), restore_on_mesh {rs[0]['restore_s']:.2f}"
+          f" s a rank, the next step's loss {rs[0]['loss']:.6f} against the "
+          f"2x2 continuation's {fs[0]['continuation_loss']:.6f} (|d| "
+          f"{abs(rs[0]['loss'] - fs[0]['continuation_loss']):.3g}), "
+          f"{rs[0]['step_s']:.3f} s {tag}", flush=True)
+    layer_bytes = 3 * P15_EP_ROWS * P15_EP_SEQ * 4 * smoke_config(
+        "mixtral-8x22b").d_model * smoke_config("mixtral-8x22b").n_layers
+    for policy, (_, early) in P15_EP.items():
+        eps = [r["ep"][policy] for r in world]
+        e0 = eps[0]
+        check(all(abs(e["loss"] - e["want_loss"]) <= P15_EP_RTOL
+                  * abs(e["want_loss"])
+                  and abs(e["norm"] - e["want_norm"]) <= P15_EP_RTOL
+                  * e["want_norm"] and e["params_of_bar"] <= 1.0
+                  and e["expert_rows"] == 1
+                  and e["moe_out"] == layer_bytes * (
+                      2 if policy == "full, no early stop" else 1)
+                  for e in eps),
+              f"phase 15 (c) {policy}: the expert-parallel step against the "
+              f"plain path: {eps}")
+        print(f"phase 15: (c) mixtral smoke (4 experts over model = 4, one "
+              f"packed row a rank) moe_shard_map, remat {policy}, 1x4 gloo "
+              f"on the card: loss {e0['loss']:.6f} against the plain path's "
+              f"{e0['want_loss']:.6f}, grad norm {e0['norm']:.6f} / "
+              f"{e0['want_norm']:.6f}, parameters at most "
+              f"{max(e['params_of_bar'] for e in eps):.3g} of "
+              f"{P15_EP_LR_FRACTION} lr; moe_out {e0['moe_out']} bytes "
+              f"({e0['moe_out'] / layer_bytes:g} all-reduce a layer), moe_in "
+              f"{e0['moe_in']} a rank a step {tag}", flush=True)
+    out["2x2"] = dict(reference=ref, reference_s=ref_s, predicted=predicted,
+                      layers=P15_LAYERS, wall_s=wall, ranks=world)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 15: done in {out['seconds']:.1f} s {tag}", flush=True)
+    return out
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
 
@@ -4682,6 +5145,9 @@ def main():
     # kernels is phases 2-13's).
     p14 = phase14(dev)
 
+    # Phase 15: LM training on a mesh (no kernel of its own either).
+    p15 = phase15(dev, smi)
+
     def p10_launches(kname):
         """The kernel's launches in each run of phase 10 that made any."""
         return {r: c[kname] for r, c in p10_runs.items() if c[kname]}
@@ -4804,6 +5270,7 @@ def main():
     print(json.dumps({"phase12": p12}))
     print(json.dumps({"phase13": p13}))
     print(json.dumps({"phase14": p14}))
+    print(json.dumps({"phase15": p15}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -223,42 +223,53 @@ def restore(ckpt_dir: str, step: int, like: Any, *,
     a stored dtype other than the target's) raise
     :class:`CheckpointCorrupt`.
     """
-    d = _step_dir(ckpt_dir, step)
     manifest = load_manifest(ckpt_dir, step)
-    out = {}
-    for name, want in _leaf_paths(like):
-        try:
-            meta = manifest["leaves"][name]
-        except KeyError as e:
-            raise CheckpointCorrupt(
-                f"checkpoint corruption in {name}: leaf missing from "
-                f"manifest at step {step}") from e
-        path = os.path.join(d, meta["file"])
-        try:
-            if verify:
-                with open(path, "rb") as f:
-                    digest = hashlib.sha256(f.read()).hexdigest()
-            raw = np.load(path)
-        except (OSError, ValueError) as e:
-            # ValueError: np.load on a corrupted/truncated .npy header.
-            raise CheckpointCorrupt(
-                f"checkpoint corruption in {name}: leaf file unreadable "
-                f"({path}: {e})") from e
-        if verify and digest != meta["sha256"]:
-            raise CheckpointCorrupt(
-                f"checkpoint corruption in {name}: "
-                f"{digest} != {meta['sha256']}")
-        if dtype_name(want) != meta["dtype"]:
-            # A precision-policy index must come back in its stored
-            # dtypes: reinterpreting or casting here would silently
-            # change what the caller serves.
-            raise CheckpointCorrupt(
-                f"checkpoint dtype mismatch in {name}: stored "
-                f"{meta['dtype']} but restore target expects "
-                f"{dtype_name(want)}; rebuild the target with the "
-                "checkpoint's dtypes (no silent cast)")
-        out[name] = _from_raw(raw, meta["shape"], want)
+    out = {name: restore_leaf(ckpt_dir, step, name, want, manifest=manifest,
+                              verify=verify)
+           for name, want in _leaf_paths(like)}
     return _unflatten(like, out)
+
+
+def restore_leaf(ckpt_dir: str, step: int, name: str, like, *,
+                 manifest: dict | None = None, verify: bool = True):
+    """One leaf of a checkpoint by its name (its path joined by ``/``), in
+    the kind of ``like`` as :func:`restore` gives it; ``manifest``: the
+    step's, when the caller has read it. Raises :class:`CheckpointCorrupt`
+    as :func:`restore` does."""
+    d = _step_dir(ckpt_dir, step)
+    if manifest is None:
+        manifest = load_manifest(ckpt_dir, step)
+    try:
+        meta = manifest["leaves"][name]
+    except KeyError as e:
+        raise CheckpointCorrupt(
+            f"checkpoint corruption in {name}: leaf missing from "
+            f"manifest at step {step}") from e
+    path = os.path.join(d, meta["file"])
+    try:
+        if verify:
+            with open(path, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+        raw = np.load(path)
+    except (OSError, ValueError) as e:
+        # ValueError: np.load on a corrupted/truncated .npy header.
+        raise CheckpointCorrupt(
+            f"checkpoint corruption in {name}: leaf file unreadable "
+            f"({path}: {e})") from e
+    if verify and digest != meta["sha256"]:
+        raise CheckpointCorrupt(
+            f"checkpoint corruption in {name}: "
+            f"{digest} != {meta['sha256']}")
+    if dtype_name(like) != meta["dtype"]:
+        # A precision-policy index must come back in its stored
+        # dtypes: reinterpreting or casting here would silently
+        # change what the caller serves.
+        raise CheckpointCorrupt(
+            f"checkpoint dtype mismatch in {name}: stored "
+            f"{meta['dtype']} but restore target expects "
+            f"{dtype_name(like)}; rebuild the target with the "
+            "checkpoint's dtypes (no silent cast)")
+    return _from_raw(raw, meta["shape"], like)
 
 
 def restore_extra(ckpt_dir: str, step: int) -> dict:

@@ -30,7 +30,10 @@ process's ``torch.distributed`` state is left as it was. ``device`` is
 where the rank's tensors live: the CPU, or a CUDA device (several gloo
 ranks may share one card; NCCL takes one rank a card).
 
-``make_production_mesh`` (the TPU pod shapes) waits for the LM stack.
+The LM train step runs on such a mesh too (``launch/steps.py``
+``make_mesh_train_step``, laid out by ``sharding/rules.py``).
+``make_production_mesh`` (the TPU pod shapes) waits for the mesh prefill
+and decode steps (ROADMAP Queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -78,6 +81,11 @@ class Mesh:
         if self.grid is None:
             return dict.fromkeys(AXES, 1)
         return dict(zip(AXES, (len(self.grid), len(self.grid[0]))))
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        """The axes, outermost first (the sharding rules read them)."""
+        return AXES
 
     @property
     def ranks(self) -> tuple[int, ...]:

@@ -7,24 +7,35 @@ JAX's tree stacks, ``models/convert.py``), and a train step updates them
 and the AdamW state in place. The abstract stand-ins are tensors on the
 meta device, which hold shapes and dtypes and no memory.
 
-JAX's ``jit_train_step``, ``jit_prefill_step`` and ``jit_decode_step`` wrap
-these steps with the parameter, batch and cache shardings of a mesh; they
-wait for the port's LM mesh slice (``sharding/rules.py``, ROADMAP Queue 1
-item 8). The EMD search steps run on a mesh already: pass ``mesh=`` to
-``make_emd_search_step`` / ``make_emd_cascade_step`` (the port's
-counterparts of ``jit_emd_search_step`` / ``jit_emd_cascade_step``).
+:func:`make_mesh_train_step` is the counterpart of JAX's
+``jit_train_step``: the same step on a ``torch.distributed`` (data, model)
+mesh (``launch/mesh.py``), acting on a :class:`MeshTrainState`, in which
+each rank holds only the blocks of the parameters and AdamW moments that
+``sharding.rules.param_specs`` gives its coordinates. JAX's mesh prefill
+and decode steps (``jit_prefill_step``, ``jit_decode_step``) are not
+ported yet (ROADMAP Queue 1 item 8b). The EMD search steps run on a mesh:
+pass ``mesh=`` to ``make_emd_search_step`` / ``make_emd_cascade_step``
+(the port's counterparts of ``jit_emd_search_step`` /
+``jit_emd_cascade_step``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+from torch import nn
+from torch.nn.utils import parametrize
 
+from repro_torch.checkpoint import store
+from repro_torch.launch.mesh import AXES
 from repro_torch.models import convert
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.optim.grad_utils import accumulate_grads
+from repro_torch.sharding import annotate, rules
 
 #: KV-cache capacity padding: seq_len + 512 keeps the sequence dim divisible
 #: by every mesh-axis product the JAX package shards it over (16, 256, 512).
@@ -163,6 +174,307 @@ def runner_step(train_step):
         _, state.opt, state.metrics = train_step(state.model, state.opt,
                                                  batch)
         return state
+    return step
+
+
+# ----------------------------------------------------------------------------
+# The train step on a (data, model) mesh (JAX's jit_train_step)
+# ----------------------------------------------------------------------------
+
+#: Labels of the mesh step's scalar all-reduces in ``annotate.TRAFFIC``:
+#: the loss mask's count and the loss, and the gradients' squared norm.
+LOSS_SUMS, NORM_SUM = "loss_sums", "grad_norm"
+
+#: The expert leaves that the expert-parallel path computes locally.
+_EXPERT_LEAVES = ("w_up", "w_gate", "w_down")
+
+
+class _GatherOnUse(nn.Module):
+    """The parametrization of one parameter of a mesh state: reading the
+    parameter gathers the rank's block into the whole leaf
+    (``annotate.fsdp_gather``, over the axes of ``spec``); backward sums
+    its gradient over ``batch_axes``, which the step sets from the
+    batch."""
+
+    def __init__(self, mesh, spec):
+        super().__init__()
+        self.mesh, self.spec, self.batch_axes = mesh, spec, ()
+
+    def forward(self, block):
+        return annotate.fsdp_gather(block, self.mesh, self.spec,
+                                    self.batch_axes)
+
+
+def _zeros_like(blocks: dict, dtype) -> dict:
+    return {k: torch.zeros(b.shape, dtype=dtype, device=b.device)
+            for k, b in blocks.items()}
+
+
+@dataclasses.dataclass(eq=False)
+class MeshTrainState:
+    """One rank's part of a model and its AdamW state on a mesh, laid out
+    by ``sharding.rules`` in ``mode`` ("tp", "fsdp" or "ep").
+
+    ``model``: an ``LM`` whose every parameter is this rank's block of it
+    (``blocks``, keyed by the single-device model's parameter names), read
+    through a gather on use: the forward and backward of ``train_loss``
+    run on it as on one device. ``opt``: the moments' blocks and the step
+    counter. ``layout``: the model on the meta device (names, shapes, JAX's
+    tree layout); ``specs``: each parameter's per-block spec.
+
+    The expert leaves of a MoE layer are computed where they lie (the
+    expert-parallel path, ``layers.moe_apply_shard_map``) under
+    ``cfg.moe_shard_map`` or mode "ep" on a mesh whose ``model`` axis has
+    more than one rank: they are gathered over ``data`` only. That needs
+    the batch replicated over ``model``, so mode "fsdp" refuses it.
+
+    ``save`` / ``restore`` checkpoint the state in the JAX package's
+    layout, so ``runtime.fault.FaultTolerantRunner`` runs a mesh step: the
+    leader (data 0, model 0) writes the gathered whole leaves, every rank
+    reads back its own blocks (``runtime.elastic.restore_on_mesh``)."""
+    model: M.LM
+    layout: M.LM
+    mesh: object
+    mode: str
+    specs: dict
+    blocks: dict
+    opt: dict
+    metrics: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def cfg(self) -> ModelConfig:
+        return self.layout.cfg
+
+    @property
+    def is_leader(self) -> bool:
+        return all(self.mesh.index(a) == 0 for a in AXES)
+
+    @classmethod
+    def from_blocks(cls, cfg: ModelConfig, mesh, mode: str, blocks: dict,
+                    opt: dict | None = None) -> "MeshTrainState":
+        """A state of ``cfg``'s model from this rank's ``blocks``
+        ({parameter name: block}, on ``mesh.device``) and, optionally, the
+        moments' blocks and step (default: zeros in the config's
+        ``opt_state_dtype``, step 0)."""
+        layout = M.init(cfg, device="meta")
+        specs = rules.model_specs(layout, mesh, mode)
+        ep = (cfg.is_moe and (cfg.moe_shard_map or mode == "ep")
+              and mesh.size("model") > 1)
+        if ep and mode == "fsdp":
+            raise ValueError("the expert-parallel MoE needs the batch "
+                             "replicated over 'model': mode 'tp' or 'ep', "
+                             "not 'fsdp'")
+        if set(blocks) != set(specs):
+            raise ValueError(f"blocks {sorted(set(blocks) ^ set(specs))} "
+                             "differ from the model's parameters")
+        model = M.init(cfg, device="meta")
+        for name, block in blocks.items():
+            whole = layout.get_parameter(name).shape
+            want = tuple(s.stop - s.start for s in rules.block_slices(
+                whole, specs[name], mesh))
+            if tuple(block.shape) != want:
+                raise ValueError(f"{name}: block {tuple(block.shape)}, the "
+                                 f"rules give {want} on this rank")
+            mod_name, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(mod_name)
+            setattr(mod, leaf, nn.Parameter(block))
+            spec = specs[name]
+            if ep and isinstance(mod, L.MoE) and leaf in _EXPERT_LEAVES:
+                if spec[:1] != ("model",):
+                    raise ValueError(f"{name}: spec {spec} does not split "
+                                     "the expert rows over 'model'")
+                mod.ep_mesh = mesh
+                spec = (None,) + spec[1:]
+            parametrize.register_parametrization(
+                mod, leaf, _GatherOnUse(mesh, spec), unsafe=True)
+        params = {name: model.get_submodule(name.rpartition(".")[0])
+                  .parametrizations[name.rpartition(".")[2]].original
+                  for name in specs}
+        if opt is None:
+            dt = getattr(torch, cfg.opt_state_dtype)
+            opt = {"m": _zeros_like(params, dt), "v": _zeros_like(params, dt),
+                   "step": torch.zeros((), dtype=torch.int32,
+                                       device=mesh.device)}
+        return cls(model=model, layout=layout, mesh=mesh, mode=mode,
+                   specs=specs, blocks=params, opt=opt)
+
+    @classmethod
+    def from_model(cls, model: M.LM, mesh,
+                   mode: str = "tp") -> "MeshTrainState":
+        """This rank's blocks of a whole ``model``, copied to
+        ``mesh.device``; zero moments, step 0."""
+        specs = rules.model_specs(model, mesh, mode)
+        blocks = {n: p.detach()[rules.block_slices(p.shape, specs[n], mesh)]
+                  .to(mesh.device, copy=True).contiguous()
+                  for n, p in model.named_parameters()}
+        return cls.from_blocks(model.cfg, mesh, mode, blocks)
+
+    @classmethod
+    def init(cls, cfg: ModelConfig, mesh, mode: str = "tp",
+             seed: int = 0) -> "MeshTrainState":
+        """``models.model.init(cfg, seed=seed)`` on ``mesh.device``, cut to
+        this rank's blocks (the whole model is freed)."""
+        return cls.from_model(M.init(cfg, seed=seed, device=mesh.device),
+                              mesh, mode)
+
+    def set_batch_axes(self, axes: tuple[str, ...]) -> None:
+        """The axes whose ranks hold different batch rows: the gathers'
+        backward sums the gradients over them."""
+        for mod in self.model.modules():
+            if isinstance(mod, _GatherOnUse):
+                mod.batch_axes = tuple(axes)
+
+    @torch.no_grad()
+    def tree(self) -> dict | None:
+        """The training state in the JAX package's layout (``TrainState``'s
+        tree), whole leaves on the CPU, on the leader; None on every other
+        rank. A collective: every rank of the mesh calls it."""
+        def whole(blocks):
+            return {n: annotate.gather_to_leader(b, self.mesh, self.specs[n])
+                    for n, b in blocks.items()}
+        params, m, v = (whole(t) for t in (self.blocks, self.opt["m"],
+                                           self.opt["v"]))
+        if not self.is_leader:
+            return None
+        return {"params": convert.to_tree(self.layout, params),
+                "opt": {"m": convert.to_tree(self.layout, m),
+                        "v": convert.to_tree(self.layout, v),
+                        "step": self.opt["step"].cpu()}}
+
+    def save(self, ckpt_dir: str, step: int, extra: dict | None = None):
+        """Write ``tree()`` as checkpoint ``step`` from the leader; every
+        rank returns once it is written (a collective)."""
+        tree = self.tree()
+        if tree is not None:
+            store.save(ckpt_dir, step, tree, extra=extra)
+        done = torch.zeros(1, device=self.mesh.device)
+        for axis in AXES:
+            annotate.all_reduce_sum(done, self.mesh, axis,
+                                    annotate.CKPT_GATHER)
+
+    @torch.no_grad()
+    def restore(self, ckpt_dir: str, step: int) -> "MeshTrainState":
+        """Load checkpoint ``step`` (a ``TrainState`` tree, written from
+        any mesh or one device) into this state's blocks, in place."""
+        from repro_torch.runtime import elastic
+        params, m, v, counter = elastic.read_state_blocks(
+            ckpt_dir, step, self.layout, self.specs, self.mesh)
+        for name, p in self.blocks.items():
+            p.copy_(params[name])
+            self.opt["m"][name].copy_(m[name])
+            self.opt["v"][name].copy_(v[name])
+        self.opt["step"] = counter
+        return self
+
+
+def batch_axes(batch: dict, mesh, mode: str = "tp") -> tuple[str, ...]:
+    """The mesh axes that split the rows of ``batch`` (a dict of arrays
+    with one leading batch dim): ``rules.batch_specs``' first dim."""
+    specs = rules.batch_specs(batch, mesh, mode)
+    firsts = {rules.axes_of(spec[0]) for spec in specs.values() if spec}
+    if len(firsts) != 1:
+        raise ValueError(f"batch leaves split over {firsts}: one leading "
+                         "batch dim for all")
+    return firsts.pop()
+
+
+def rank_rows(batch: dict, mesh, axes: tuple[str, ...],
+              n_micro: int) -> dict:
+    """This rank's rows of each of ``n_micro`` microbatches of the global
+    ``batch``, concatenated: microbatch i is the global rows' i-th
+    contiguous chunk (JAX's ``accumulate_grads``), split over ``axes``,
+    so ``accumulate_grads`` over the result takes the rank's part of
+    chunk i as its microbatch i. On ``mesh.device``."""
+    spec = ((axes if len(axes) > 1 else axes[0]) if axes else None,)
+    out = {}
+    for key, v in batch.items():
+        v = torch.as_tensor(v)
+        if v.shape[0] % n_micro:
+            raise ValueError(f"batch[{key!r}] has {v.shape[0]} rows, not a "
+                             f"multiple of n_micro={n_micro}")
+        chunks = v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])
+        sl, = rules.block_slices((chunks.shape[1],), spec, mesh)
+        out[key] = chunks[:, sl].reshape(-1, *v.shape[1:]).to(mesh.device)
+    return out
+
+
+def _mesh_global_norm(grads: dict, state: MeshTrainState) -> torch.Tensor:
+    """``adamw.global_norm`` of the whole gradient tree from this rank's
+    blocks: each block's sum of squares counted on one rank of those that
+    hold it (the ranks at index 0 of every axis its spec does not name),
+    summed over the mesh."""
+    mesh, sums = state.mesh, []
+    for name in sorted(grads):
+        named = rules.spec_axes(state.specs[name])
+        if all(mesh.index(a) == 0 for a in AXES if a not in named):
+            sums.append(torch.sum(torch.square(grads[name].float())))
+        else:
+            sums.append(torch.zeros((), device=grads[name].device))
+    total = torch.sum(torch.stack(sums))
+    for axis in AXES:
+        total = annotate.all_reduce_sum(total, mesh, axis, NORM_SUM)
+    return torch.sqrt(total)
+
+
+def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for axis in axes:
+        x = annotate.all_reduce_sum(x, mesh, axis, LOSS_SUMS)
+    return x
+
+
+def make_mesh_train_step(shape: InputShape, mesh, *, mode: str = "tp",
+                         opt_cfg: adamw.AdamWConfig | None = None,
+                         n_micro: int | None = None):
+    """JAX's ``jit_train_step`` on ``mesh``: returns step(state, batch) ->
+    state, for a :class:`MeshTrainState` of this mesh and ``mode``, with
+    ``state.metrics`` {"loss", "grad_norm", "lr"} the same on every rank.
+
+    ``batch`` is the global batch, the same on every rank (the token
+    pipeline makes it from the step number); the step keeps this rank's
+    rows of each microbatch (:func:`rank_rows`, the axes of
+    ``rules.batch_specs``). Each rank's loss is its rows' part of the
+    single-device loss: its masked sum over the whole microbatch's mask
+    count (summed over the batch axes, or the token count), and the MoE
+    aux loss over the number of batch shards; the gathers' backward sums
+    the gradients over the batch axes. The global norm counts every
+    element once; AdamW then updates the rank's blocks in place, the step
+    counter alike on every rank."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def step(state: MeshTrainState, batch: dict) -> MeshTrainState:
+        if state.mesh is not mesh or state.mode != mode:
+            raise ValueError(f"a {state.mode!r} state of {state.mesh!r} "
+                             f"for a {mode!r} step of {mesh!r}")
+        micro = microbatches_for(state.cfg, shape) if n_micro is None \
+            else n_micro
+        axes = batch_axes(batch, mesh, mode)
+        shards = math.prod(mesh.size(a) for a in axes)
+        state.set_batch_axes(axes)
+
+        def loss_fn(b):
+            nll_sum, count, aux = M.loss_terms(state.model, b)
+            if isinstance(count, torch.Tensor):
+                count = torch.clamp_min(
+                    _sum_over(count.detach(), mesh, axes), 1.0)
+            else:
+                count = count * shards
+            return nll_sum / count + 0.01 * (aux / shards)
+        loss, grads = accumulate_grads(
+            loss_fn, state.blocks, rank_rows(batch, mesh, axes, micro),
+            micro)
+        with torch.no_grad():
+            loss = _sum_over(loss, mesh, axes)
+            norm = _mesh_global_norm(grads, state)
+            detached = {k: p.detach() for k, p in state.blocks.items()}
+            new, state.opt, metrics = adamw.update(grads, state.opt,
+                                                   detached, opt_cfg, norm)
+            del grads
+            for k, p in state.blocks.items():
+                p.copy_(new[k])
+        metrics["loss"] = loss
+        state.metrics = metrics
+        return state
+
     return step
 
 

@@ -31,8 +31,9 @@ from repro_torch.models.config import ModelConfig
 Path = tuple[str, ...]
 
 
-def _layer_path(name: str, cfg: ModelConfig) -> tuple[Path, int | None]:
-    """A state-dict name -> (its JAX path, its layer or None)."""
+def layer_path(name: str, cfg: ModelConfig) -> tuple[Path, int | None]:
+    """A state-dict name -> (its JAX path, its layer on the stacked
+    leading axis, or None for a leaf that is not stacked)."""
     parts = name.split(".")
     if parts[0] != "blocks":
         return tuple(parts), None
@@ -42,11 +43,12 @@ def _layer_path(name: str, cfg: ModelConfig) -> tuple[Path, int | None]:
     return ("blocks", *parts[2:]), int(parts[1])
 
 
-def _layout(model: M.LM):
-    """JAX path -> (per-layer shape, dtype, [(state-dict name, layer)])."""
+def layout(model: M.LM) -> dict:
+    """JAX path -> (per-layer shape, dtype, [(state-dict name, layer)]),
+    the layers in order (layer None for a leaf that is not stacked)."""
     out: dict[Path, tuple] = {}
     for name, p in model.state_dict(keep_vars=True).items():
-        path, layer = _layer_path(name, model.cfg)
+        path, layer = layer_path(name, model.cfg)
         entry = out.setdefault(path, (tuple(p.shape), p.dtype, []))
         entry[2].append((name, layer))
     return out
@@ -57,7 +59,7 @@ def _empty_norms(model: M.LM) -> list[Path]:
     paths = []
     for name, mod in model.named_modules():
         if isinstance(mod, L.Norm) and mod.scale is None:
-            path, _ = _layer_path(name, model.cfg)
+            path, _ = layer_path(name, model.cfg)
             if path not in paths:
                 paths.append(path)
     return paths
@@ -102,17 +104,17 @@ def _from_leaves(tree: dict, model: M.LM, device, dtype=None,
     the model's parameter names (a stacked leaf's layers are views of one
     tensor). Each leaf must have the model's shape and ``dtype`` (default:
     the parameter's own)."""
-    layout = _layout(model)
+    paths = layout(model)
     leaves = _flatten(tree)
-    missing = sorted(set(layout) - set(leaves))
-    extra = sorted(set(leaves) - set(layout))
+    missing = sorted(set(paths) - set(leaves))
+    extra = sorted(set(leaves) - set(paths))
     if missing or extra:
         raise ValueError(f"{what} tree for {model.cfg.name}: missing leaves "
                          f"{['/'.join(p) for p in missing]}, extra leaves "
                          f"{['/'.join(p) for p in extra]}")
     device = M.resolve_device(device)
     out = {}
-    for path, (shape, p_dtype, names) in layout.items():
+    for path, (shape, p_dtype, names) in paths.items():
         a = np.asarray(leaves[path])
         stacked = names[0][1] is not None
         want = (len(names), *shape) if stacked else shape
@@ -151,7 +153,7 @@ def to_tree(model: M.LM, tensors: dict) -> dict:
 
     for path in _empty_norms(model):
         put(path, {})
-    for path, (_, _, names) in _layout(model).items():
+    for path, (_, _, names) in layout(model).items():
         ts = [tensors[name] for name, _ in names]     # in layer order
         put(path, torch.stack(ts) if names[0][1] is not None else ts[0])
     return tree
@@ -162,7 +164,7 @@ def from_tree(model: M.LM, tree: dict) -> dict:
     by the model's parameter names (a stacked leaf's layers are views)."""
     leaves = _flatten(tree)
     out = {}
-    for path, (_, _, names) in _layout(model).items():
+    for path, (_, _, names) in layout(model).items():
         t = leaves[path]
         for name, layer in names:
             out[name] = t[layer] if layer is not None else t

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import annotate
 
 NEG_INF = -1e30
 
@@ -267,10 +268,16 @@ def mlp_apply(mlp: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ----------------------------------------------------------------------------
 
 class MoE(nn.Module):
-    """Packed layout: (E*s, d, ff/s), slice j of expert e at row e*s + j."""
+    """Packed layout: (E*s, d, ff/s), slice j of expert e at row e*s + j.
+
+    ``ep_mesh``: None (the plain path), or the mesh over whose ``model``
+    ranks (more than one) this layer's packed rows are split, set by the
+    mesh train step (``launch.steps.MeshTrainState``): ``moe_apply`` then
+    takes the expert-parallel path, each rank holding its own rows."""
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
+        self.ep_mesh = None
         d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
         s, dt = cfg.moe_ff_shards, param_dtype(cfg)
         self.router = dense_init(generator, d, (E,), torch.float32, device)
@@ -295,20 +302,27 @@ def _moe_routing(router: torch.Tensor, xg: torch.Tensor, k: int, E: int):
     """Routing for one group xg: (tg, d). Returns the entries sorted by
     expert (stable), each entry's position in its expert's run, and the
     Switch-style load-balance loss."""
-    tg = xg.shape[0]
     logits = xg.float() @ router                                  # (tg, E)
+    return _route(logits, logits, k, E)
+
+
+def _route(logits: torch.Tensor, aux_logits: torch.Tensor, k: int, E: int):
+    """``_moe_routing`` from the router's logits (tg, E): the gates from
+    ``logits``, the load-balance loss from ``aux_logits``, the same values
+    (the expert-parallel path passes *f* of them as ``logits``)."""
+    tg = logits.shape[0]
     gate_top, ids = top_k(logits, k)
     gates = torch.softmax(gate_top, dim=-1)
     flat_e = ids.reshape(-1)
-    flat_tok = torch.arange(tg * k, device=xg.device) // k
+    flat_tok = torch.arange(tg * k, device=logits.device) // k
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     stok = flat_tok[order]
     sgate = gates.reshape(-1)[order]
     first = torch.searchsorted(se, se, side="left")
-    pos = torch.arange(tg * k, device=xg.device) - first
+    pos = torch.arange(tg * k, device=logits.device) - first
     me = F.one_hot(ids[:, 0], E).float().mean(dim=0)
-    pe = torch.softmax(logits, dim=-1).mean(dim=0)
+    pe = torch.softmax(aux_logits, dim=-1).mean(dim=0)
     aux = E * torch.sum(me * pe)
     return se, stok, sgate, pos, aux
 
@@ -357,11 +371,12 @@ def moe_apply(moe: MoE, x: torch.Tensor,
     capacity C = int(S*k/E*cf) + 1 counts one row's S (1 at decode).
 
     With moe_ff_shards = s > 1 every expert's FFN is s column slices whose
-    partial outputs are summed. One device: the plain path. The JAX
-    package's explicit expert-parallel path (``moe_apply_shard_map``) runs
-    only on a mesh, which this path does not take, as JAX falls through to
-    the plain path without one.
+    partial outputs are summed. A layer with an ``ep_mesh`` takes the
+    expert-parallel path (``moe_apply_shard_map``); otherwise, as on one
+    device, the plain path.
     """
+    if moe.ep_mesh is not None:
+        return moe_apply_shard_map(moe, x, cfg, moe.ep_mesh)
     B, S, d = x.shape
     E, s = cfg.n_experts, cfg.moe_ff_shards
     k = cfg.experts_per_token
@@ -381,3 +396,53 @@ def moe_apply(moe: MoE, x: torch.Tensor,
     y = torch.stack([_moe_combine(ye[b], groups[b][1], S, x.dtype)
                      for b in range(B)])
     return y, torch.stack([g[2] for g in groups]).mean()
+
+
+def moe_apply_shard_map(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
+                        mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Explicit expert parallelism over ``mesh``'s ``model`` ranks (the
+    JAX package's ``moe_apply_shard_map``). x: (B, S, d), this rank's rows,
+    the same on every model rank; ``moe``'s expert weights are the rank's
+    ``e_loc`` packed rows (``e_loc * model`` in all), the router whole.
+
+    Every rank routes every token with the replicated router, builds only
+    the buckets of its own rows, computes them and contributes a partial
+    output; *g* (``annotate.moe_out``) sums the partials over ``model``,
+    one activation all-reduce a layer, and no (G, E, C, d) tensor crosses.
+    *f* (``annotate.moe_in``) wraps what each rank reads for its own rows
+    alone, the tokens and the gates' logits, so that their gradients sum
+    over ``model``; the load-balance loss reads the logits as they are, its
+    gradient the same on every rank. Returns (y, the mean aux over the
+    rank's groups)."""
+    B, S, d = x.shape
+    E, s, k = cfg.n_experts, cfg.moe_ff_shards, cfg.experts_per_token
+    C = int(S * k / E * cfg.moe_capacity_factor) + 1
+    router, w_up, w_down = moe.router, moe.w_up, moe.w_down
+    w_gate = moe.w_gate if cfg.mlp == "swiglu" else None
+    e_loc = w_up.shape[0]
+    row0 = mesh.index("model") * e_loc
+    xf = annotate.moe_in(x, mesh)
+    ys, auxes = [], []
+    for b in range(B):
+        logits = x[b].float() @ router                           # (S, E)
+        se, stok, sgate, pos, aux = _route(annotate.moe_in(logits, mesh),
+                                           logits, k, E)
+        keep = pos < C
+        xg = xf[b][stok]
+        y = torch.zeros((S, d), dtype=x.dtype, device=x.device)
+        for j in range(e_loc):
+            mine = keep & (se == (row0 + j) // s)
+            slot = torch.where(mine, pos, C)
+            xe = torch.zeros((C + 1, d), dtype=x.dtype, device=x.device)
+            xe[slot] = xg
+            xe = xe[:C]
+            gate = xe @ w_gate[j] if w_gate is not None else None
+            h = activation(cfg.mlp, xe @ w_up[j], gate)
+            ye = torch.cat([h @ w_down[j],
+                            torch.zeros((1, d), dtype=x.dtype,
+                                        device=x.device)])
+            contrib = ye[slot] * (sgate * mine)[:, None].to(x.dtype)
+            y = y.index_add(0, stok, contrib)
+        ys.append(y)
+        auxes.append(aux)
+    return annotate.moe_out(torch.stack(ys), mesh), torch.stack(auxes).mean()

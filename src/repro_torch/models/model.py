@@ -14,6 +14,7 @@ Entry points (``forward``, ``prefill`` and ``decode_step`` run under
 or hybrid group under ``torch.utils.checkpoint`` where ``cfg.remat``):
   init(cfg, seed=, device=)                -> model
   train_loss(model, batch)                 -> scalar float32 loss
+  loss_terms(model, batch)                 -> (nll sum, its count, aux)
   forward(model, batch, collect_cache=, last_token_logits=)
                                            -> (logits, aux, caches)
   prefill(model, batch)                    -> (last-token logits, caches)
@@ -37,6 +38,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import annotate
 
 
 def resolve_device(device) -> torch.device:
@@ -166,12 +168,11 @@ def _remat(body, cfg: ModelConfig):
     where ``cfg.remat``: ``remat_policy="full"`` saves only its inputs;
     ``"dots"`` also saves the outputs of its matmuls without batch dims
     (``aten.mm`` / ``addmm``: every projection), as JAX's
-    ``dots_with_no_batch_dims_saveable`` does, and recomputes the rest.
-    JAX's policy also saves the MoE combine named ``moe_out``, the output
-    of the expert-parallel ``shard_map`` path that runs only on a mesh;
-    the port's MoE takes the plain path, so there is nothing of that name
-    to save. Outside autograd (the serving entry points) the body runs as
-    it is."""
+    ``dots_with_no_batch_dims_saveable`` does, and the expert-parallel
+    MoE's summed output (``annotate.MOE_OUT_OP``, JAX's name
+    ``moe_out``), so that its all-reduce over ``model`` does not run again
+    in the recomputation; it recomputes the rest. Outside autograd (the
+    serving entry points) the body runs as it is."""
     if not cfg.remat:
         return body
     kw = {}
@@ -189,9 +190,10 @@ def _remat(body, cfg: ModelConfig):
     return run
 
 
-#: The matmuls without batch dims whose outputs ``remat_policy="dots"``
-#: saves.
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+#: The operators whose outputs ``remat_policy="dots"`` saves: the matmuls
+#: without batch dims and the expert-parallel MoE's output.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         annotate.MOE_OUT_OP)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -268,7 +270,7 @@ def _run_hybrid_stack(model: LM, x, cfg: ModelConfig, positions,
 
 def _embed_inputs(model: LM, batch: dict, cfg: ModelConfig):
     """Token ids -> embeddings, or pass through stub frontend embeddings."""
-    dev = model.embed.device
+    dev = next(model.parameters()).device
     if cfg.frontend != "none":
         return torch.as_tensor(batch["embeddings"], device=dev).to(
             L.param_dtype(cfg))
@@ -329,7 +331,19 @@ def train_loss(model: LM, batch: dict) -> torch.Tensor:
     float32 logits shifted by their max (a constant to autograd), the log
     of the summed exponentials, less the gold logit (picked by a gather:
     JAX's iota compare selects the same element; it keeps a sharded
-    vocabulary local on a mesh, and there is none here)."""
+    vocabulary local on a mesh, and the port gathers the vocabulary)."""
+    nll_sum, count, aux = loss_terms(model, batch)
+    if isinstance(count, torch.Tensor):
+        count = torch.clamp_min(count, 1.0)
+    return nll_sum / count + 0.01 * aux
+
+
+def loss_terms(model: LM, batch: dict):
+    """``train_loss``'s parts: (the masked sum of the per-token losses,
+    what it is divided by before the clamp to >= 1: the mask's float32 sum
+    or, with no mask, the token count as an int, the aux loss summed over
+    the layers of the mean over the batch rows). The mesh step adds them
+    up over the ranks that hold other rows."""
     logits, aux, _ = _forward(model, batch)
     dev = logits.device
     labels = torch.as_tensor(batch["labels"], device=dev).long()
@@ -343,10 +357,10 @@ def train_loss(model: LM, batch: dict) -> torch.Tensor:
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev).float()
         nll = nll * mask
-        denom = torch.clamp_min(torch.sum(mask), 1.0)
+        count = torch.sum(mask)
     else:
-        denom = nll.numel()
-    return torch.sum(nll) / denom + 0.01 * aux
+        count = nll.numel()
+    return torch.sum(nll), count, aux
 
 
 @torch.inference_mode()

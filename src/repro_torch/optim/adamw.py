@@ -92,19 +92,23 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float):
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        norm: torch.Tensor | None = None):
     """(grads scaled by min(1, max_norm / max(norm, 1e-12)) in float32 and
-    cast back to each gradient's dtype, the norm before scaling)."""
-    norm = global_norm(grads)
+    cast back to each gradient's dtype, the norm before scaling). ``norm``:
+    the global norm when ``grads`` are blocks of a larger tree (a mesh
+    rank's), else ``global_norm(grads)``."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
-def update(grads: Tree, state: dict, params: Tree,
-           cfg: AdamWConfig) -> tuple[Tree, dict, dict]:
+def update(grads: Tree, state: dict, params: Tree, cfg: AdamWConfig,
+           norm: torch.Tensor | None = None) -> tuple[Tree, dict, dict]:
     """One AdamW step. Returns (new_params, new_state, metrics
-    {"grad_norm", "lr"}); nothing is changed in place."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    {"grad_norm", "lr"}); nothing is changed in place. ``norm``: as
+    ``clip_by_global_norm``'s."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     step = state["step"] + 1
     lr = schedule(step, cfg)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,

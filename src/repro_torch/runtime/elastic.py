@@ -19,9 +19,13 @@ group of the whole world (a rank that rejoins with no rows receives them
 all from survivors). The bytes a rank receives, the layout exchange
 included, count in ``sharding.annotate.TRAFFIC`` under ``reshard``.
 
-``reshard_plan`` and ``restore_on_mesh`` read the LM parameters' sharding
-rules (the JAX package's ``sharding/rules.py``), which the port has not
-yet: they wait for the LM stack (ROADMAP Queue 1 item 8).
+For the LM, :func:`reshard_plan` is the parameters' layout on a mesh, from
+the same rule table the mesh train step uses (``sharding/rules.py``), and
+:func:`restore_on_mesh` is the elastic event: a checkpoint, written whole
+in the JAX package's layout from any mesh or one device (nothing in it
+depends on the mesh it came from), read back as each rank's blocks on a
+new mesh, ready for ``launch.steps.make_mesh_train_step``. Every rank reads
+each leaf it needs whole, one leaf at a time, and keeps its block.
 """
 from __future__ import annotations
 
@@ -40,25 +44,91 @@ _DTYPES = (torch.int32, torch.int64, torch.float32, torch.bfloat16,
 _MAX_DIMS = 4
 
 
-def _not_ported(name: str):
-    raise ValueError(
-        f"elastic.{name} is not yet ported: it reads the LM parameters' "
-        "sharding rules "
-        "(sharding/rules.py), which the port has not yet: it waits for the "
-        "LM stack (ROADMAP Queue 1 item 8). A built EMD index's tables "
-        "move with reshard_live and launch.search.SEARCH_PLAN")
+def _layout_model(params_like):
+    """The meta-device layout of an ``LM`` or of a mesh training state."""
+    from repro_torch.models import model as M
+    if isinstance(params_like, M.LM):
+        return M.init(params_like.cfg, device="meta")
+    if isinstance(getattr(params_like, "layout", None), M.LM):
+        return params_like.layout
+    raise ValueError(f"params_like: an LM or a MeshTrainState, got "
+                     f"{type(params_like).__name__}")
 
 
-def reshard_plan(params_like, new_mesh):
-    """The LM parameters' target layout on ``new_mesh``: not yet ported
-    (ROADMAP Queue 1 item 8)."""
-    _not_ported("reshard_plan")
+def reshard_plan(params_like, new_mesh, mode: str | None = None) -> dict:
+    """{parameter name: the spec of its per-block tensor} of ``params_like``
+    (an ``LM``, on any device, or a ``launch.steps.MeshTrainState``) on
+    ``new_mesh`` (a joined mesh or a plan) in ``mode`` (default: the
+    state's own, else "tp"): ``sharding.rules.model_specs``, the table of
+    the train step."""
+    from repro_torch.sharding import rules
+    mode = mode or getattr(params_like, "mode", "tp")
+    return rules.model_specs(_layout_model(params_like), new_mesh, mode)
 
 
-def restore_on_mesh(ckpt_dir, step, params_like, new_mesh):
-    """Checkpoint -> LM parameters resharded for ``new_mesh``: not yet
-    ported (ROADMAP Queue 1 item 8)."""
-    _not_ported("restore_on_mesh")
+def _read_blocks(ckpt_dir, step, layout, specs, mesh, prefix: str,
+                 manifest, dtype=None) -> dict:
+    """{parameter name: this rank's block on ``mesh.device``} of the
+    checkpoint's leaves under ``prefix``, read whole one JAX leaf at a
+    time; ``dtype``: the stored dtype (default: each parameter's)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.models import convert
+    from repro_torch.sharding import rules
+    out = {}
+    for path, (_, p_dtype, names) in convert.layout(layout).items():
+        like = torch.empty((), dtype=dtype or p_dtype)
+        whole = store.restore_leaf(ckpt_dir, step, prefix + "/".join(path),
+                                   like, manifest=manifest)
+        for name, layer in names:
+            t = whole if layer is None else whole[layer]
+            block = t[rules.block_slices(t.shape, specs[name], mesh)]
+            out[name] = block.clone(
+                memory_format=torch.contiguous_format).to(mesh.device)
+    return out
+
+
+def read_state_blocks(ckpt_dir: str, step: int, layout, specs: dict, mesh):
+    """(params, m, v, the step counter) of a training-state checkpoint
+    ({"params", "opt": {"m", "v", "step"}}), each a {parameter name: this
+    rank's block under ``specs``} on ``mesh.device``."""
+    from repro_torch.checkpoint import store
+    manifest = store.load_manifest(ckpt_dir, step)
+    dt = getattr(torch, layout.cfg.opt_state_dtype)
+    params, m, v = (_read_blocks(ckpt_dir, step, layout, specs, mesh,
+                                 prefix, manifest, dtype)
+                    for prefix, dtype in (("params/", None), ("opt/m/", dt),
+                                          ("opt/v/", dt)))
+    counter = store.restore_leaf(
+        ckpt_dir, step, "opt/step", torch.zeros((), dtype=torch.int32),
+        manifest=manifest).to(mesh.device)
+    return params, m, v, counter
+
+
+def restore_on_mesh(ckpt_dir: str, step: int, params_like, new_mesh,
+                    mode: str | None = None):
+    """Checkpoint ``step`` -> this rank's blocks on ``new_mesh`` (joined),
+    laid out by :func:`reshard_plan`.
+
+    ``params_like`` an ``LM`` (on any device): a parameter checkpoint
+    (the JAX tree of the parameters) -> {parameter name: block}. A
+    ``launch.steps.MeshTrainState``: a training-state checkpoint (the
+    tree of ``TrainState`` or ``MeshTrainState``, from any mesh or one
+    device) -> a ``MeshTrainState`` on ``new_mesh`` in ``mode`` holding
+    the blocks of the parameters and the moments and the step counter. A
+    block is bitwise its slice of the saved leaf."""
+    from repro_torch.checkpoint import store
+    from repro_torch.launch.steps import MeshTrainState
+    from repro_torch.models import model as M
+    layout = _layout_model(params_like)
+    mode = mode or getattr(params_like, "mode", "tp")
+    specs = reshard_plan(layout, new_mesh, mode)
+    if isinstance(params_like, M.LM):
+        return _read_blocks(ckpt_dir, step, layout, specs, new_mesh, "",
+                            store.load_manifest(ckpt_dir, step))
+    params, m, v, counter = read_state_blocks(ckpt_dir, step, layout,
+                                              specs, new_mesh)
+    return MeshTrainState.from_blocks(layout.cfg, new_mesh, mode, params,
+                                      {"m": m, "v": v, "step": counter})
 
 
 def _layout_row(mesh, new_mesh, tables, names) -> torch.Tensor:

@@ -18,7 +18,11 @@ saves them), or an object with ``tree()`` and ``load_tree(tree)`` such as
 ``launch.steps.TrainState``: its checkpoint is ``tree()``, the parameters
 and AdamW state in the JAX package's layout, so a checkpoint written by
 either package's runner resumes in the other, and a restore writes the
-tree back into the model with ``load_tree``.
+tree back into the model with ``load_tree``. A state with ``save(ckpt_dir,
+step, extra)`` and ``restore(ckpt_dir, step)`` checkpoints itself: a
+``launch.steps.MeshTrainState``, whose leader writes the gathered tree
+and whose every rank reads back its blocks. On a mesh every rank runs
+the loop, failures included, in step.
 
 Failures are injected here by tests and by the training example; a
 cluster's runtime would raise them from a lost heartbeat.
@@ -77,13 +81,18 @@ class FaultTolerantRunner:
         self._timed_through = 0
 
     def _save(self, state: Any, step: int) -> None:
-        store.save(self.ckpt_dir, step, _tree(state),
-                   extra={"wall": time.time()})
+        extra = {"wall": time.time()}
+        if hasattr(state, "save"):
+            state.save(self.ckpt_dir, step, extra)
+        else:
+            store.save(self.ckpt_dir, step, _tree(state), extra=extra)
 
     def _resume_point(self, state: Any) -> tuple[Any, int]:
         last = store.latest_step(self.ckpt_dir)
         if last is None:
             return state, 0
+        if hasattr(state, "restore"):
+            return state.restore(self.ckpt_dir, last), last
         tree = store.restore(self.ckpt_dir, last, _tree(state))
         if hasattr(state, "load_tree"):
             return state.load_tree(tree), last

@@ -27,6 +27,27 @@ int16, needs none. Over gloo a CUDA tensor is staged through the host,
 because the backend is gloo (its CUDA support varies between builds),
 never because a call failed.
 
+The LM mesh's train step (``launch/steps.py``) crosses autograd with
+these, each under its own label:
+
+* :func:`fsdp_gather` (``fsdp_gather``, ``grad_reduce``) - a parameter's
+  block gathered on use into the whole leaf over the axes its spec names;
+  in backward, the whole leaf's gradient summed over the axes that split
+  the batch (label ``grad_reduce``) and cut back to the block. Ranks along
+  an axis that replicates the batch compute the same gradient and are not
+  summed;
+* :func:`moe_in` and :func:`moe_out` - Megatron's conjugate pair around
+  the expert-parallel MoE (``models.layers.moe_apply_shard_map``): *f*,
+  the identity in forward and a sum over ``model`` in backward (label
+  ``moe_in``), for the replicated input; *g*, a sum over ``model`` in
+  forward (label ``moe_out``) and the identity in backward, for the
+  partial outputs. *g* is an operator of its own,
+  ``torch.ops.repro_torch.moe_out``, so that remat's ``dots`` policy can
+  save its output and no recomputation sums again (JAX's
+  ``checkpoint_name(y, "moe_out")``);
+* :func:`gather_to_leader` (``ckpt_gather``) - a leaf's blocks gathered
+  to the mesh's leader alone, for a checkpoint.
+
 Every collective adds the bytes it brings to this rank (its output less the
 rank's own part) to :data:`TRAFFIC` under its label; :func:`reset_traffic`
 sets the counts to 0. A group of one rank moves nothing and is skipped.
@@ -34,9 +55,13 @@ sets the counts to 0. A group of one rank moves nothing and is skipped.
 from __future__ import annotations
 
 import collections
+import math
+import weakref
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.sharding import rules
 
 #: Bytes brought to this rank by each collective label since the last
 #: :func:`reset_traffic`.
@@ -127,3 +152,121 @@ def gather_blocks(x: torch.Tensor, mesh, dims: dict[str, int],
         if axis in dims:
             x = all_gather(x, mesh, axis, dims[axis], label)
     return x
+
+
+# ----------------------------------------------------------------------------
+# The LM mesh's collectives under autograd
+# ----------------------------------------------------------------------------
+
+#: Labels of the LM train step's collectives.
+FSDP_GATHER, GRAD_REDUCE = "fsdp_gather", "grad_reduce"
+MOE_IN, MOE_OUT = "moe_in", "moe_out"
+CKPT_GATHER = "ckpt_gather"
+
+
+class _GatherLeaf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, mesh, spec, batch_axes):
+        ctx.mesh, ctx.spec, ctx.batch_axes = mesh, spec, batch_axes
+        x = block
+        for dim, ax in enumerate(spec):
+            for axis in reversed(rules.axes_of(ax)):     # minor axis first
+                x = all_gather(x, mesh, axis, dim, FSDP_GATHER)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        for axis in ctx.batch_axes:
+            grad = all_reduce_sum(grad, ctx.mesh, axis, GRAD_REDUCE)
+        block = grad[rules.block_slices(grad.shape, ctx.spec, ctx.mesh)]
+        return block.contiguous(), None, None, None
+
+
+def fsdp_gather(block: torch.Tensor, mesh, spec, batch_axes) -> torch.Tensor:
+    """This rank's ``block`` of a leaf split by ``spec`` -> the whole leaf,
+    gathered over every axis ``spec`` names (``rules.block_slices``'s
+    layout). Backward: the whole leaf's gradient summed over
+    ``batch_axes`` (the axes whose ranks computed different batch rows),
+    then this rank's block of it."""
+    return _GatherLeaf.apply(block, mesh, tuple(spec), tuple(batch_axes))
+
+
+class _MoeIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.mesh, "model", MOE_IN), None
+
+
+def moe_in(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's *f* over ``model``: ``x`` as it is in forward; its
+    gradient summed over ``model`` in backward."""
+    return _MoeIn.apply(x, mesh)
+
+
+#: The meshes that ``moe_out`` operators run over, by the key the operator
+#: takes (an operator takes no Python object).
+_MOE_MESHES: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+
+
+@torch.library.custom_op("repro_torch::moe_out", mutates_args=())
+def _moe_out(x: torch.Tensor, mesh_key: str) -> torch.Tensor:
+    out = all_reduce_sum(x, _MOE_MESHES[mesh_key], "model", MOE_OUT)
+    return out.clone() if out is x else out
+
+
+_moe_out.register_autograd(lambda ctx, grad: (grad, None))
+
+#: The operator of :func:`moe_out`, which remat's ``dots`` policy saves.
+MOE_OUT_OP = torch.ops.repro_torch.moe_out.default
+
+
+def moe_out(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's *g* over ``model``: the sum of every model rank's
+    partial ``x`` in forward (a new tensor), the gradient as it is in
+    backward."""
+    key = str(id(mesh))
+    _MOE_MESHES[key] = mesh
+    return torch.ops.repro_torch.moe_out(x, key)
+
+
+def gather_to_leader(block: torch.Tensor, mesh, spec) -> torch.Tensor | None:
+    """This rank's ``block`` of a leaf split by ``spec`` -> the whole leaf
+    on the CPU of the mesh's leader (data 0, model 0), None elsewhere:
+    gathered over ``model`` to each row's first rank, then those over
+    ``data`` to the leader (label ``ckpt_gather``, the leader's bytes)."""
+    spec = tuple(spec) + (None,) * (block.dim() - len(spec))
+    whole = tuple(n * math.prod(mesh.size(a) for a in rules.axes_of(ax))
+                  for n, ax in zip(block.shape, spec))
+    w = block.detach().contiguous().reshape(-1).view(torch.uint8)
+    w = w.cpu() if mesh.backend == "gloo" else w
+    parts = [w]
+    n_data, n_model = mesh.size("data"), mesh.size("model")
+    if n_model > 1:
+        row = mesh.grid[mesh.index("data")]
+        got = ([torch.empty_like(w) for _ in range(n_model)]
+               if mesh.index("model") == 0 else None)
+        dist.gather(w, got, dst=row[0], group=mesh.group("model"))
+        if got is None:
+            return None
+        parts = got
+        TRAFFIC[CKPT_GATHER] += (n_model - 1) * w.nbytes
+    if n_data > 1:
+        mine = torch.cat(parts)
+        got = ([torch.empty_like(mine) for _ in range(n_data)]
+               if mesh.index("data") == 0 else None)
+        dist.gather(mine, got, dst=mesh.leader, group=mesh.group("data"))
+        if got is None:
+            return None
+        parts = [p for row in got for p in row.chunk(n_model)]
+        TRAFFIC[CKPT_GATHER] += (n_data - 1) * mine.nbytes
+    out = torch.empty(whole, dtype=block.dtype)
+    for i, part in enumerate(parts):
+        coords = {"data": i // n_model, "model": i % n_model}
+        out[rules.block_slices(whole, spec, mesh, coords)] = \
+            part.cpu().view(block.dtype).reshape(block.shape)
+    return out

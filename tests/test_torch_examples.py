@@ -72,9 +72,27 @@ def test_torch_serve_decode(capsys):
 def test_torch_train_lm(capsys, tmp_path):
     out = _run("torch_train_lm", ["--device", "cpu", "--steps", "120",
                                   "--ckpt-dir", str(tmp_path)], capsys)
-    assert "mesh waits for the port's LM mesh slice" in out
+    assert "device=cpu: one device" in out
     assert "restarts=1 " in out
     assert "over 120 steps" in out
+    assert out.rstrip().endswith("OK")
+
+
+def test_torch_train_lm_mesh(capsys, tmp_path, monkeypatch):
+    """``--mesh 2x2``: four gloo ranks on the CPU, an injected failure
+    restored from the leader's checkpoint, every rank's final state bitwise
+    the failure-free run's. The ranks import the example by name (spawn),
+    as they import ``__main__`` when it runs as a script."""
+    monkeypatch.syspath_prepend(str(EXAMPLES))
+    module = importlib.import_module("torch_train_lm")
+    module.main(["--device", "cpu", "--mesh", "2x2", "--steps", "16",
+                 "--fail-at", "9", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "mesh=(2 data, 2 model) over gloo, 4 ranks on cpu, mode tp" in out
+    assert "restarts=1 " in out and "over 16 steps" in out
+    assert "each rank holds 45056 of the model's 180224 parameters" in out
+    assert "final state bitwise the failure-free mesh run on every rank" \
+        in out
     assert out.rstrip().endswith("OK")
 
 

@@ -30,7 +30,6 @@ from repro.data.synth import make_text_like
 from repro_torch.api import EmdIndex, EngineConfig, corpus_from_numpy
 from repro_torch.launch.local import run_local
 from repro_torch.launch.mesh import make_test_mesh, plan_mesh
-from repro_torch.runtime import elastic
 from repro_torch.serving import EmdServer, snapshot
 from repro_torch.serving.policy import resolve_tier
 from repro_torch.serving.server import _tier_config
@@ -391,10 +390,3 @@ def test_a_failed_control_channel_is_a_device_fault(where):
     with pytest.raises(RuntimeError, match="stopped serving"):
         server.append(*(np.array(x[:1]) for x in arrays[:2]))
     assert channel.sent == 1
-
-
-@pytest.mark.parametrize("name", ["reshard_plan", "restore_on_mesh"])
-def test_elastic_lm_pieces_wait_for_item_8(name):
-    args = (None, None) if name == "reshard_plan" else ("d", 0, None, None)
-    with pytest.raises(ValueError, match="not yet ported.*item 8"):
-        getattr(elastic, name)(*args)

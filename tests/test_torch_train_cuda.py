@@ -8,14 +8,21 @@ olmo at 1,536 tokens under full remat, global and with a window of 1,024
 30 smoke-olmo steps through two injected failures bitwise the failure-free
 run on the card.
 
+The mesh train step (``chip_smoke.py`` phase 15 (a)): on a one-rank NCCL
+mesh it is the single-card step bit for bit.
+
 Needs a CUDA device; skips without one. This file imports no JAX: on the
 card the reference is the port's own CPU run, which
 ``tests/test_torch_train.py`` holds to the JAX package.
 """
+import dataclasses
+
 import pytest
 import torch
 
+import torch_train_ranks as ranks
 from repro_torch.configs import ARCH_IDS, smoke_config
+from repro_torch.launch.local import run_local
 from repro_torch.models import parity
 
 
@@ -59,3 +66,20 @@ def test_training_through_failures_is_bitwise_on_the_card(cuda, tmp_path):
     restarts, _ = parity.replay_bitwise(smoke_config("olmo-1b"), cuda,
                                         str(tmp_path))
     assert restarts == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["olmo-1b", "mixtral-8x22b"])
+def test_one_rank_nccl_mesh_step_is_the_single_card_step(cuda, name):
+    """Two steps (remat dots; mixtral with moe_shard_map, whose one-rank
+    model axis keeps the plain path): loss, grad norm, lr, parameters and
+    moments bitwise the single-card step's."""
+    cfg = dataclasses.replace(smoke_config(name), remat=True,
+                              remat_policy="dots", moe_shard_map=True)
+    batches = [{k: torch.as_tensor(v) for k, v in
+                parity.train_batch(cfg, s, batch=4).items()}
+               for s in range(2)]
+    out, = run_local(ranks.one_rank_against_one_device, 1, 1,
+                     backend="nccl", device="cuda", args=(cfg, batches))
+    assert out == {"metrics": [True, True], "params": True,
+                   "moments": True}
