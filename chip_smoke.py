@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``); phases 12 and
-15 start up to four processes on it and stop them. Phases:
+Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``); phases 12, 15
+and 16 start up to four processes on it and stop them. Phases:
 
 0. the card: ``nvidia-smi`` name and power limit, the device name;
 1. build: the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
@@ -159,15 +159,15 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``); phases 12 and
    olmo-1b at full width (16 layers, d_model 2048, vocab 50,304; bfloat16
    weights from a ``torch.Generator`` on the card, seed 0): 4 prompts of
    2,048 tokens from ``data.tokens.global_batch`` (seed 7), ``prefill``
-   (the chunked attention), prefill of the first 1,536 handed to a float32
-   decode cache and the last 512 decoded token by token, 32 greedy tokens
+   (the chunked attention), prefill of the first 1,792 handed to a float32
+   decode cache and the last 256 decoded token by token, 32 greedy tokens
    twice from copies of that cache (bitwise the same tokens and logits),
    every logit finite; a float32 copy of the weights the same way, decoded
-   at each of the last 512 prompt positions within 2e-2 of its
+   at each of the last 256 prompt positions within 2e-2 of its
    ``forward`` over the whole prompt (the chunked attention); prefill seconds, decode ms a token at batch 4, peak memory
    and the bfloat16 greedy tokens' agreement with the float32 copy's; (c)
    the same for zamba2-2.7b (54 Mamba2 layers, the shared attention block
-   every 6) at 1,024-token prompts (the last 512 decoded); (d) the
+   every 6) at 1,024-token prompts (the last 256 decoded); (d) the
    retrieval stage: (b)'s prompts
    and continuations, modulo v, as queries (``docs_to_corpus`` on phase
    3's coordinates, hmax 500) searched by ``EmdIndex(backend="cuda")``
@@ -212,7 +212,25 @@ Needs one CUDA device and ``nvcc`` (``/usr/local/cuda``); phases 12 and
    continuation; (c) mixtral at smoke width with ``moe_shard_map`` on
    that 1x4 mesh (one expert row a rank) under remat dots and full, with
    and without torch's early stop of the recomputation, against the
-   plain path, and the ``moe_out`` bytes.
+   plain path, and the ``moe_out`` bytes;
+16. LM prefill and decode on a (data, model) mesh
+   (``launch.steps.make_mesh_prefill_step`` / ``make_mesh_decode_step``,
+   ``MeshServeState``, ``sharding.rules.serve_plan``; plain PyTorch and
+   collectives, no kernel): (a) olmo-1b whole, bf16, on a 1x1 NCCL mesh:
+   the prefill of phase 13's 4 x 2,048 prompts and ``P16_STEPS`` greedy
+   decode steps, bitwise the single card's (logits, caches, tokens; no
+   byte crossing); (b) olmo-1b at full width with its depth cut to
+   ``P16_LAYERS`` on a 2x2 gloo world sharing the card (attention on the
+   rank's heads, d_ff and the vocabulary split over ``model``, each TP
+   block gathered over ``data`` only): the same prompts and steps fed the
+   single card's greedy tokens at that depth, the logits no farther from
+   a float32 copy's than the single card's are plus ``P16_LOGITS_ATOL``,
+   and the tokens equal where the float32 top-2 margin exceeds twice that
+   bar; each rank's bytes by label (exactly
+   the layout's), resident and peak GiB, seconds for the prefill and a
+   decode step; (c) smoke gemma3 at batch 1 on a 1x4 gloo world, its
+   cache's sequence split over ``model`` (SP; the window across a block
+   boundary), within 1e-4 of the single card in float32.
 
 Any failed check exits non-zero before the last line. The last lines are the
 card's name and power limit, a JSON line of the kernels and
@@ -3083,8 +3101,9 @@ P12_EXPECT = {
 }
 #: Seconds a mesh's ranks may take, start-up included.
 P12_TIMEOUT = 360
-#: Rows of the all-pairs prefix on the mesh (phase 8's is PREFIX).
-P12_PREFIX = 1_000
+#: Rows of the all-pairs prefix on the mesh (phase 8's is PREFIX; cut for
+#: the script's time limit).
+P12_PREFIX = 500
 #: Requests of the 2x2 mesh's served run, sent 16 at once.
 P12_SERVE_REQUESTS = 64
 #: The kernels each served run must launch on every rank of its mesh.
@@ -3740,8 +3759,9 @@ LM_FULL = {"olmo-1b": 2048, "zamba2-2.7b": 1024}
 LM_BATCH, LM_GEN = 4, 32
 #: The prompt positions decoded token by token: the last LM_TAIL, after
 #: prefill of the rest hands its caches to the decode cache (the host-bound
-#: token-by-token passes were most of the phase's time over whole prompts).
-LM_TAIL = 512
+#: token-by-token passes were most of the phase's time over whole prompts;
+#: cut for the script's time limit).
+LM_TAIL = 256
 #: decode_step against forward under float32: the JAX package's own bar
 #: (tests/test_models.py:71).
 LM_F32_TOL = 2e-2
@@ -4287,10 +4307,10 @@ def phase14(dev):
 # mesh against the plain path. No kernel of its own (the kernels line is
 # phases 2-13's): the mesh step is plain PyTorch and collectives.
 #: (b)'s depth: cut from olmo-1b's 16 layers so that the whole script,
-#: phases 1-14 included, runs within 1,200 s (a 16-layer 2x2 step moves
-#: four times the bytes through gloo's host staging, and its checkpoint is
-#: 11.8 GB).
-P15_LAYERS = 4
+#: phases 1-14 and 16 included, runs within 1,200 s (a 16-layer 2x2 step
+#: moves eight times the bytes through gloo's host staging, and its
+#: checkpoint is 11.8 GB).
+P15_LAYERS = 2
 #: (b)'s steps a mode: b0 held to the 1x1 step, then P15_TIMED timed.
 P15_TIMED = 2
 #: Bars against a 1x1 step on bfloat16 weights (test_torch_train's
@@ -4721,6 +4741,383 @@ def phase15(dev, smi):
     return out
 
 
+# ----------------------------------------------------------------------------
+# Phase 16: LM prefill and decode on a (data, model) mesh
+# ----------------------------------------------------------------------------
+# (a) olmo-1b whole on a 1x1 NCCL mesh against the single card, bitwise;
+# (b) olmo-1b at full width with its depth cut to P16_LAYERS on a 2x2 gloo
+# world sharing the card (Megatron TP over the rules' heads, ffn and
+# vocabulary, the rank's heads of the cache) against the single card at
+# that depth; (c) the sequence-parallel cache at smoke width on a 1x4 gloo
+# world at batch 1. No kernel of its own: plain PyTorch and collectives.
+#: (b)'s depth: cut from olmo-1b's 16 layers (as phase 15 (b)): a decode
+#: step gathers each TP block over ``data`` through gloo's host staging.
+P16_LAYERS = 4
+#: Greedy decode steps after the prompt (phase 13's 4 prompts of 2,048).
+P16_STEPS = 16
+#: (b)'s bar: its logits no farther from those of a float32 copy of the
+#: weights than the single card's bfloat16 logits are, plus 2e-2
+#: (test_torch_mesh_train's bf16 loss bar, as phase 15 (b)). Two bfloat16
+#: runs that round in another order (the mesh's ranks take 2 rows and half
+#: the heads: other GEMM shapes, and partial sums over ``model``) differ by
+#: that band, not by 2e-2: 0.057 at most between the single card and its
+#: float32 copy at this width and depth in a CPU rehearsal.
+P16_LOGITS_ATOL = 2e-2
+#: (c): smoke gemma3 (2 KV heads, which 4 model ranks do not divide: the
+#: cache splits its sequence), one row of 156 prompt tokens and 16 steps,
+#: so its window of 8 crosses the decode cache's block boundary (slot
+#: 167 of 668); float32, the single card's bar.
+P16_SP_NAME, P16_SP_PROMPT, P16_SP_TOL = "gemma3-27b", 156, 1e-4
+P16_TIMEOUT = 600.0
+
+
+def p16_prompts(cfg, dev):
+    """Phase 13's prompts: LM_BATCH rows of LM_FULL["olmo-1b"] tokens."""
+    return torch.as_tensor(global_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=LM_FULL["olmo-1b"], global_batch=LM_BATCH,
+        seed=7), 0)["tokens"], device=dev)
+
+
+def p16_cache_dtype(cfg):
+    """The decode cache's K / V dtype: the weights' (bfloat16 at full
+    width, as JAX's ``abstract_cache``; float32 at smoke width)."""
+    return getattr(torch, cfg.param_dtype)
+
+
+def p16_single(model, prompts, steps, forced=None):
+    """The single card: prefill, its caches copied into a decode cache of
+    seq_len + CACHE_PAD slots (``p16_cache_dtype``), ``steps`` greedy decode steps (or
+    ``forced`` tokens (B, steps) fed). Returns (prefill logits, prefill
+    caches, [step logits], tokens (B, steps), the decode cache)."""
+    from repro_torch.launch import steps as St
+    cfg, (B, P) = model.cfg, prompts.shape
+    logits, caches = lm.prefill(model, {"tokens": prompts})
+    cache = lm.init_decode_cache(cfg, B, P + St.CACHE_PAD - 1,
+                                 p16_cache_dtype(cfg), device=prompts.device)
+    with torch.no_grad():
+        for name, t in caches.items():
+            cache["attn"][name][..., :P, :, :].copy_(t)
+    outs, toks = [], []
+    last = logits
+    for t in range(steps):
+        tok = (last[:, -1].argmax(dim=-1)[:, None] if forced is None
+               else forced[:, t:t + 1])
+        toks.append(tok)
+        last, cache = lm.decode_step(
+            model, {"tokens": tok, "cache_index": P + t}, cache)
+        outs.append(last)
+    return logits, caches, outs, torch.cat(toks, dim=1), cache
+
+
+def p16_mesh(state, cfg, mesh, prompts, forced=None):
+    """The mesh steps: prefill, handoff into a decode cache, P16_STEPS
+    decode steps, greedy where the logits are whole (one rank) or fed
+    ``forced`` (B, steps). Returns (prefill logits, prefill caches, [step
+    logits], tokens, the decode cache, prefill s, [step s], bytes of the
+    prefill, [bytes of each step])."""
+    from repro_torch.launch import steps as St
+    from repro_torch.models.config import InputShape
+    from repro_torch.sharding import annotate
+    B, P = prompts.shape[:2]
+    steps = P16_STEPS if forced is None else forced.shape[1]
+    prompt = InputShape("prefill", P, B, "prefill")
+    decode = InputShape("decode", P, B, "decode")
+    prefill_step, _ = St.make_mesh_prefill_step(cfg, prompt, mesh)
+    decode_step, _ = St.make_mesh_decode_step(cfg, decode, mesh)
+    annotate.reset_traffic()
+    (logits, caches), prefill_s = p15_timed(
+        lambda: prefill_step(state, {"tokens": prompts}))
+    prefill_bytes = annotate.traffic()
+    cache = St.init_mesh_decode_cache(cfg, decode, mesh,
+                                      p16_cache_dtype(cfg))
+    St.handoff_prefill(caches, cache, cfg, mesh, prompt, decode)
+    outs, toks, secs, moved = [], [], [], []
+    last = logits
+    for t in range(steps):
+        tok = (last[:, -1].argmax(dim=-1)[:, None] if forced is None
+               else forced[:, t:t + 1])
+        toks.append(tok)
+        annotate.reset_traffic()
+        (last, cache), dt = p15_timed(lambda tok=tok, t=t: decode_step(
+            state, {"tokens": tok, "cache_index": P + t}, cache))
+        secs.append(dt)
+        moved.append(annotate.traffic())
+        outs.append(last)
+    return (logits, caches, outs, torch.cat(toks, dim=1), cache, prefill_s,
+            secs, prefill_bytes, moved)
+
+
+def p16_equal(a, b) -> bool:
+    """Two trees (dicts, tuples, lists, tensors) bitwise equal."""
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(p16_equal(a[k], b[k])
+                                              for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(p16_equal(x, y)
+                                        for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def phase16_one(mesh):
+    """(a) One rank of a 1x1 NCCL mesh: olmo-1b whole, bfloat16, the mesh
+    prefill of phase 13's prompts and P16_STEPS greedy decode steps,
+    against the single card's from the same weights."""
+    from repro_torch.launch import steps as St
+    cfg = get_config("olmo-1b")
+    prompts = p16_prompts(cfg, mesh.device)
+    model = lm.init(cfg, seed=0, device=mesh.device)
+    state = St.MeshServeState.from_model(model, mesh)
+    p16_mesh(state, cfg, mesh, prompts)                    # warm-up
+    got = p16_mesh(state, cfg, mesh, prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = p16_single(model, prompts, P16_STEPS)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    names = ("prefill logits", "prefill caches", "step logits", "tokens",
+             "decode cache")
+    same = {n: p16_equal(g, w) for n, g, w in zip(names, got, want)}
+    d = max(float((g.float() - w.float()).abs().max())
+            for g, w in zip([got[0], *got[2]], [want[0], *want[2]]))
+    finite = all(bool(torch.isfinite(x).all()) for x in [got[0], *got[2]])
+    return dict(bitwise=same, max_abs_d=d, finite=finite,
+                prefill_s=got[5], step_s=got[6], single_s=single_s,
+                prefill_bytes=got[7], step_bytes=got[8],
+                tokens=got[3].cpu().tolist())
+
+
+def phase16_world(mesh, forced):
+    """(b) One rank of the 2x2 gloo world on the card: olmo-1b at
+    P16_LAYERS from seed 0, cut to its blocks; the prefill (a warm-up,
+    then timed) and P16_STEPS decode steps fed ``forced`` (the single
+    card's greedy tokens); this rank's logits blocks, seconds, bytes and
+    resident / peak GiB."""
+    from repro_torch.launch import steps as St
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=P16_LAYERS)
+    prompts = p16_prompts(cfg, mesh.device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = St.MeshServeState.init(cfg, mesh, seed=0)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    forced = forced.to(mesh.device)
+    _, warm_s = p15_timed(lambda: p16_mesh(state, cfg, mesh, prompts,
+                                           forced[:, :1]))
+    run = p16_mesh(state, cfg, mesh, prompts, forced)
+    peak = torch.cuda.max_memory_allocated() - base - resident
+    cache = sum(t.numel() * t.element_size()
+                for t in run[4]["attn"].values())
+    return dict(coords={a: mesh.index(a) for a in ("data", "model")},
+                plan=state.plan,
+                logits=[run[0].float().cpu()] + [x.float().cpu()
+                                                 for x in run[2]],
+                prefill_s=run[5], step_s=run[6], warm_s=warm_s,
+                prefill_bytes=run[7], step_bytes=run[8],
+                resident_gib=resident / 2**30, cache_gib=cache / 2**30,
+                peak_above_gib=peak / 2**30)
+
+
+def phase16_sp(mesh):
+    """(c) One rank of a 1x4 gloo world on the card: smoke gemma3 (f32) at
+    batch 1, its cache's sequence split over ``model``; the mesh prefill
+    and P16_STEPS decode steps fed the prompt's continuation against the
+    single card's (on this rank), logits blocks and cache blocks."""
+    from repro_torch.launch import steps as St
+    from repro_torch.sharding import rules
+    cfg = smoke_config(P16_SP_NAME)
+    n = P16_SP_PROMPT + P16_STEPS
+    tokens = torch.as_tensor(np.random.default_rng(16).integers(
+        0, cfg.vocab, (1, n)), device=mesh.device)
+    model = lm.init(cfg, seed=0, device=mesh.device)
+    state = St.MeshServeState.from_model(model, mesh)
+    prompts, forced = tokens[:, :P16_SP_PROMPT], tokens[:, P16_SP_PROMPT:n]
+    got = p16_mesh(state, cfg, mesh, prompts, forced)
+    want = p16_single(model, prompts, P16_STEPS, forced)
+    spec = rules.logits_spec(mesh, 1, cfg.vocab)
+    err = 0.0
+    for g, w in zip([got[0], *got[2]], [want[0], *want[2]]):
+        w = w[rules.block_slices(tuple(w.shape), spec, mesh)]
+        err = max(err, float((g - w).abs().max()))
+    w_cache = St.cache_blocks({"attn": {k: v.float() for k, v in
+                                        want[4]["attn"].items()}}, cfg, mesh)
+    cache_err = max(float((got[4]["attn"][k] - w_cache["attn"][k]).abs()
+                          .max()) for k in ("k", "v"))
+    return dict(coords={a: mesh.index(a) for a in ("data", "model")},
+                plan=sorted(set(map(str, state.plan.values()))),
+                max_abs_d=err, cache_d=cache_err,
+                block=tuple(got[4]["attn"]["k"].shape),
+                step_bytes=got[8], prefill_bytes=got[7])
+
+
+def p16_predict(cfg, n_layers, rows, seq, m=2, dp=2):
+    """Bytes a rank of a dp x m mesh receives in one step of ``rows`` x
+    ``seq`` tokens by the layout (bfloat16): every TP block gathered over
+    ``data`` (the embedding twice: the lookup and the tied head), the
+    partial outputs of each layer's attention and MLP summed over
+    ``model``, the lookup's sum; and the resident bytes of the blocks."""
+    emb = cfg.vocab * cfg.d_model
+    layer = (4 * cfg.d_model * cfg.n_heads * cfg.head_dim
+             + 3 * cfg.d_model * cfg.d_ff)
+    act = rows // dp * seq * cfg.d_model * 2
+    return dict(fsdp_gather=(dp - 1) * 2 * (2 * emb + n_layers * layer)
+                // (dp * m),
+                tp_reduce=n_layers * 2 * (m - 1) * act,
+                vocab_embed=(m - 1) * act,
+                resident=2 * (emb + n_layers * layer) // (dp * m))
+
+
+def phase16(dev, smi):
+    """Phase 16: (a) on a 1x1 NCCL mesh, (b) on a 2x2 and (c) on a 1x4
+    gloo world sharing the card (module comment above P16_LAYERS)."""
+    t_start = time.perf_counter()
+    tag = f"[{smi}]"
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    cfg = get_config("olmo-1b")
+    P = LM_FULL["olmo-1b"]
+    # (a) olmo-1b whole on a 1x1 NCCL mesh against the single card.
+    t0 = time.perf_counter()
+    a, = run_local(phase16_one, 1, 1, backend="nccl", device="cuda",
+                   timeout=P16_TIMEOUT)
+    a["wall_s"] = time.perf_counter() - t0
+    out["1x1"] = a
+    check(all(a["bitwise"].values()) and a["finite"],
+          f"phase 16 (a): the 1x1 mesh against the single card: "
+          f"{a['bitwise']}, max |d| {a['max_abs_d']}")
+    check(not a["prefill_bytes"] and not any(a["step_bytes"]),
+          f"phase 16 (a): bytes crossed a one-rank mesh: {a}")
+    print(f"phase 16: (a) olmo-1b whole ({cfg.n_layers} layers, bf16), "
+          f"{LM_BATCH} x {P} prompt tokens, {P16_STEPS} greedy steps on a "
+          f"1x1 NCCL mesh: prefill logits and caches, every step's logits, "
+          f"the tokens and the decode cache bitwise the single card's "
+          f"(no byte crossed); prefill {a['prefill_s']:.3f} s, a decode "
+          f"step {1e3 * statistics.median(a['step_s']):.2f} ms (median; "
+          f"{1e3 * min(a['step_s']):.2f}-{1e3 * max(a['step_s']):.2f}); "
+          f"the single card's prefill and {P16_STEPS} steps "
+          f"{a['single_s']:.3f} s {tag}", flush=True)
+    # (b)'s references: the single card at (b)'s depth, greedy, and a
+    # float32 copy of its weights fed the same tokens.
+    cfg4 = dataclasses.replace(cfg, n_layers=P16_LAYERS)
+    model = lm.init(cfg4, seed=0, device=dev)
+    prompts = p16_prompts(cfg4, dev)
+    (ref_l, _, ref_steps, ref_toks, _), ref_s = p15_timed(
+        lambda: p16_single(model, prompts, P16_STEPS))
+    ref = torch.stack([ref_l[:, -1]] + [x[:, -1] for x in ref_steps]
+                      ).float().cpu()                        # (1+T, B, V)
+    del ref_l, ref_steps
+    model = model.float()
+    f_l, _, f_steps, _, _ = p16_single(model, prompts, P16_STEPS, ref_toks)
+    f32 = torch.stack([f_l[:, -1]] + [x[:, -1] for x in f_steps]).cpu()
+    ref_toks = ref_toks.cpu()
+    del model, f_l, f_steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    world = run_local(phase16_world, 2, 2, backend="gloo", device="cuda",
+                      args=(ref_toks,), timeout=P16_TIMEOUT)
+    wall = time.perf_counter() - t0
+    from repro_torch.launch.mesh import plan_mesh
+    from repro_torch.sharding import rules
+    grid = plan_mesh(2, 2)
+    spec = rules.logits_spec(grid, LM_BATCH, cfg.vocab)
+    got = torch.full_like(ref, float("nan"))
+    for r in world:
+        for i, blk in enumerate(r["logits"]):
+            sl = rules.block_slices((LM_BATCH, cfg.vocab), (spec[0], spec[2]),
+                                    grid, r["coords"])
+            got[i][sl] = blk[:, -1]
+    diff = (got - ref).abs()
+    d = float(diff.max())
+    band = float((ref - f32).abs().max())          # the single card's
+    mesh_band = float((got - f32).abs().max())
+    top2 = f32.topk(2, dim=-1).values
+    firm = (top2[..., 0] - top2[..., 1]) > 2 * (band + P16_LOGITS_ATOL)
+    same = got.argmax(dim=-1) == ref.argmax(dim=-1)
+    check(bool(torch.isfinite(got).all())
+          and mesh_band <= band + P16_LOGITS_ATOL
+          and bool(same[firm].all()),
+          f"phase 16 (b): the 2x2 logits {mesh_band} from the float32 "
+          f"copy's, the single card's {band} (bar: + {P16_LOGITS_ATOL}); "
+          f"greedy tokens differ at {int((~same & firm).sum())} separated "
+          f"positions")
+    predicted = {k: p16_predict(cfg4, P16_LAYERS, LM_BATCH, s)
+                 for k, s in (("prefill", P), ("step", 1))}
+    r0 = world[0]
+    check(all(r["plan"] == r0["plan"] for r in world)
+          and set(r0["plan"].values()) == {"heads", "tp", "vocab"},
+          f"phase 16 (b): plans {[r['plan'] for r in world]}")
+    for r in world:
+        for k in ("fsdp_gather", "tp_reduce", "vocab_embed"):
+            check(r["prefill_bytes"].get(k) == predicted["prefill"][k]
+                  and all(b.get(k) == predicted["step"][k]
+                          for b in r["step_bytes"]),
+                  f"phase 16 (b) {r['coords']}: {k} bytes "
+                  f"{r['prefill_bytes']}, {r['step_bytes'][0]} against the "
+                  f"layout's {predicted}")
+    print(f"phase 16: (b) olmo-1b at full width, depth cut from 16 to "
+          f"{P16_LAYERS} layers, on a 2x2 gloo world sharing the card "
+          f"(plan: attention on the rank's {cfg.n_heads // 2} heads, d_ff "
+          f"and the "
+          f"vocabulary over model, every TP block gathered over data "
+          f"only): {LM_BATCH} x {P} prompt tokens and {P16_STEPS} decode "
+          f"steps fed the single card's greedy tokens; logits max |d| "
+          f"{mesh_band:.4g} from a float32 copy's, the single card's "
+          f"{band:.4g} (bar: + {P16_LOGITS_ATOL}); from the single card's "
+          f"max |d| {d:.4g}, mean {float(diff.mean()):.3g}, "
+          f"{100 * float((diff == 0).float().mean()):.2f} % bitwise; greedy "
+          f"tokens equal the single card's at {int(same.sum())} of "
+          f"{same.numel()} positions, at all {int(firm.sum())} whose "
+          f"float32 top-2 margin exceeds twice the bar; the single card "
+          f"{ref_s:.3f} s for it; the world {wall:.1f} s {tag}", flush=True)
+    for r in world:
+        print(f"phase 16: (b) rank {r['coords']}: resident "
+              f"{r['resident_gib']:.4f} GiB of blocks (predicted "
+              f"{predicted['step']['resident'] / 2**30:.4f}), its decode "
+              f"cache {r['cache_gib']:.4f} GiB, peak {r['peak_above_gib']:.3f}"
+              f" GiB above the blocks; prefill {r['prefill_s']:.3f} s "
+              f"(warm-up prefill and a step {r['warm_s']:.3f}), a decode "
+              f"step {statistics.median(r['step_s']):.3f} s (median; "
+              f"{min(r['step_s']):.3f}-{max(r['step_s']):.3f}); bytes "
+              f"received: prefill {r['prefill_bytes']}, a decode step "
+              f"{r['step_bytes'][0]} {tag}", flush=True)
+    out["2x2"] = dict(layers=P16_LAYERS, max_abs_d=d, band_single=band,
+                      band_mesh=mesh_band,
+                      bitwise_share=float((diff == 0).float().mean()),
+                      greedy_equal=int(same.sum()),
+                      positions=same.numel(), separated=int(firm.sum()),
+                      reference_s=ref_s, wall_s=wall, predicted=predicted,
+                      ranks=[{k: v for k, v in r.items() if k != "logits"}
+                             for r in world])
+    del world, got, ref, f32
+    # (c) the SP branch at smoke width.
+    t0 = time.perf_counter()
+    sp = run_local(phase16_sp, 1, 4, backend="gloo", device="cuda",
+                   timeout=P16_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(all(s["max_abs_d"] <= P16_SP_TOL and s["cache_d"] <= P16_SP_TOL
+              and s["plan"] == ["('seq', ('model',))", "tp", "vocab"]
+              and all(b.get("sp_combine") for b in s["step_bytes"])
+              for s in sp),
+          f"phase 16 (c): the SP cache against the single card: {sp}")
+    print(f"phase 16: (c) {P16_SP_NAME} smoke f32 (2 KV heads over model = "
+          f"4: the cache's sequence split, {sp[0]['block'][2]} slots a "
+          f"rank), batch 1, {P16_SP_PROMPT} prompt tokens and "
+          f"{P16_STEPS} decode steps (the window of 8 across the block "
+          f"boundary), 1x4 gloo on the card: logits max |d| "
+          f"{max(s['max_abs_d'] for s in sp):.3g}, cache blocks "
+          f"{max(s['cache_d'] for s in sp):.3g} against the single card "
+          f"(bar {P16_SP_TOL}); sp_combine {sp[0]['step_bytes'][0]['sp_combine']}"
+          f" bytes a rank a step; {wall:.1f} s {tag}", flush=True)
+    out["1x4_sp"] = dict(wall_s=wall, ranks=sp)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 16: done in {out['seconds']:.1f} s {tag}", flush=True)
+    return out
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
 
@@ -5147,6 +5544,7 @@ def main():
 
     # Phase 15: LM training on a mesh (no kernel of its own either).
     p15 = phase15(dev, smi)
+    p16 = phase16(dev, smi)
 
     def p10_launches(kname):
         """The kernel's launches in each run of phase 10 that made any."""
@@ -5271,6 +5669,7 @@ def main():
     print(json.dumps({"phase13": p13}))
     print(json.dumps({"phase14": p14}))
     print(json.dumps({"phase15": p15}))
+    print(json.dumps({"phase16": p16}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@ each with ``arch``, ``shape``, ``mesh``, ``t_compute``, ``t_memory``,
 nothing of JAX. Prints one markdown table per mesh; keeps the LAST record
 per (arch, shape, mesh) so re-runs supersede earlier rows. A port of the
 JAX package's ``analysis/report.py``; the port has no dry-run of its own
-yet (``launch/dryrun.py`` is ROADMAP Queue 1 item 8b).
+yet (``launch/dryrun.py``, ROADMAP Queue 1 item 8b, is still to port).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.analysis.report [results/dryrun.jsonl]

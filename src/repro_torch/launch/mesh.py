@@ -30,10 +30,11 @@ process's ``torch.distributed`` state is left as it was. ``device`` is
 where the rank's tensors live: the CPU, or a CUDA device (several gloo
 ranks may share one card; NCCL takes one rank a card).
 
-The LM train step runs on such a mesh too (``launch/steps.py``
-``make_mesh_train_step``, laid out by ``sharding/rules.py``).
-``make_production_mesh`` (the TPU pod shapes) waits for the mesh prefill
-and decode steps (ROADMAP Queue 1 item 8b).
+The LM train, prefill and decode steps run on such a mesh too
+(``launch/steps.py`` ``make_mesh_train_step``, ``make_mesh_prefill_step``,
+``make_mesh_decode_step``, laid out by ``sharding/rules.py``).
+``make_production_mesh`` (the TPU pod shapes, with a ``pod`` axis this
+``Mesh`` lacks) is not ported yet (ROADMAP Queue 1 item 8b).
 """
 from __future__ import annotations
 

@@ -11,9 +11,14 @@ meta device, which hold shapes and dtypes and no memory.
 ``jit_train_step``: the same step on a ``torch.distributed`` (data, model)
 mesh (``launch/mesh.py``), acting on a :class:`MeshTrainState`, in which
 each rank holds only the blocks of the parameters and AdamW moments that
-``sharding.rules.param_specs`` gives its coordinates. JAX's mesh prefill
-and decode steps (``jit_prefill_step``, ``jit_decode_step``) are not
-ported yet (ROADMAP Queue 1 item 8b). The EMD search steps run on a mesh:
+``sharding.rules.param_specs`` gives its coordinates.
+:func:`make_mesh_prefill_step` and :func:`make_mesh_decode_step` are the
+counterparts of JAX's ``jit_prefill_step`` and ``jit_decode_step``: on a
+:class:`MeshServeState` (the rank's blocks in mode "tp"), Megatron TP over
+the rules' heads, ``d_ff`` and vocabulary (``rules.serve_plan``), the
+decode cache held in ``rules.cache_specs``' blocks (KV heads, or the
+sequence under SP), the logits in ``rules.logits_spec``'s blocks. The EMD
+search steps run on a mesh:
 pass ``mesh=`` to ``make_emd_search_step`` / ``make_emd_cascade_step``
 (the port's counterparts of ``jit_emd_search_step`` /
 ``jit_emd_cascade_step``).
@@ -199,6 +204,8 @@ class _GatherOnUse(nn.Module):
     def __init__(self, mesh, spec):
         super().__init__()
         self.mesh, self.spec, self.batch_axes = mesh, spec, ()
+        self.loaded = spec          # ``spec`` as loaded; a serve plan may
+                                    # narrow it to a TP block's
 
     def forward(self, block):
         return annotate.fsdp_gather(block, self.mesh, self.spec,
@@ -208,6 +215,61 @@ class _GatherOnUse(nn.Module):
 def _zeros_like(blocks: dict, dtype) -> dict:
     return {k: torch.zeros(b.shape, dtype=dtype, device=b.device)
             for k, b in blocks.items()}
+
+
+def _load_blocks(cfg: ModelConfig, mesh, mode: str, blocks: dict):
+    """``cfg``'s model with each parameter this rank's block of it (from
+    ``blocks``, {parameter name: block} on ``mesh.device``), read through
+    a gather on use over the axes of its spec (:class:`_GatherOnUse`).
+    The expert leaves of a MoE layer are computed where they lie (the
+    expert-parallel path, gathered over ``data`` only) under
+    ``cfg.moe_shard_map`` or mode "ep" on a mesh whose ``model`` axis has
+    more than one rank. Returns (the model, its layout on the meta device,
+    the specs, {name: the block parameter})."""
+    layout = M.init(cfg, device="meta")
+    specs = rules.model_specs(layout, mesh, mode)
+    ep = (cfg.is_moe and (cfg.moe_shard_map or mode == "ep")
+          and mesh.size("model") > 1)
+    if ep and mode == "fsdp":
+        raise ValueError("the expert-parallel MoE needs the batch "
+                         "replicated over 'model': mode 'tp' or 'ep', "
+                         "not 'fsdp'")
+    if set(blocks) != set(specs):
+        raise ValueError(f"blocks {sorted(set(blocks) ^ set(specs))} "
+                         "differ from the model's parameters")
+    model = M.init(cfg, device="meta")
+    for name, block in blocks.items():
+        whole = layout.get_parameter(name).shape
+        want = tuple(s.stop - s.start for s in rules.block_slices(
+            whole, specs[name], mesh))
+        if tuple(block.shape) != want:
+            raise ValueError(f"{name}: block {tuple(block.shape)}, the "
+                             f"rules give {want} on this rank")
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name)
+        setattr(mod, leaf, nn.Parameter(block))
+        spec = specs[name]
+        if ep and isinstance(mod, L.MoE) and leaf in _EXPERT_LEAVES:
+            if spec[:1] != ("model",):
+                raise ValueError(f"{name}: spec {spec} does not split "
+                                 "the expert rows over 'model'")
+            mod.ep_mesh = mesh
+            spec = (None,) + spec[1:]
+        parametrize.register_parametrization(
+            mod, leaf, _GatherOnUse(mesh, spec), unsafe=True)
+    params = {name: model.get_submodule(name.rpartition(".")[0])
+              .parametrizations[name.rpartition(".")[2]].original
+              for name in specs}
+    return model, layout, specs, params
+
+
+def _cut_blocks(model: M.LM, mesh, mode: str) -> dict:
+    """This rank's blocks of a whole ``model`` by the rules in ``mode``,
+    copied to ``mesh.device``."""
+    specs = rules.model_specs(model, mesh, mode)
+    return {n: p.detach()[rules.block_slices(p.shape, specs[n], mesh)]
+            .to(mesh.device, copy=True).contiguous()
+            for n, p in model.named_parameters()}
 
 
 @dataclasses.dataclass(eq=False)
@@ -256,40 +318,7 @@ class MeshTrainState:
         ({parameter name: block}, on ``mesh.device``) and, optionally, the
         moments' blocks and step (default: zeros in the config's
         ``opt_state_dtype``, step 0)."""
-        layout = M.init(cfg, device="meta")
-        specs = rules.model_specs(layout, mesh, mode)
-        ep = (cfg.is_moe and (cfg.moe_shard_map or mode == "ep")
-              and mesh.size("model") > 1)
-        if ep and mode == "fsdp":
-            raise ValueError("the expert-parallel MoE needs the batch "
-                             "replicated over 'model': mode 'tp' or 'ep', "
-                             "not 'fsdp'")
-        if set(blocks) != set(specs):
-            raise ValueError(f"blocks {sorted(set(blocks) ^ set(specs))} "
-                             "differ from the model's parameters")
-        model = M.init(cfg, device="meta")
-        for name, block in blocks.items():
-            whole = layout.get_parameter(name).shape
-            want = tuple(s.stop - s.start for s in rules.block_slices(
-                whole, specs[name], mesh))
-            if tuple(block.shape) != want:
-                raise ValueError(f"{name}: block {tuple(block.shape)}, the "
-                                 f"rules give {want} on this rank")
-            mod_name, _, leaf = name.rpartition(".")
-            mod = model.get_submodule(mod_name)
-            setattr(mod, leaf, nn.Parameter(block))
-            spec = specs[name]
-            if ep and isinstance(mod, L.MoE) and leaf in _EXPERT_LEAVES:
-                if spec[:1] != ("model",):
-                    raise ValueError(f"{name}: spec {spec} does not split "
-                                     "the expert rows over 'model'")
-                mod.ep_mesh = mesh
-                spec = (None,) + spec[1:]
-            parametrize.register_parametrization(
-                mod, leaf, _GatherOnUse(mesh, spec), unsafe=True)
-        params = {name: model.get_submodule(name.rpartition(".")[0])
-                  .parametrizations[name.rpartition(".")[2]].original
-                  for name in specs}
+        model, layout, specs, params = _load_blocks(cfg, mesh, mode, blocks)
         if opt is None:
             dt = getattr(torch, cfg.opt_state_dtype)
             opt = {"m": _zeros_like(params, dt), "v": _zeros_like(params, dt),
@@ -303,11 +332,8 @@ class MeshTrainState:
                    mode: str = "tp") -> "MeshTrainState":
         """This rank's blocks of a whole ``model``, copied to
         ``mesh.device``; zero moments, step 0."""
-        specs = rules.model_specs(model, mesh, mode)
-        blocks = {n: p.detach()[rules.block_slices(p.shape, specs[n], mesh)]
-                  .to(mesh.device, copy=True).contiguous()
-                  for n, p in model.named_parameters()}
-        return cls.from_blocks(model.cfg, mesh, mode, blocks)
+        return cls.from_blocks(model.cfg, mesh, mode,
+                               _cut_blocks(model, mesh, mode))
 
     @classmethod
     def init(cls, cfg: ModelConfig, mesh, mode: str = "tp",
@@ -476,6 +502,306 @@ def make_mesh_train_step(shape: InputShape, mesh, *, mode: str = "tp",
         return state
 
     return step
+
+
+# ----------------------------------------------------------------------------
+# Prefill and decode on a (data, model) mesh (JAX's jit_prefill_step /
+# jit_decode_step)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class MeshServeState:
+    """One rank's part of a model for the mesh prefill and decode steps:
+    its blocks of the parameters by ``sharding.rules`` in mode "tp" (the
+    layout of JAX's ``jit_prefill_step``), no optimizer.
+
+    ``model``: an ``LM`` whose every parameter is this rank's block
+    (``blocks``), read through a gather on use as in
+    :class:`MeshTrainState` (the shared loader; the expert-parallel MoE
+    alike). A step lays its plan (``rules.serve_plan``) on the state
+    before it runs (:meth:`apply_plan`): the modules it plans as Megatron
+    TP compute on their blocks, which are then gathered over ``data``
+    only; every other leaf is gathered whole."""
+    model: M.LM
+    layout: M.LM
+    mesh: object
+    specs: dict
+    blocks: dict
+    plan: dict | None = None
+
+    #: The sharding rules' mode of a serve state.
+    MODE = "tp"
+
+    @property
+    def cfg(self) -> ModelConfig:
+        return self.layout.cfg
+
+    @classmethod
+    def from_blocks(cls, cfg: ModelConfig, mesh,
+                    blocks: dict) -> "MeshServeState":
+        """A state of ``cfg``'s model from this rank's ``blocks``
+        ({parameter name: block}, on ``mesh.device``)."""
+        model, layout, specs, params = _load_blocks(cfg, mesh, cls.MODE,
+                                                    blocks)
+        return cls(model=model, layout=layout, mesh=mesh, specs=specs,
+                   blocks=params)
+
+    @classmethod
+    def from_model(cls, model: M.LM, mesh) -> "MeshServeState":
+        """This rank's blocks of a whole ``model`` (for example one that
+        ``models.convert`` carried across from JAX), copied to
+        ``mesh.device``."""
+        return cls.from_blocks(model.cfg, mesh,
+                               _cut_blocks(model, mesh, cls.MODE))
+
+    @classmethod
+    def init(cls, cfg: ModelConfig, mesh, seed: int = 0) -> "MeshServeState":
+        """``models.model.init(cfg, seed=seed)`` on ``mesh.device``, cut to
+        this rank's blocks (the whole model is freed)."""
+        return cls.from_model(M.init(cfg, seed=seed, device=mesh.device),
+                              mesh)
+
+    def apply_plan(self, plan: dict) -> None:
+        """Hand each module its part of ``plan`` (``rules.serve_plan`` of
+        this state's specs) and narrow the gathers of the leaves it
+        computes as TP blocks to ``data``."""
+        if plan == self.plan:
+            return
+        mesh, model = self.mesh, self.model
+        tp = rules.block_leaves(plan, self.specs)
+        for name in self.specs:
+            mod_name, _, leaf = name.rpartition(".")
+            gather = model.get_submodule(mod_name).parametrizations[leaf][0]
+            gather.spec = (rules.without_model(gather.loaded) if name in tp
+                           else gather.loaded)
+        model.vocab_mesh = mesh if plan["embed"] == "vocab" else None
+        for mod_name, mode in plan.items():
+            if mod_name in ("embed", "head"):
+                continue
+            mod = model.get_submodule(mod_name)
+            if isinstance(mod, L.Attention):
+                mod.tp_mesh = mesh if mode == "heads" else None
+                mod.sp = (mesh, mode[1]) if isinstance(mode, tuple) else None
+            elif isinstance(mod, L.MLP):
+                mod.tp_mesh = mesh if mode == "tp" else None
+            else:
+                mod.head_mesh = mesh if mode == "heads" else None
+        self.plan = plan
+
+
+def abstract_prefill_cache(cfg: ModelConfig, shape: InputShape):
+    """Meta tensors of ``models.model.prefill``'s compact caches for a
+    prompt of ``shape``: the attention stack's {"k", "v"} (L, B, S, KV,
+    hd) in the parameters' dtype; the SSM stack's {"state", "conv"} in
+    float32; the hybrid's (SSM caches, K / V)."""
+    cache = M.init_decode_cache(cfg, shape.global_batch, shape.seq_len - 1,
+                                dtype=L.param_dtype(cfg), device="meta")
+    if cfg.family == "ssm":
+        return cache["ssm"]
+    if cfg.family == "hybrid":
+        return cache["ssm"], cache["attn"]
+    return cache["attn"]
+
+
+def _zip_map(fn, tree, *others):
+    """``fn(leaf, *other leaves)`` over trees of one layout (dicts and
+    tuples)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_zip_map(fn, *leaves) for leaves in zip(tree, *others))
+    return fn(tree, *others)
+
+
+def _block_shape(leaf, spec, mesh) -> tuple[int, ...]:
+    return tuple(s.stop - s.start
+                 for s in rules.block_slices(tuple(leaf.shape), spec, mesh))
+
+
+def cache_blocks(cache, cfg: ModelConfig, mesh):
+    """This rank's blocks of a whole cache (a decode cache, or prefill's
+    compact caches; any device), cut by ``rules.cache_specs`` and copied
+    to ``mesh.device``."""
+    specs = rules.cache_specs(cache, cfg, mesh)
+    return _zip_map(lambda t, spec: t[rules.block_slices(
+        tuple(t.shape), spec, mesh)].to(mesh.device, copy=True)
+        .contiguous(), cache, specs)
+
+
+def init_mesh_decode_cache(cfg: ModelConfig, shape: InputShape, mesh,
+                           dtype=torch.bfloat16) -> dict:
+    """This rank's blocks of an empty decode cache for ``shape`` (JAX's
+    ``abstract_cache``: ``seq_len + CACHE_PAD`` slots, K / V in ``dtype``,
+    the SSM's state and conv window in float32), on ``mesh.device``."""
+    whole = M.init_decode_cache(cfg, shape.global_batch,
+                                shape.seq_len + CACHE_PAD - 1, dtype=dtype,
+                                device="meta")
+    specs = rules.cache_specs(whole, cfg, mesh)
+    return _zip_map(lambda t, spec: torch.zeros(
+        _block_shape(t, spec, mesh), dtype=t.dtype, device=mesh.device),
+        whole, specs)
+
+
+def handoff_prefill(prefill_caches, cache: dict, cfg: ModelConfig, mesh,
+                    prompt: InputShape, decode: InputShape) -> dict:
+    """Write the mesh prefill step's compact caches (this rank's blocks,
+    for a prompt of ``prompt``'s shape) into this rank's blocks of a
+    decode cache of ``decode``'s shape (:func:`init_mesh_decode_cache`),
+    in place: K / V at slots 0 .. S-1, the SSM's state and conv window as
+    they are. Where the prompt's cache splits the sequence (SP), its K / V
+    are gathered along it first (``annotate.cache_handoff``); each rank
+    keeps the slots of its decode block. Returns ``cache``."""
+    whole = {"prefill": abstract_prefill_cache(cfg, prompt),
+             "decode": M.init_decode_cache(
+                 cfg, decode.global_batch, decode.seq_len + CACHE_PAD - 1,
+                 device="meta")}
+    specs = {k: rules.cache_specs(v, cfg, mesh) for k, v in whole.items()}
+
+    def split(tree):
+        if cfg.family == "ssm":
+            return tree, None
+        return tree if cfg.family == "hybrid" else (None, tree)
+    blocks, p_specs = split(prefill_caches), split(specs["prefill"])
+    into = (cache.get("ssm"), cache.get("attn"))
+    d_specs = (specs["decode"].get("ssm"), specs["decode"].get("attn"))
+    with torch.no_grad():
+        for part, p_spec, dst, d_spec in zip(blocks, p_specs, into, d_specs):
+            for name, block in (part or {}).items():
+                if name in ("k", "v"):
+                    _handoff_kv(block, dst[name], p_spec[name],
+                                d_spec[name], mesh)
+                else:
+                    dst[name].copy_(block)
+    return cache
+
+
+def _handoff_kv(block: torch.Tensor, dst: torch.Tensor, p_spec, d_spec,
+                mesh) -> None:
+    """One K or V leaf of :func:`handoff_prefill`: the prompt's (lead...,
+    B, S, KV, hd) block, split by ``p_spec``, into the decode cache's
+    block, split by ``d_spec``."""
+    seq = block.dim() - 3
+    if p_spec[:seq] + p_spec[seq + 1:] != d_spec[:seq] + d_spec[seq + 1:]:
+        raise ValueError(f"the prompt's cache {p_spec} and the decode "
+                         f"cache {d_spec} differ in more than the sequence")
+    prompt = annotate.cache_handoff(block, mesh, rules.axes_of(p_spec[seq]),
+                                    seq)
+    total = dst.shape[seq] * math.prod(
+        mesh.size(a) for a in rules.axes_of(d_spec[seq]))
+    if prompt.shape[seq] > total:
+        raise ValueError(f"a prompt of {prompt.shape[seq]} tokens into a "
+                         f"cache of {total} slots")
+    mine, = rules.block_slices((total,), (d_spec[seq],), mesh)
+    lo, hi = mine.start, min(mine.stop, prompt.shape[seq])
+    if hi > lo:
+        dst.narrow(seq, 0, hi - lo).copy_(prompt.narrow(seq, lo, hi - lo))
+
+
+def _rank_batch(batch: dict, mesh, shape: InputShape, seq: int) -> dict:
+    """This rank's rows of the global ``batch`` (``rules.batch_specs``)
+    on ``mesh.device``, after checking its shape against the step's:
+    ``shape.global_batch`` rows of ``seq`` tokens."""
+    rows = {k: v for k, v in batch.items() if k != "cache_index"}
+    for key, v in rows.items():
+        if tuple(v.shape[:2]) != (shape.global_batch, seq):
+            raise ValueError(f"batch[{key!r}] is {tuple(v.shape)}; the step "
+                             f"takes {shape.global_batch} rows of {seq}")
+    out = rank_rows(rows, mesh, batch_axes(rows, mesh), 1)
+    if "cache_index" in batch:
+        out["cache_index"] = batch["cache_index"]
+    return out
+
+
+def _check_state(state, mesh) -> None:
+    if not isinstance(state, MeshServeState) or state.mesh is not mesh:
+        raise ValueError(f"a MeshServeState of {mesh!r}, got "
+                         f"{type(state).__name__}")
+
+
+def _serve_layout(cfg: ModelConfig, shape: InputShape, mesh, params_abs,
+                  cache_abs):
+    """A mesh serving step's layout: (its plan, ``rules.serve_plan`` of
+    the parameters' and ``cache_abs``'s specs; the cache's block shapes on
+    this rank; ``rules.logits_spec``)."""
+    specs = rules.model_specs(params_abs, mesh, MeshServeState.MODE)
+    c_spec = rules.cache_specs(cache_abs, cfg, mesh)
+    want = _zip_map(lambda t, s: _block_shape(t, s, mesh), cache_abs, c_spec)
+    return (rules.serve_plan(specs, c_spec), want,
+            rules.logits_spec(mesh, shape.global_batch, cfg.vocab))
+
+
+def make_mesh_prefill_step(cfg: ModelConfig, shape: InputShape, mesh):
+    """JAX's ``jit_prefill_step`` on ``mesh``: returns (step,
+    (abstract_params, input_specs)), step(state, batch) -> (this rank's
+    block of the last-token logits by ``rules.logits_spec``, this rank's
+    blocks of the compact caches by ``rules.cache_specs``).
+
+    ``state`` is a :class:`MeshServeState` of ``mesh``; ``batch`` the
+    global batch of ``shape`` (the same on every rank), of which the step
+    keeps the rank's rows (``rules.batch_specs``). Attention computes on
+    the rank's heads where the plan (``rules.serve_plan``) says "heads";
+    under SP it computes with whole weights and keeps the rank's block of
+    the sequence; the logits stay in blocks."""
+    params_abs, batch_abs = abstract_params(cfg), input_specs(cfg, shape)
+    plan, want, l_spec = _serve_layout(cfg, shape, mesh, params_abs,
+                                       abstract_prefill_cache(cfg, shape))
+
+    def step(state: MeshServeState, batch: dict):
+        _check_state(state, mesh)
+        state.apply_plan(plan)
+        logits, caches = M.prefill(state.model, _rank_batch(
+            batch, mesh, shape, shape.seq_len))
+        got = _zip_map(lambda t: tuple(t.shape), caches)
+        if got != want:
+            raise RuntimeError(f"prefill's caches {got}, the rules give "
+                               f"{want} on this rank")
+        return _vocab_block(logits, l_spec, mesh, cfg), caches
+
+    return step, (params_abs, batch_abs)
+
+
+def make_mesh_decode_step(cfg: ModelConfig, shape: InputShape, mesh):
+    """JAX's ``jit_decode_step`` on ``mesh``: returns (step,
+    (abstract_params, input_specs, abstract_cache)), step(state, batch,
+    cache) -> (this rank's block of the logits (B, 1, vocab) by
+    ``rules.logits_spec``, ``cache``). ``cache`` is this rank's blocks of
+    the decode cache (:func:`init_mesh_decode_cache`, filled by
+    :func:`handoff_prefill` or earlier steps), written in place; ``batch``
+    the global {"tokens" (B, 1) or "embeddings", "cache_index"}.
+
+    Attention on "heads" writes the new K / V into the rank's heads of
+    the cache; under SP only the rank whose block holds slot
+    ``cache_index`` writes it, and the ranks combine their partial
+    softmaxes (``sp_combine``). The SSM updates the rank's heads of the
+    state."""
+    params_abs, batch_abs = abstract_params(cfg), input_specs(cfg, shape)
+    cache_abs = abstract_cache(cfg, shape)
+    plan, want, l_spec = _serve_layout(cfg, shape, mesh, params_abs,
+                                       cache_abs)
+
+    def step(state: MeshServeState, batch: dict, cache: dict):
+        _check_state(state, mesh)
+        got = _zip_map(lambda t: tuple(t.shape), cache)
+        if got != want:
+            raise ValueError(f"cache blocks {got}, the rules give {want} "
+                             "on this rank")
+        state.apply_plan(plan)
+        logits, cache = M.decode_step(state.model, _rank_batch(
+            batch, mesh, shape, 1), cache)
+        return _vocab_block(logits, l_spec, mesh, cfg), cache
+
+    return step, (params_abs, batch_abs, cache_abs)
+
+
+def _vocab_block(logits: torch.Tensor, spec, mesh,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The logits' block of ``rules.logits_spec`` (their rows are already
+    the rank's): a head whose vocabulary is whole is cut to the block."""
+    if logits.shape[-1] != cfg.vocab:
+        return logits                      # the head's own vocab block
+    sl, = rules.block_slices((cfg.vocab,), (spec[2],), mesh)
+    return logits[..., sl]
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -11,12 +11,14 @@ the same casts, the same float32 islands, the same masking constants.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding import annotate
+from repro_torch.sharding import annotate, rules
 
 NEG_INF = -1e30
 
@@ -114,8 +116,16 @@ def rotate(x: torch.Tensor, cos: torch.Tensor,
 # ----------------------------------------------------------------------------
 
 class Attention(nn.Module):
+    """GQA attention's weights. On a mesh (set by the mesh prefill and
+    decode steps, ``launch.steps``; None on one device): ``tp_mesh``, the
+    mesh over whose ``model`` ranks the heads are split (Megatron TP: the
+    projections are the rank's heads, ``wo``'s output summed over
+    ``model``); ``sp``, (mesh, axes) where the cache's sequence is split
+    over ``axes`` (sequence parallel, the weights whole)."""
+
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
+        self.tp_mesh, self.sp = None, None
         d, hd, dt = cfg.d_model, cfg.head_dim, param_dtype(cfg)
         self.wq = dense_init(generator, d, (cfg.n_heads, hd), dt, device)
         self.wk = dense_init(generator, d, (cfg.n_kv_heads, hd), dt, device)
@@ -171,6 +181,43 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)                              # (B,S,KV,G,hd)
 
 
+def _sp_decode(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               cache: dict, cache_index: int, window: int, sp,
+               scale: float) -> torch.Tensor:
+    """One token's attention over a cache whose sequence is split over
+    ``sp`` = (mesh, axes): this rank's block holds the global slots
+    off .. off + n - 1. The rank that owns slot ``cache_index`` writes the
+    new K / V there; every rank scores its block at the slots' global
+    positions (causal mask and window), and the ranks combine their
+    partial softmaxes: the max over the axes, then the exp-sums and
+    weighted values (``annotate.sp_max`` / ``sp_sum``). qg: (B, 1, KV, G,
+    hd). Returns (B, KV, G, 1, hd) in float32."""
+    mesh, axes = sp
+    k_cache, v_cache = cache["k"], cache["v"]
+    n = k_cache.shape[1]
+    total = n * math.prod(mesh.size(a) for a in axes)
+    off = rules.block_slices((total,), (axes,), mesh)[0].start
+    if not 0 <= cache_index < total:
+        raise IndexError(f"cache_index {cache_index} is outside the "
+                         f"cache's {total} slots")
+    if off <= cache_index < off + n:
+        k_cache[:, cache_index - off] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, cache_index - off] = v[:, 0].to(v_cache.dtype)
+    kpos = off + torch.arange(n, device=qg.device)
+    ok = kpos <= cache_index
+    if window > 0:
+        ok &= (cache_index - kpos) < window
+    kf = k_cache.float().permute(0, 2, 3, 1)[:, :, None]      # (B,KV,1,hd,n)
+    scores = (qg.float().permute(0, 2, 3, 1, 4) @ kf) * scale
+    scores = scores + torch.where(ok, 0.0, NEG_INF).float()
+    m = annotate.sp_max(scores.amax(dim=-1, keepdim=True), mesh, axes)
+    p = torch.exp(scores - m)
+    acc = p @ v_cache.float().transpose(1, 2)[:, :, None]     # (B,KV,G,1,hd)
+    sums = annotate.sp_sum(torch.cat([acc, p.sum(dim=-1, keepdim=True)],
+                                     dim=-1), mesh, axes)
+    return sums[..., :-1] / sums[..., -1:]
+
+
 def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, window: int = 0,
                     cache: dict | None = None, cache_index: int | None = None,
@@ -182,18 +229,31 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     the cache raises ``IndexError``) and attention runs over the whole
     cache, masked to ``kpos <= cache_index`` and the window.
     Returns (out, cache) for decode, (out, {"k", "v"} or None) otherwise.
+
+    The head counts are the weights' own: on a TP mesh (``attn.tp_mesh``)
+    the rank's heads, whose partial output is summed over ``model``. With
+    ``attn.sp`` the cache is the rank's sequence block: decode combines
+    the ranks' partial softmaxes (:func:`_sp_decode`), and prefill keeps
+    only the block in the K / V it returns.
     """
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = proj(x, attn.wq)
-    k = proj(x, attn.wk)
-    v = proj(x, attn.wv)
+    wq, wk, wv = attn.wq, attn.wk, attn.wv
+    H, KV, hd = wq.shape[1], wk.shape[1], cfg.head_dim
+    q = proj(x, wq)
+    k = proj(x, wk)
+    v = proj(x, wv)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     q, k = rotate(q, cos, sin), rotate(k, cos, sin)
     group = H // KV
     qg = q.reshape(B, S, KV, group, hd)
+    out = None
 
-    if cache is not None:
+    if cache is not None and attn.sp is not None:
+        new_cache = cache
+        out = _sp_decode(qg, k, v, cache, cache_index, window, attn.sp,
+                         hd ** -0.5).to(x.dtype)
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
+    elif cache is not None:
         k_cache, v_cache = cache["k"], cache["v"]
         skv = k_cache.shape[1]
         if not 0 <= cache_index < skv:
@@ -208,27 +268,36 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         if window > 0:
             ok &= (cache_index - kpos) < window
     else:
-        new_cache = {"k": k, "v": v} if return_kv else None
+        new_cache = None
+        if return_kv:
+            keep = slice(None)
+            if attn.sp is not None:
+                mesh, axes = attn.sp
+                keep, = rules.block_slices((S,), (axes,), mesh)
+            new_cache = {"k": k[:, keep], "v": v[:, keep]}
         if S > FLASH_THRESHOLD and S % FLASH_CHUNK == 0:
             out = _flash_attention(qg, k, v, window, hd ** -0.5)
             out = out.to(x.dtype).reshape(B, S, H * hd)
-            return proj(out, attn.wo), new_cache
-        ar = torch.arange(S, device=x.device)
-        qpos, kpos = ar[:, None], ar[None, :]
-        ok = kpos <= qpos
-        if window > 0:
-            ok &= (qpos - kpos) < window
-    mask = torch.where(ok, 0.0, NEG_INF).float()     # (skv,) or (S, S)
-
-    # "bsngk,btnk->bngst" and "bngst,btnk->bsngk" as batched matmuls
-    scores = (qg.permute(0, 2, 3, 1, 4)
-              @ k.permute(0, 2, 3, 1)[:, :, None]).float()
-    scores = scores * (hd ** -0.5)
-    scores = scores + mask
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = probs @ v.transpose(1, 2)[:, :, None]               # (B,KV,G,S,hd)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
-    return proj(out, attn.wo), new_cache
+        else:
+            ar = torch.arange(S, device=x.device)
+            qpos, kpos = ar[:, None], ar[None, :]
+            ok = kpos <= qpos
+            if window > 0:
+                ok &= (qpos - kpos) < window
+    if out is None:
+        mask = torch.where(ok, 0.0, NEG_INF).float()   # (skv,) or (S, S)
+        # "bsngk,btnk->bngst" and "bngst,btnk->bsngk" as batched matmuls
+        scores = (qg.permute(0, 2, 3, 1, 4)
+                  @ k.permute(0, 2, 3, 1)[:, :, None]).float()
+        scores = scores * (hd ** -0.5)
+        scores = scores + mask
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = probs @ v.transpose(1, 2)[:, :, None]           # (B,KV,G,S,hd)
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
+    out = proj(out, attn.wo)
+    if attn.tp_mesh is not None:
+        out = annotate.tp_reduce(out, attn.tp_mesh)
+    return out, new_cache
 
 
 # ----------------------------------------------------------------------------
@@ -236,8 +305,15 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 # ----------------------------------------------------------------------------
 
 class MLP(nn.Module):
+    """A dense MLP's weights. ``tp_mesh``: None, or the mesh over whose
+    ``model`` ranks ``d_ff`` is split (Megatron TP, set by the mesh
+    prefill and decode steps): ``w_up`` / ``w_gate`` are the rank's
+    columns, ``w_down`` its rows, and the output is summed over
+    ``model``."""
+
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
+        self.tp_mesh = None
         d, ff, dt = cfg.d_model, cfg.d_ff, param_dtype(cfg)
         self.w_up = dense_init(generator, d, (ff,), dt, device)
         self.w_down = dense_init(generator, ff, (d,), dt, device)
@@ -260,7 +336,25 @@ def mlp_apply(mlp: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     up = proj(x, mlp.w_up)
     gate = (proj(x, mlp.w_gate)
             if cfg.mlp == "swiglu" else None)
-    return proj(activation(cfg.mlp, up, gate), mlp.w_down)
+    y = proj(activation(cfg.mlp, up, gate), mlp.w_down)
+    if mlp.tp_mesh is not None:
+        y = annotate.tp_reduce(y, mlp.tp_mesh)
+    return y
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 mesh) -> torch.Tensor:
+    """The vocab-parallel embedding lookup: ``table`` is this rank's block
+    of rows of the (vocab, d) table, the ranks' blocks in ``model`` order.
+    An id outside the block gives zeros; the sum over ``model``
+    (``annotate.vocab_embed``) gives every id its row."""
+    rows = table.shape[0]
+    local = tokens - mesh.index("model") * rows
+    ok = (local >= 0) & (local < rows)
+    x = table[torch.where(ok, local, 0)]
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+    return annotate.vocab_embed(x, mesh)
 
 
 # ----------------------------------------------------------------------------
@@ -328,8 +422,10 @@ def _route(logits: torch.Tensor, aux_logits: torch.Tensor, k: int, E: int):
 
 
 def _moe_dispatch(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
-                  capacity: int):
-    """Routing + capacity bucketing for one token group x: (tg, d).
+                  capacity: int, router: torch.Tensor | None = None):
+    """Routing + capacity bucketing for one token group x: (tg, d), with
+    ``router`` (default ``moe.router``: a caller looping over groups reads
+    it once, since on a mesh each read gathers it).
 
     Returns (xe (E, C, d) expert inputs, (slot, stok, sgate, keep) for the
     combine, aux load-balance loss). An entry past its expert's capacity
@@ -337,7 +433,8 @@ def _moe_dispatch(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
     """
     tg, d = x.shape
     E, C = cfg.n_experts, capacity
-    se, stok, sgate, pos, aux = _moe_routing(moe.router, x,
+    router = moe.router if router is None else router
+    se, stok, sgate, pos, aux = _moe_routing(router, x,
                                              cfg.experts_per_token, E)
     keep = pos < C
     slot = torch.where(keep, se * C + pos, E * C)
@@ -382,7 +479,8 @@ def moe_apply(moe: MoE, x: torch.Tensor,
     k = cfg.experts_per_token
     C = int(S * k / cfg.n_experts * cfg.moe_capacity_factor) + 1
 
-    groups = [_moe_dispatch(moe, x[b], cfg, C) for b in range(B)]
+    router = moe.router
+    groups = [_moe_dispatch(moe, x[b], cfg, C, router) for b in range(B)]
     xe = torch.stack([g[0] for g in groups])                     # (G,E,C,d)
     if s > 1:
         xe = torch.repeat_interleave(xe, s, dim=1)               # (G,E*s,C,d)

@@ -92,11 +92,21 @@ class LM(nn.Module):
     """The decoder. Its parameters carry the JAX tree's leaf names:
     ``embed``, ``final_ln``, ``lm_head`` (untied heads), ``blocks`` (one
     module a layer; for the hybrid one ``ModuleList`` a group) and
-    ``shared_attn`` (hybrid)."""
+    ``shared_attn`` (hybrid).
+
+    The same modules serve one device and a (data, model) mesh: the mesh
+    prefill and decode steps (``launch.steps``) hand each module its part
+    (``Attention.tp_mesh`` / ``.sp``, ``MLP.tp_mesh``, ``SSM.head_mesh``,
+    ``MoE.ep_mesh``, ``LM.vocab_mesh``) and its parameters are the rank's
+    blocks; a module with no mesh computes as on one device."""
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
         self.cfg = cfg
+        # The mesh whose ``model`` ranks split ``embed``'s vocabulary rows
+        # for the lookup (``layers.vocab_lookup``), set by the mesh
+        # prefill and decode steps; None on one device.
+        self.vocab_mesh = None
         dt = L.param_dtype(cfg)
         self.embed = nn.Parameter((L.normal((cfg.vocab, cfg.d_model),
                                             generator, device)
@@ -275,6 +285,8 @@ def _embed_inputs(model: LM, batch: dict, cfg: ModelConfig):
         return torch.as_tensor(batch["embeddings"], device=dev).to(
             L.param_dtype(cfg))
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    if model.vocab_mesh is not None:
+        return L.vocab_lookup(model.embed, tokens, model.vocab_mesh)
     return model.embed[tokens]
 
 

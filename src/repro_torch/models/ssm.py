@@ -18,6 +18,7 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal, param_dtype, proj
+from repro_torch.sharding import annotate
 
 
 def _dims(cfg: ModelConfig):
@@ -29,8 +30,15 @@ def _dims(cfg: ModelConfig):
 
 
 class SSM(nn.Module):
+    """A Mamba2 block's weights. ``head_mesh``: None, or the mesh over
+    whose ``model`` ranks the recurrent state's heads are split (set by
+    the mesh prefill and decode steps): the state is updated on the rank's
+    heads, the projections and the conv window stay whole, and the heads'
+    outputs are gathered (``annotate.ssm_heads``) before the gated norm."""
+
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
+        self.head_mesh = None
         d = cfg.d_model
         d_in, heads, n, conv_dim = _dims(cfg)
         dt = param_dtype(cfg)
@@ -155,8 +163,16 @@ def ssm_apply(ssm: SSM, x: torch.Tensor, cfg: ModelConfig):
                             cfg.ssm_chunk)
     y = y + ssm.d_skip[:, None] * xh.float()
     y = y.reshape(*x.shape[:-1], d_in)
+    if ssm.head_mesh is not None:
+        final = final[:, _heads(ssm.head_mesh, heads)]
     cache = {"state": final, "conv": conv_tail.float()}
     return _gated_out(ssm, y, z, x.dtype), cache
+
+
+def _heads(mesh, heads: int) -> slice:
+    """This rank's block of the ``heads`` over ``mesh``'s ``model``."""
+    n = heads // mesh.size("model")
+    return slice(mesh.index("model") * n, (mesh.index("model") + 1) * n)
 
 
 def ssm_decode_init(cfg: ModelConfig, batch: int, device="cuda") -> dict:
@@ -188,11 +204,17 @@ def ssm_decode_step(ssm: SSM, x: torch.Tensor, cache: dict,
     dt = F.softplus(dt.float() + ssm.dt_bias)           # (B, h)
     a = -torch.exp(ssm.a_log)
     xh = xs.reshape(-1, heads, cfg.ssm_head_dim)
+    d_skip = ssm.d_skip
+    if ssm.head_mesh is not None:                       # the rank's heads
+        mine = _heads(ssm.head_mesh, heads)
+        dt, a, xh, d_skip = dt[:, mine], a[mine], xh[:, mine], d_skip[mine]
     decay = torch.exp(dt * a)                           # (B, h)
     state = cache["state"] * decay[..., None, None] + (
         (xh * dt[..., None])[..., None] * B[:, None, None, :])
     y = (state @ C[:, None, :, None])[..., 0]             # (B, h, p)
-    y = y + ssm.d_skip[:, None] * xh
+    y = y + d_skip[:, None] * xh
+    if ssm.head_mesh is not None:
+        y = annotate.ssm_heads(y, ssm.head_mesh, 1)
     out = _gated_out(ssm, y.reshape(-1, d_in), z, x.dtype)[:, None, :]
     cache["state"].copy_(state)
     cache["conv"].copy_(window[:, 1:])

@@ -48,6 +48,25 @@ these, each under its own label:
 * :func:`gather_to_leader` (``ckpt_gather``) - a leaf's blocks gathered
   to the mesh's leader alone, for a checkpoint.
 
+The mesh prefill and decode steps (``launch/steps.py``, Megatron TP over
+the rules' blocks) run outside autograd and add, each under its own label:
+
+* :func:`tp_reduce` (``tp_reduce``) - the row-parallel sum over ``model``
+  of the partial outputs of ``wo`` and ``w_down``;
+* :func:`vocab_embed` (``vocab_embed``) - the vocab-parallel lookup's sum
+  over ``model``: each rank contributes the rows of the ids in its range;
+* :func:`sp_max` and :func:`sp_sum` (``sp_combine``) - the running max,
+  then the exp-sums and weighted values, of a softmax whose keys are split
+  over the sequence-parallel axes;
+* :func:`ssm_heads` (``ssm_heads``) - the SSM heads' outputs gathered
+  over ``model`` before the gated norm;
+* :func:`cache_handoff` (``cache_handoff``) - a sequence-parallel
+  prefill cache gathered along the sequence, to be cut into the decode
+  cache's blocks.
+
+``fsdp_gather`` keeps its meaning there: on a leaf that the step computes
+as its TP block it gathers over ``data`` only.
+
 Every collective adds the bytes it brings to this rank (its output less the
 rank's own part) to :data:`TRAFFIC` under its label; :func:`reset_traffic`
 sets the counts to 0. A group of one rank moves nothing and is skipped.
@@ -270,3 +289,52 @@ def gather_to_leader(block: torch.Tensor, mesh, spec) -> torch.Tensor | None:
         out[rules.block_slices(whole, spec, mesh, coords)] = \
             part.cpu().view(block.dtype).reshape(block.shape)
     return out
+
+
+# ----------------------------------------------------------------------------
+# The LM mesh's serving collectives (no autograd)
+# ----------------------------------------------------------------------------
+
+#: Labels of the mesh prefill and decode steps' collectives.
+TP_REDUCE, VOCAB_EMBED, SP_COMBINE = "tp_reduce", "vocab_embed", "sp_combine"
+SSM_HEADS, CACHE_HANDOFF = "ssm_heads", "cache_handoff"
+
+
+def tp_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's row-parallel sum over ``model`` of the partial outputs
+    of this rank's heads or ``d_ff`` columns."""
+    return all_reduce_sum(x, mesh, "model", TP_REDUCE)
+
+
+def vocab_embed(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The vocab-parallel lookup's sum over ``model``: every id's row comes
+    from the one rank whose vocabulary block holds it, zeros elsewhere."""
+    return all_reduce_sum(x, mesh, "model", VOCAB_EMBED)
+
+
+def sp_max(x: torch.Tensor, mesh, axes: tuple[str, ...]) -> torch.Tensor:
+    """The max of ``x`` over the sequence-parallel ``axes``."""
+    for axis in axes:
+        x = all_reduce_max(x, mesh, axis, SP_COMBINE)
+    return x
+
+
+def sp_sum(x: torch.Tensor, mesh, axes: tuple[str, ...]) -> torch.Tensor:
+    """The sum of ``x`` over the sequence-parallel ``axes``."""
+    for axis in axes:
+        x = all_reduce_sum(x, mesh, axis, SP_COMBINE)
+    return x
+
+
+def ssm_heads(y: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This rank's SSM heads' outputs -> every head's, along ``dim``."""
+    return all_gather(y, mesh, "model", dim, SSM_HEADS)
+
+
+def cache_handoff(x: torch.Tensor, mesh, axes: tuple[str, ...],
+                  dim: int) -> torch.Tensor:
+    """A cache block split along ``dim`` over ``axes`` (major first) ->
+    the whole of that dim."""
+    for axis in reversed(axes):                         # minor axis first
+        x = all_gather(x, mesh, axis, dim, CACHE_HANDOFF)
+    return x

@@ -138,10 +138,15 @@ def _leaf_spec(name: str, shape: tuple[int, ...], mesh,
 
 
 def _tree_map(fn, tree, name: str = ""):
-    """``fn(name, leaf)`` over a tree of dicts, ``name`` the leaf's own
-    key (JAX's last ``DictKey`` of the path); a dict stays a dict."""
+    """``fn(name, leaf)`` over a tree of dicts and tuples, ``name`` the
+    leaf's own key (JAX's last ``DictKey`` of the path); a dict stays a
+    dict, a tuple a tuple and None (an empty subtree) None."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v, str(k)) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v, name) for v in tree)
+    if tree is None:
+        return None
     return fn(name, tree)
 
 
@@ -296,3 +301,122 @@ def logits_spec(mesh, batch: int, vocab: int) -> Spec:
     b_ax = dp if _fits(batch, dp, mesh) else None
     v_ax = "model" if vocab % mesh.shape.get("model", 1) == 0 else None
     return (b_ax, None, v_ax)
+
+
+# ----------------------------------------------------------------------------
+# The mesh prefill and decode steps' plan
+# ----------------------------------------------------------------------------
+
+def _specs_named(tree: Any, name: str, key: str = "") -> list[Spec]:
+    """The specs of every leaf called ``name`` in a spec tree (dicts, and
+    tuples of dicts as the hybrid's prefill caches; a spec is a tuple of
+    axis entries)."""
+    if isinstance(tree, dict):
+        return [s for k, v in tree.items()
+                for s in _specs_named(v, name, str(k))]
+    if isinstance(tree, tuple) and any(isinstance(v, dict) for v in tree):
+        return [s for v in tree for s in _specs_named(v, name, key)]
+    return [tree] if key == name and tree is not None else []
+
+
+def _entry(spec: Spec, dim: int) -> Axis:
+    """``spec``'s entry for ``dim`` (negative from the end), None past its
+    length (a replicated leaf's spec is ())."""
+    return spec[dim] if -len(spec) <= dim < len(spec) else None
+
+
+def _modules(specs: dict[str, Spec], leaf: str) -> list[str]:
+    return sorted(n.rpartition(".")[0] for n in specs
+                  if n.rpartition(".")[2] == leaf)
+
+
+def serve_plan(specs: dict[str, Spec], cache: Any) -> dict[str, Any]:
+    """What each module of the mesh prefill or decode step computes, from
+    the specs alone: ``specs`` the per-block parameter specs of mode "tp"
+    (:func:`model_specs`), ``cache`` :func:`cache_specs` of the step's
+    cache (the decode cache, or prefill's compact caches). Returns
+    {module name: mode}:
+
+    * attention (``...attn``): "heads" - Megatron TP on the rank's heads,
+      where ``wq``, ``wk`` and ``wv`` split their heads and ``wo`` its
+      input over ``model`` and the cache its KV heads; ("seq", axes) -
+      sequence parallel, the cache's sequence split over ``axes``, the
+      weights whole; or "whole";
+    * a dense MLP (``...mlp``): "tp" where ``w_up`` / ``w_gate`` split ff
+      and ``w_down`` its input over ``model``, else "whole";
+    * an SSM (``...ssm``): "heads" where the state's heads split over
+      ``model`` (its projections whole), else "whole";
+    * "embed" (the lookup) and "head" (the logits): "vocab" where the
+      table splits the vocabulary over ``model``, else "whole".
+
+    A MoE's experts are not planned here: they take the train step's path
+    (expert parallel under ``cfg.moe_shard_map``, else gathered whole). A
+    cache that splits its KV heads over ``model`` while the projections
+    keep theirs whole is no layout of the rules, and raises."""
+    plan: dict[str, Any] = {}
+    kv = _specs_named(cache, "k")
+    state = _specs_named(cache, "state")
+    for mod in _modules(specs, "wq"):
+        if not kv:
+            raise ValueError(f"{mod}: the cache holds no attention K / V")
+        k = kv[0]
+        heads = (all(_entry(specs[f"{mod}.{w}"], -2) == "model"
+                     for w in ("wq", "wk", "wv"))
+                 and _entry(specs[f"{mod}.wo"], 0) == "model")
+        if _entry(k, -2) == "model":
+            if not heads:
+                raise ValueError(f"{mod}: the cache splits its KV heads over "
+                                 "'model', the projections do not split "
+                                 "theirs")
+            plan[mod] = "heads"
+        elif _entry(k, -3) is not None:
+            plan[mod] = ("seq", axes_of(_entry(k, -3)))
+        else:
+            plan[mod] = "whole"
+    for mod in _modules(specs, "w_down"):
+        if f"{mod}.router" in specs:
+            continue                                    # a MoE
+        cols = [f"{mod}.{w}" for w in ("w_up", "w_gate")
+                if f"{mod}.{w}" in specs]
+        tp = (all(_entry(specs[c], -1) == "model" for c in cols)
+              and _entry(specs[f"{mod}.w_down"], 0) == "model")
+        plan[mod] = "tp" if tp else "whole"
+    for mod in _modules(specs, "in_proj"):
+        split = bool(state) and _entry(state[0], -3) == "model"
+        plan[mod] = "heads" if split else "whole"
+    plan["embed"] = ("vocab" if _entry(specs["embed"], 0) == "model"
+                     else "whole")
+    head = (_entry(specs["lm_head"], -1) if "lm_head" in specs
+            else _entry(specs["embed"], 0))
+    plan["head"] = "vocab" if head == "model" else "whole"
+    return plan
+
+
+#: The leaves each mode of :func:`serve_plan` computes as the rank's block.
+_PLANNED_LEAVES = {"heads": ("wq", "wk", "wv", "wo"),
+                   "tp": ("w_up", "w_gate", "w_down")}
+
+
+def block_leaves(plan: dict[str, Any], specs: dict[str, Spec]) -> set[str]:
+    """The parameters that ``plan`` computes as the rank's TP block: each
+    is gathered over ``data`` alone, never over ``model``."""
+    out = set()
+    for mod, mode in plan.items():
+        if isinstance(mode, str):            # an SSM's "heads" has none
+            out.update(n for n in (f"{mod}.{leaf}" for leaf in
+                                   _PLANNED_LEAVES.get(mode, ()))
+                       if n in specs)
+    if plan["embed"] == "vocab":
+        out.add("embed")
+    if plan["head"] == "vocab" and "lm_head" in specs:
+        out.add("lm_head")
+    return out
+
+
+def without_model(spec: Spec) -> Spec:
+    """``spec`` with its ``model`` entries dropped: a TP block gathered
+    over the other axes only."""
+    if any(isinstance(ax, tuple) and "model" in ax for ax in spec):
+        raise ValueError(f"spec {spec} splits one dim over 'model' and "
+                         "another axis: not a TP block")
+    return tuple(None if ax == "model" else ax for ax in spec)
